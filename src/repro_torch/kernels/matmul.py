@@ -1,0 +1,66 @@
+"""The hand-written CUDA matmul kernel (``csrc/matmul.cu``) and its wrapper.
+
+Port of ``repro/kernels/matmul_pallas.py::matmul``, the compute payload of
+the paper's Fig. 2 benchmark: ``(M, K) @ (K, N) -> (M, N)`` in ``x.dtype``
+with a float32 sum.  The source's header says how the TPU kernel's blocking
+translates and what bounds the kernel on the H100.
+
+For tensors on the CPU the wrapper returns the plain version
+(:func:`repro_torch.kernels.ref.matmul`).  For CUDA tensors it launches the
+kernel or raises; it never falls back.  ``matmul.launches`` counts the
+kernel's launches, so a run can show that its work went through the kernel.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from . import _build, ref
+
+_ENTRY = {torch.float32: "repro_matmul_f32",
+          torch.bfloat16: "repro_matmul_bf16"}
+_INT_MAX = 2 ** 31 - 1
+_launch_lock = threading.Lock()   # guards matmul.launches across workers
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` for row-major 2-D ``x (M, K)`` and ``y (K, N)`` of one dtype
+    (float32 or bfloat16 on the card) on one device."""
+    if x.dim() != 2 or y.dim() != 2:
+        raise ValueError(f"matmul takes 2-D tensors, got {tuple(x.shape)} "
+                         f"and {tuple(y.shape)}")
+    if x.shape[1] != y.shape[0]:
+        raise ValueError(f"inner dims differ: {tuple(x.shape)} @ "
+                         f"{tuple(y.shape)}")
+    if x.dtype != y.dtype:
+        raise TypeError(f"dtypes differ: {x.dtype} and {y.dtype}")
+    if x.device != y.device:
+        raise ValueError(f"devices differ: {x.device} and {y.device}")
+    if x.device.type == "cpu":
+        return ref.matmul(x, y)
+    if x.device.type != "cuda":
+        raise ValueError(f"no matmul kernel for device {x.device}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"the matmul kernel takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("the matmul kernel takes contiguous tensors")
+    (M, K), N = x.shape, y.shape[1]
+    if max(M, N, K) > _INT_MAX:
+        raise ValueError(f"dims {M}, {N}, {K} exceed the kernel's int range")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(lib, _ENTRY[x.dtype])(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
+        x.device.index, stream)
+    _build.check(err, "matmul kernel launch")
+    with _launch_lock:
+        matmul.launches += 1
+    return out
+
+
+matmul.launches = 0

@@ -1,0 +1,122 @@
+"""The port's matmul entry point on the CPU against the JAX package's Pallas
+kernel (interpret mode), and the port's numpy interop.
+
+Same inputs, made from a seed with numpy, go through
+``repro.kernels.ops.matmul(..., interpret=True)`` and
+``repro_torch.kernels.ops.matmul`` (whose wrapper takes the plain PyTorch
+version for CPU tensors).  Tolerance: ``tests/test_kernels.py``'s matmul
+tolerances (2e-5 float32, 2e-2 bfloat16), applied to ``out / sqrt(K)``: the
+inputs are standard normal, so products grow like ``sqrt(K)`` and the two
+frameworks' different summation orders leave an error that grows with them.
+"""
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro_torch.interop import tensor_from_numpy, tensor_to_numpy  # noqa: E402
+from repro_torch.kernels import matmul as pt_matmul  # noqa: E402
+from repro_torch.kernels import ops as pt_ops, ref as pt_ref  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(M, K, N, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K), dtype=np.float32)
+    y = rng.standard_normal((K, N), dtype=np.float32)
+    if dtype == "bfloat16":
+        x, y = x.astype(jnp.bfloat16), y.astype(jnp.bfloat16)
+    return x, y
+
+
+# two shapes of test_kernels.py's matmul sweep, plus a ragged one
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (256, 512, 128),
+                                   (100, 77, 131)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_matches_pallas(M, K, N, dtype):
+    x, y = _inputs(M, K, N, dtype)
+    want = np.asarray(jax_ops.matmul(jnp.asarray(x), jnp.asarray(y),
+                                     interpret=True), np.float32)
+    out = pt_ops.matmul(tensor_from_numpy(x, "cpu"),
+                        tensor_from_numpy(y, "cpu"))
+    assert tuple(out.shape) == (M, N)
+    assert out.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                         else torch.float32)
+    got = np.asarray(tensor_to_numpy(out), np.float32)
+    s = np.sqrt(K)
+    np.testing.assert_allclose(got / s, want / s, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_ops_impls_agree_and_cpu_does_not_count_launches():
+    x, y = (tensor_from_numpy(a, "cpu") for a in _inputs(64, 48, 32,
+                                                          "float32"))
+    before = pt_matmul.matmul.launches
+    kernel = pt_ops.matmul(x, y)
+    plain = pt_ops.matmul(x, y, impl="ref")
+    assert torch.equal(kernel, plain)         # CPU: the wrapper IS ref
+    assert pt_matmul.matmul.launches == before
+    with pytest.raises(ValueError):
+        pt_ops.matmul(x, y, impl="pallas")
+
+
+@pytest.mark.parametrize("bad", ["inner", "dtype", "rank"])
+def test_matmul_wrapper_rejects_bad_arguments(bad):
+    x = torch.zeros(4, 3)
+    y = {"inner": torch.zeros(4, 5),
+         "dtype": torch.zeros(3, 5, dtype=torch.float64),
+         "rank": torch.zeros(3, 5, 1)}[bad]
+    with pytest.raises((ValueError, TypeError)):
+        pt_matmul.matmul(x, y)
+
+
+def test_ref_matmul_computes_in_float32():
+    x, y = _inputs(16, 300, 8, "bfloat16", seed=3)
+    out = pt_ref.matmul(tensor_from_numpy(x, "cpu"),
+                        tensor_from_numpy(y, "cpu"))
+    want = (np.asarray(x, np.float32) @ np.asarray(y, np.float32)
+            ).astype(jnp.bfloat16)
+    got = tensor_to_numpy(out)
+    # one bf16 rounding of an fp32 sum on each side: at most one bf16 ulp
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=2 ** -7)
+
+
+# ------------------------------------------------------------------ interop
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32, jnp.int32])
+def test_interop_round_trip_from_jax_is_bit_exact(dtype):
+    rng = np.random.default_rng(1)
+    a = jnp.asarray(rng.standard_normal((5, 7)) * 100, dtype)
+    host = np.asarray(a)                     # read-only, as JAX hands it out
+    assert not host.flags.writeable
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")       # torch warns on read-only memory
+        t = tensor_from_numpy(host, "cpu")
+    back = tensor_to_numpy(t)
+    assert back.dtype == host.dtype and back.shape == host.shape
+    assert back.tobytes() == host.tobytes()
+
+
+def test_interop_bf16_matches_torch_cast_bits():
+    x = np.random.default_rng(2).standard_normal(64, dtype=np.float32)
+    via_numpy = tensor_from_numpy(x.astype(jnp.bfloat16), "cpu")
+    via_torch = torch.from_numpy(x).to(torch.bfloat16)
+    assert torch.equal(via_numpy.view(torch.int16), via_torch.view(torch.int16))
+
+
+def test_interop_does_not_alias_readonly_or_strided_input():
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    t = tensor_from_numpy(a[:, ::-1], "cpu")       # negative strides
+    assert torch.equal(t, torch.tensor(a[:, ::-1].copy()))
+    ro = a.copy()
+    ro.flags.writeable = False
+    t = tensor_from_numpy(ro, "cpu")
+    t += 1
+    assert ro[0, 0] == 0.0
