@@ -20,7 +20,22 @@ Each phase prints one line; any failure raises and exits non-zero:
 4. main path — the paper's Fig. 2 DAG (16 units of 4096x4096 float32) traced
    and run on the sequential oracle and on the threaded work-stealing
    executor: threaded == sequential bit for bit, each ``mul`` against the
-   plain matmul of its inputs, and 16 kernel launches per run.
+   plain matmul of its inputs, and 16 kernel launches per run;
+5. ssm_scan — the selective-scan kernel against its plain version at the
+   long-prefill shape (1x2048x8192, N = 16), a decode step (S = 1, with
+   ``h0``) and a ragged shape (3x1000x1000, with ``h0``), in float32 and
+   bfloat16, with CUDA-event times beside the card's bound;
+6. serve — falcon-mamba-7b at full width (64 layers, 7,272,665,088
+   float32 parameters drawn on the card from a seed) served by the port's
+   launcher, ``repro_torch.launch.serve.main``, with a traced request on
+   the threaded executor: 4 requests, 28 decode steps, the traced tokens a
+   prefix of request 0's, and 64 scan launches per forward;
+7. long prefill — one 2048-token prompt through the prefill step and 8
+   greedy decode steps, once with the scan kernel and once with its plain
+   version on the same tokens: last-position logits within ``LOGIT_TOL``.
+
+With ``--profile`` it then profiles one decode step and two prefills of
+the served model (device time by kernel, device busy share).
 
 Then one JSON line of the kernels, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -51,6 +66,28 @@ N_TASKS, SIZE, N_WORKERS = 16, 4096, 4          # the main path's DAG
 KERNEL_SHAPES = [(SIZE, SIZE, SIZE), (1000, 1531, 777)]   # (M, N, K)
 REPS = 10
 
+# the serve path: falcon-mamba-7b at full width, the JAX launcher's
+# defaults for prompts (4-12 tokens) and --max-len 64
+ARCH, N_PARAMS = "falcon-mamba-7b", 7_272_665_088
+SERVE_ARGV = ["--arch", ARCH, "--requests", "4", "--slots", "2",
+              "--max-new", "8", "--show-graph", "--backend", "thread"]
+SERVE_DECODE_STEPS = 28          # 4 requests x 7 decode steps each
+SERVE_FORWARDS = 3 + 4 + 28      # traced request + prefills + decode steps
+# (Bsz, S, D, N, with h0): the long prefill, one decode step and one
+# served prefill (from the cache's zero state) of falcon-mamba-7b, and a
+# ragged shape
+SCAN_SHAPES = [(1, 2048, 8192, 16, False), (1, 1, 8192, 16, True),
+               (1, 12, 8192, 16, True), (3, 1000, 1000, 16, True)]
+# tests/test_kernels.py's ssm tolerances (rtol = atol)
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+LONG_PROMPT, LONG_DECODE = 2048, 8
+# Kernel and plain scan agree to the last bits of float32, but the model
+# rounds the scan's output to bf16 in each of its 64 layers, so a last-bit
+# difference can flip a bf16 rounding and grow through the depth.  The
+# logits have about unit scale (printed); a broken scan moves them by
+# whole units, this drift by a small fraction of one.
+LOGIT_TOL = 0.5
+
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
@@ -80,11 +117,14 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.library()
     seconds = time.perf_counter() - t0
-    kernels, entry = [], None
+    kernels, entry, source = [], None, None
     for text in _build.ptxas_report().splitlines():
+        if text.startswith("== "):
+            source, entry = text[3:].strip(), None
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", text)
         if m:
-            entry = {"entry": m.group(1)}
+            entry = {"source": source, "entry": m.group(1)}
             kernels.append(entry)
             continue
         if entry is None:
@@ -98,8 +138,10 @@ def phase_build() -> None:
             entry["registers"] = int(m.group(1))
             m = re.search(r"(\d+) bytes smem", text)
             entry["smem_bytes"] = int(m.group(1)) if m else 0
-    if not kernels:
-        fail(f"no ptxas report found:\n{_build.ptxas_report()}")
+    sources = {k["source"] for k in kernels}
+    if sources != {"matmul.cu", "ssm_scan.cu"} or \
+            any("registers" not in k for k in kernels):
+        fail(f"no ptxas report for every kernel:\n{_build.ptxas_report()}")
     line("build", {"seconds": seconds, "cached": cached,
                    "dir": str(_build.build_dir().relative_to(ROOT)),
                    "ptxas": kernels})
@@ -245,6 +287,253 @@ def phase_main_path(torch, checks: list) -> int:
     return launches
 
 
+def scan_bound(Bsz: int, S: int, D: int, N: int, itemsize: int,
+               with_h0: bool):
+    """Least time the card could take for one scan: x, dt, B, C (and h0)
+    read once, y and h_final written once, A read once, at HBM bandwidth;
+    or 7 float32 operations per state element and step (the exp counted
+    as one) at the CUDA cores' float32 peak, whatever the input type."""
+    nbytes = (itemsize * (3 * Bsz * S * D + 2 * Bsz * S * N) + 4 * D * N
+              + 4 * Bsz * D * N * (2 if with_h0 else 1))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 7.0 * Bsz * S * D * N / PEAK_FLOPS["float32"] * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_scan_kernels(torch) -> list:
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, ssm_scan as scan
+    from repro_torch.models.layers import ParamSpec, init_param
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+    checks = []
+    for Bsz, S, D, N, with_h0 in SCAN_SHAPES:
+        # dt as the model makes it: softplus of a unit normal shifted by a
+        # dt bias from the model's own initialiser; A from mamba_A
+        dt_bias = init_param(ParamSpec("smoke/dt_bias", (D,), "mamba_dt"),
+                             0, torch.float32, dev)
+        A = -torch.exp(init_param(ParamSpec("smoke/A_log", (D, N),
+                                            "mamba_A"), 0, torch.float32,
+                                  dev))
+        x = torch.randn(Bsz, S, D, generator=gen, device=dev)
+        dt = F.softplus(torch.randn(Bsz, S, D, generator=gen, device=dev)
+                        + dt_bias)
+        B = torch.randn(Bsz, S, N, generator=gen, device=dev)
+        C = torch.randn(Bsz, S, N, generator=gen, device=dev)
+        h0 = (torch.randn(Bsz, D, N, generator=gen, device=dev)
+              if with_h0 else None)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            args = [t.to(dtype) for t in (x, dt, B, C)] + [A, h0]
+            y, h = scan.ssm_scan(*args, return_state=True)
+            want_y, want_h = ref.ssm_scan(*args, return_state=True)
+            torch.cuda.synchronize()
+            tol = SCAN_TOL[dname]
+            err_y = (y.float() - want_y.float()).abs().max().item()
+            err_h = (h - want_h).abs().max().item()
+            ok = (y.dtype == dtype and h.dtype == torch.float32
+                  and torch.allclose(y.float(), want_y.float(), rtol=tol,
+                                     atol=tol)
+                  and torch.allclose(h, want_h, rtol=tol, atol=tol))
+            if not ok:
+                fail(f"ssm_scan {dname} {(Bsz, S, D, N)} h0={with_h0}: "
+                     f"kernel disagrees with the plain version, max |err| "
+                     f"y {err_y}, h_final {err_h}")
+            b_ms, b_by = scan_bound(Bsz, S, D, N, dtype.itemsize, with_h0)
+            checks.append({
+                "shape": [Bsz, S, D, N], "h0": with_h0, "dtype": dname,
+                "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
+                "max_abs_err_h": err_h, "tol": tol,
+                "ms": cuda_ms(torch, lambda: scan.ssm_scan(
+                    *args, return_state=True)),
+                "plain_ms": cuda_ms(torch, lambda: ref.ssm_scan(
+                    *args, return_state=True), reps=2 if S > 64 else REPS),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+            print(f"ssm_scan {dname} {Bsz}x{S}x{D} N={N} h0={with_h0}: "
+                  f"err {checks[-1]['max_abs_err']:.3g} (tol {tol}) | "
+                  f"kernel {checks[-1]['ms']:.4f} ms | plain "
+                  f"{checks[-1]['plain_ms']:.3f} ms | bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+            del args, y, h, want_y, want_h
+    line("ssm_scan_vs_plain", checks)
+    return checks
+
+
+def phase_params(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    cfg = get_config(ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = TF.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    leaves, stack = [], [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        else:
+            leaves.append(node)
+    n = sum(t.numel() for t in leaves)
+    if n != N_PARAMS or n != TF.count_params(cfg):
+        fail(f"{ARCH}: drew {n} parameters, expected {N_PARAMS}")
+    if not all(t.is_cuda and t.dtype == cfg.pdtype for t in leaves):
+        fail(f"{ARCH}: parameters not all {cfg.pdtype} on the card")
+    line("params", {"arch": ARCH, "n_params": n, "dtype": cfg.param_dtype,
+                    "bytes": sum(t.numel() * t.element_size()
+                                 for t in leaves),
+                    "draw_s": seconds, "layers": cfg.n_layers,
+                    "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+                    "vocab": cfg.vocab_size,
+                    "compute_dtype": cfg.compute_dtype})
+    return cfg, params
+
+
+def phase_serve(torch, cfg, params) -> int:
+    from repro_torch.kernels import matmul as mm, ssm_scan as scan
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    mm.matmul.launches = 0
+    scan.ssm_scan.launches = 0
+    out = serve.main(SERVE_ARGV, params=params)
+    launches = scan.ssm_scan.launches
+    finished = sorted(out["finished"], key=lambda r: r.rid)
+    if len(finished) != 4 or out["decode_steps"] != SERVE_DECODE_STEPS:
+        fail(f"served {len(finished)} requests in {out['decode_steps']} "
+             f"decode steps, expected 4 in {SERVE_DECODE_STEPS}")
+    if out["forwards"] != SERVE_FORWARDS or \
+            launches != cfg.n_layers * out["forwards"]:
+        fail(f"{launches} ssm_scan launches in {out['forwards']} forwards, "
+             f"expected {cfg.n_layers} per forward and {SERVE_FORWARDS} "
+             f"forwards")
+    if mm.matmul.launches != 0:
+        fail("the serve path launched the matmul kernel")
+    if out["traced_tokens"] != finished[0].out[:3]:
+        fail(f"traced tokens {out['traced_tokens']} do not prefix request "
+             f"0's {finished[0].out}")
+    if any(not 0 <= t < cfg.vocab_size for r in finished for t in r.out):
+        fail("a served token lies outside the vocabulary")
+    line("serve", {
+        "arch": ARCH, "argv": SERVE_ARGV, "requests": len(finished),
+        "decode_steps": out["decode_steps"], "forwards": out["forwards"],
+        "ssm_scan_launches": launches, "wall_s": out["wall"],
+        "ttft_p50_s": out["ttft_p50"], "latency_p50_s": out["latency_p50"],
+        "decode_tok_s": out["decode_tok_s"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "traced_tokens": out["traced_tokens"],
+        "tokens": {r.rid: r.out for r in finished}})
+    return launches
+
+
+def phase_long_prefill(torch, cfg, params) -> dict:
+    from repro_torch.kernels import ssm_scan as scan
+    from repro_torch.models import transformer as TF
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(1, cfg.vocab_size, (1, LONG_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+
+    def run(impl, feed=None):
+        """Prefill, then LONG_DECODE greedy steps fed the run's own tokens
+        or ``feed``'s; returns tokens, last-position logits, seconds."""
+        prefill = TF.make_prefill_step(cfg, impl=impl)
+        decode = TF.make_decode_step(cfg, impl=impl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill(params, prompt)
+        logits = [last[0].clone()]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for i in range(LONG_DECODE):
+            tok = feed[i] if feed else int(torch.argmax(logits[-1]))
+            step, cache = decode(params, cache, torch.tensor(
+                [[tok]], dtype=torch.int32, device="cuda"))
+            logits.append(step[0].clone())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0 - prefill_s
+        logits = torch.stack(logits)
+        toks = [int(t) for t in torch.argmax(logits, dim=-1)]
+        return toks, logits, prefill_s, decode_s
+
+    torch.cuda.reset_peak_memory_stats()
+    scan.ssm_scan.launches = 0
+    toks_k, logits_k, pre_k, dec_k = run("kernel")
+    launches_k = scan.ssm_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    toks_r, logits_r, pre_r, dec_r = run("ref", feed=toks_k)
+    if launches_k != cfg.n_layers * (1 + LONG_DECODE) or \
+            scan.ssm_scan.launches != launches_k:
+        fail(f"{launches_k} and {scan.ssm_scan.launches - launches_k} scan "
+             f"launches in the kernel and plain runs, expected "
+             f"{cfg.n_layers * (1 + LONG_DECODE)} and 0")
+    if not (torch.isfinite(logits_k).all() and torch.isfinite(logits_r).all()):
+        fail("non-finite logits in the long prefill")
+    diff = (logits_k - logits_r).abs().max().item()
+    if diff > LOGIT_TOL:
+        fail(f"long prefill: kernel and plain scans give last-position "
+             f"logits {diff} apart, tolerance {LOGIT_TOL}")
+    for j, (a, b) in enumerate(zip(toks_k, toks_r)):
+        top2 = logits_r[j].topk(2).values
+        if a != b and (top2[0] - top2[1]).item() > LOGIT_TOL:
+            fail(f"long prefill: greedy token {j} differs ({a} vs {b}) and "
+                 f"the plain run's top two logits are "
+                 f"{(top2[0] - top2[1]).item()} apart")
+    out = {"prompt_tokens": LONG_PROMPT, "decode_steps": LONG_DECODE,
+           "max_abs_logit_diff": diff, "tol": LOGIT_TOL,
+           "logit_std": logits_r.std().item(),
+           "logit_max_abs": logits_r.abs().max().item(),
+           "tokens_kernel": toks_k, "tokens_plain": toks_r,
+           "prefill_s_kernel": pre_k, "decode_ms_per_step_kernel":
+           dec_k / LONG_DECODE * 1e3, "prefill_s_plain": pre_r,
+           "decode_ms_per_step_plain": dec_r / LONG_DECODE * 1e3,
+           "ssm_scan_launches": launches_k, "peak_device_bytes": peak}
+    line("long_prefill", out)
+    return out
+
+
+def phase_profile(torch, cfg, params) -> None:
+    """Where the serve path's device time goes (``--profile`` only): one
+    decode step, one served-size prefill and one LONG_PROMPT prefill under
+    ``torch.profiler``, with the device time of each kernel name and the
+    device's busy share of the host-clock wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as TF
+    prefill = TF.make_prefill_step(cfg)
+    decode = TF.make_decode_step(cfg)
+    prompt = torch.randint(1, cfg.vocab_size, (1, LONG_PROMPT),
+                           device="cuda", dtype=torch.int32)
+    short = prompt[:, :12].contiguous()
+    token = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    cache = prefill(params, short)[1]
+    for name, fn in (("decode_step", lambda: decode(params, cache, token)),
+                     ("prefill_12", lambda: prefill(params, short)),
+                     (f"prefill_{LONG_PROMPT}",
+                      lambda: prefill(params, prompt))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # the device's own entries (kernels, copies, sets): their self
+        # device times add up to the time the device was busy
+        kernels = [(e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        kernels.sort(reverse=True)
+        busy_us = sum(k[0] for k in kernels)
+        line(f"profile_{name}", {
+            "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernel_launches": sum(k[1] for k in kernels),
+            "top": [{"kernel": k[2][:120], "count": k[1],
+                     "device_ms": k[0] / 1e3} for k in kernels[:12]]})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -263,20 +552,34 @@ def main() -> int:
     phase_build()
     checks = phase_kernels(torch)
     launches = phase_main_path(torch, checks)
+    scan_checks = phase_scan_kernels(torch)
+    cfg, params = phase_params(torch)
+    scan_launches = phase_serve(torch, cfg, params)
+    phase_long_prefill(torch, cfg, params)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(torch, cfg, params)
+    del params
+
+    def entry(kernel, replaces, n, check, all_checks):
+        return {"name": kernel, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{kernel}.cu",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": check["max_abs_err"], "ms": check["ms"],
+                "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
+                "bound_by": check["bound_by"],
+                "library_ms": check["library_ms"], "shape": check["shape"],
+                "dtype": check["dtype"], "checks": all_checks}
+
     main_check = next(c for c in checks
                       if c["dtype"] == "float32" and c["shape"] == [SIZE] * 3)
-    print(json.dumps({"kernels": [{
-        "name": "matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/matmul.cu",
-        "replaces": "src/repro/kernels/matmul_pallas.py:45",
-        "launches": launches,
-        "max_abs_err": main_check["max_abs_err"],
-        "ms": main_check["ms"], "plain_ms": main_check["plain_ms"],
-        "bound_ms": main_check["bound_ms"],
-        "bound_by": main_check["bound_by"],
-        "library_ms": main_check["library_ms"],
-        "shape": main_check["shape"], "dtype": main_check["dtype"],
-        "checks": checks}]}), flush=True)
+    # the serve path's most launched shape: one decode step from the cache
+    decode_check = next(c for c in scan_checks
+                        if c["dtype"] == "float32" and c["shape"][1] == 1)
+    print(json.dumps({"kernels": [
+        entry("matmul", "src/repro/kernels/matmul_pallas.py:45", launches,
+              main_check, checks),
+        entry("ssm_scan", "src/repro/kernels/ssm_scan.py:48", scan_launches,
+              decode_check, scan_checks)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

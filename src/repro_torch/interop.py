@@ -11,10 +11,12 @@ functions are what put identical inputs into both.
 * Arrays that are not writable (every array ``np.asarray`` makes of a JAX
   array) are copied first: ``torch.from_numpy`` would share read-only memory
   and warns on it.
+* A parameter tree of the JAX package (nested dicts of arrays, from
+  ``jax.device_get``) crosses whole with :func:`params_from_numpy`.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -55,3 +57,12 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
         return t.view(torch.int16).numpy().view(np.uint16) \
             .view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def params_from_numpy(tree: Dict[str, Any], device: Device) -> Dict[str, Any]:
+    """A parameter tree of nested dicts of numpy arrays (the JAX package's
+    ``init_params`` tree after ``jax.device_get``) as the same tree of
+    tensors on ``device``, key for key and bit for bit, bfloat16 included."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)

@@ -1,17 +1,18 @@
 """Build the port's CUDA kernels on first use and load them with ctypes.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, ``libkernels.so``, which links the
-CUDA runtime statically and includes no PyTorch header, so it builds in
-seconds.  It lands in ``build/repro_torch/<hash>/`` at the root of the
-checkout, where ``<hash>`` covers the sources and the flags: an edited source
-builds anew, an unchanged one is loaded as it is.  The compiler's
-``-Xptxas -v`` report (registers, shared memory, spills of each kernel) is
-kept beside it as ``nvcc.log``.
+Each source under ``csrc/`` is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them started together, and the objects are linked into one shared
+library with a plain C interface, ``libkernels.so``, which links the CUDA
+runtime statically and includes no PyTorch header, so it builds in seconds.
+It lands in ``build/repro_torch/<hash>/`` at the root of the checkout, where
+``<hash>`` covers the sources and the flags: an edited source builds anew,
+an unchanged one is loaded as it is.  Each compiler's ``-Xptxas -v`` report
+(registers, shared memory, spills of each kernel) is kept beside it in
+``nvcc.log``, under a ``== <source>`` header line per source.
 
 The first build is guarded by a lock: the threaded executor's workers can
-reach their first ``mul`` at the same moment.  The library is compiled into
-a temporary name and renamed, so a process that finds it finds it whole.
+reach their first kernel at the same moment.  The library is linked into a
+temporary name and renamed, so a process that finds it finds it whole.
 """
 from __future__ import annotations
 
@@ -27,13 +28,16 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C function -> argtypes; each returns a cudaError_t as int
 _SIGNATURES = {
     "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_ssm_scan_f32": [_P] * 8 + [_I] * 5 + [_P],
+    "repro_ssm_scan_bf16": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -56,23 +60,51 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _run(cmd: list, log: Path) -> subprocess.Popen:
+    with open(log, "w") as f:      # the child keeps its own copy of the fd
+        return subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+
+
 def _compile(out_dir: Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libkernels.so.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    nvcc, pid = _nvcc(), os.getpid()
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{pid}.o"
+        log = out_dir / f"{src.stem}.{pid}.log"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, log, cmd, _run(cmd, log)))
+    objs = [job[1] for job in jobs]
+    try:
+        report, failed = [], []
+        for src, _, log, cmd, proc in jobs:
+            proc.wait()
+            text = log.read_text()
+            log.unlink()
+            report.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed with exit code "
+                              f"{proc.returncode}:\n{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out_dir / f"libkernels.so.{pid}.tmp"
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"linking failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    (out_dir / "nvcc.log").write_text("".join(report))
     os.replace(tmp, out_dir / "libkernels.so")
 
 

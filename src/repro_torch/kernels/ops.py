@@ -3,15 +3,17 @@
 Port of ``repro/kernels/ops.py``.  ``impl="kernel"`` (the default) calls the
 hand-written kernel's wrapper, which launches the kernel for CUDA tensors
 and uses the plain version for CPU tensors; ``impl="ref"`` calls the plain
-version on any device.  Flash attention and the SSM scan are not ported yet
-(ROADMAP §2).
+version on any device.  Flash attention is not ported yet (ROADMAP §2).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from . import matmul as _matmul
 from . import ref
+from . import ssm_scan as _ssm_scan
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
@@ -20,4 +22,21 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
         return ref.matmul(x, y)
     if impl == "kernel":
         return _matmul.matmul(x, y)
+    raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, A: torch.Tensor,
+             h0: Optional[torch.Tensor] = None, *,
+             return_state: bool = False, impl: str = "kernel"):
+    """Selective scan; see :func:`repro_torch.kernels.ssm_scan.ssm_scan`.
+
+    ``ssm_scan(x, dt, B, C, A)`` mirrors ``repro.kernels.ops.ssm_scan``
+    (zero initial state, ``y`` in ``x.dtype``); ``h0`` and ``return_state``
+    carry the state the model needs."""
+    if impl == "ref":
+        return ref.ssm_scan(x, dt, B, C, A, h0, return_state=return_state)
+    if impl == "kernel":
+        return _ssm_scan.ssm_scan(x, dt, B, C, A, h0,
+                                  return_state=return_state)
     raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")

@@ -6,6 +6,8 @@ version: the kernel wrapper runs it for tensors on the CPU, and
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -20,3 +22,32 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(
             "ref.matmul needs torch.backends.cuda.matmul.allow_tf32 = False")
     return (x.float() @ y.float()).to(x.dtype)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, A: torch.Tensor,
+             h0: Optional[torch.Tensor] = None, *,
+             return_state: bool = False):
+    """Step-by-step selective scan in float32.
+
+    ``x, dt (Bsz, S, D)``, ``B, C (Bsz, S, N)``, ``A (D, N)``, optional
+    ``h0 (Bsz, D, N)`` (zeros when None).  Each step does
+    ``h = exp(dt_t * A) * h + (dt_t * x_t) ⊗ B_t`` and ``y_t = h · C_t``.
+    Returns ``y (Bsz, S, D)`` in ``x.dtype``, and with ``return_state``
+    also the float32 state after the last step (``h0`` when ``S == 0``).
+
+    Port of ``repro/kernels/ref.py::ssm_scan``, extended with the initial
+    and final state that ``repro/models/ssm.py::selective_scan`` carries.
+    """
+    Bsz, S, D = x.shape
+    N = A.shape[-1]
+    xf, dtf, Bf, Cf, Af = (t.float() for t in (x, dt, B, C, A))
+    h = (torch.zeros((Bsz, D, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float().clone())
+    ys = torch.empty((Bsz, S, D), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        da = torch.exp(dtf[:, t, :, None] * Af[None])            # (Bsz, D, N)
+        h = da * h + (dtf[:, t] * xf[:, t])[:, :, None] * Bf[:, t, None, :]
+        ys[:, t] = (h * Cf[:, t, None, :]).sum(-1)   # no TF32 product here
+    y = ys.to(x.dtype)
+    return (y, h) if return_state else y

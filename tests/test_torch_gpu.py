@@ -1,10 +1,11 @@
-"""The port's CUDA kernel and main path on the card.
+"""The port's CUDA kernels and paths on the card.
 
 Marked ``gpu``: each test skips inside itself when no CUDA device is
 present.  On the card run ``python -m pytest -m gpu tests/test_torch_gpu.py``.
-Kernel tolerance: ``tests/test_kernels.py``'s matmul tolerances (2e-5
+Kernel tolerances: ``tests/test_kernels.py``'s matmul tolerances (2e-5
 float32, 2e-2 bfloat16) applied to ``out / sqrt(K)``, against the plain
-version with TF32 off.
+version with TF32 off; its ssm tolerances (1e-4 float32, 5e-2 bfloat16)
+for the selective scan.
 """
 import math
 
@@ -106,3 +107,136 @@ def test_threaded_equals_sequential_on_the_card(cuda):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         else:
             assert a == b
+
+
+# ------------------------------------------------------------- ssm scan
+
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _scan_inputs(device, Bsz, S, D, N, dtype, with_h0, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(Bsz, S, D, generator=g, device=device)
+    dt = torch.nn.functional.softplus(
+        torch.randn(Bsz, S, D, generator=g, device=device) - 3.0)
+    B = torch.randn(Bsz, S, N, generator=g, device=device)
+    C = torch.randn(Bsz, S, N, generator=g, device=device)
+    A = -torch.arange(1, N + 1, device=device, dtype=torch.float32).expand(
+        D, N).contiguous()
+    h0 = (torch.randn(Bsz, D, N, generator=g, device=device)
+          if with_h0 else None)
+    return [t.to(dtype) for t in (x, dt, B, C)] + [A, h0]
+
+
+@pytest.mark.parametrize("Bsz,S,D,N", [(3, 1000, 1000, 16), (2, 37, 100, 5),
+                                       (1, 1, 8192, 16), (2, 0, 64, 16),
+                                       (1, 130, 17, 32), (4, 65, 129, 1),
+                                       (1, 64, 48, 9)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_matches_plain_version(cuda, Bsz, S, D, N, with_h0,
+                                               dtype):
+    from repro_torch.kernels import ref, ssm_scan as scan
+    args = _scan_inputs(cuda, Bsz, S, D, N, dtype, with_h0, seed=S + D)
+    before = scan.ssm_scan.launches
+    y, h = scan.ssm_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert scan.ssm_scan.launches == before + 1
+    assert y.shape == (Bsz, S, D) and y.dtype == dtype
+    assert h.shape == (Bsz, D, N) and h.dtype == torch.float32
+    want_y, want_h = ref.ssm_scan(*args, return_state=True)
+    tol = SCAN_TOL[dtype]
+    assert torch.allclose(y.float(), want_y.float(), rtol=tol, atol=tol)
+    assert torch.allclose(h, want_h, rtol=tol, atol=tol)
+    if S == 0:
+        assert torch.equal(h, args[5] if with_h0 else torch.zeros_like(h))
+
+
+def test_ssm_scan_kernel_is_deterministic_across_launches(cuda):
+    from repro_torch.kernels import ssm_scan as scan
+    args = _scan_inputs(cuda, 2, 300, 700, 16, torch.float32, True)
+    y0, h0 = scan.ssm_scan(*args, return_state=True)
+    for _ in range(2):
+        y, h = scan.ssm_scan(*args, return_state=True)
+        assert torch.equal(y.view(torch.int32), y0.view(torch.int32))
+        assert torch.equal(h.view(torch.int32), h0.view(torch.int32))
+
+
+def test_ssm_scan_launch_counter_loses_no_update_under_threads(cuda):
+    import sys
+    import threading
+    from repro_torch.kernels import ssm_scan as scan
+    args = _scan_inputs(cuda, 1, 4, 32, 4, torch.float32, False)
+    n_threads, per_thread = 32, 50
+    before = scan.ssm_scan.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [scan.ssm_scan(*args) for _ in range(per_thread)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert scan.ssm_scan.launches == before + n_threads * per_thread
+
+
+def test_ssm_scan_wrapper_rejects_what_it_cannot_take(cuda):
+    from repro_torch.kernels import ssm_scan as scan
+    x, dt, B, C, A, h0 = _scan_inputs(cuda, 1, 8, 16, 4, torch.float32, True)
+    with pytest.raises(TypeError):
+        scan.ssm_scan(x.half(), dt.half(), B.half(), C.half(), A)
+    with pytest.raises(TypeError):
+        scan.ssm_scan(x, dt, B, C, A.double())
+    with pytest.raises(ValueError):
+        scan.ssm_scan(x, dt, B, C, A.cpu())
+    not_contiguous = torch.randn(1, 4, 8, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError):
+        scan.ssm_scan(x, dt, not_contiguous, C, A)
+    big = _scan_inputs(cuda, 1, 2, 16, 33, torch.float32, False)
+    with pytest.raises(ValueError):
+        scan.ssm_scan(*big[:5])                            # N > 32
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_mamba1_block_kernel_matches_plain_scan(cuda, compute_dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm, transformer as TF
+    cfg = get_config("falcon-mamba-7b").reduced(
+        d_model=512, n_layers=2, compute_dtype=compute_dtype)
+    params = TF.init_params(cfg, seed=0, device=cuda)
+    mixer = {k: v[0] for k, v in params["layers"]["mixer"].items()}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 77, cfg.d_model, generator=g,
+                    device=cuda).to(cfg.cdtype)
+    cache = ssm.mamba1_decode_cache(cfg, 2, cfg.cdtype, cuda)
+    cache["h"].normal_(generator=g)
+    got, got_cache = ssm.mamba1_block(mixer, x, cfg, cache=cache)
+    want, want_cache = ssm.mamba1_block(mixer, x, cfg, cache=cache,
+                                        impl="ref")
+    # bf16 compute rounds the scan's output once more; 5e-2 as for bf16
+    tol = 1e-4 if compute_dtype == "float32" else 5e-2
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.allclose(got_cache["h"], want_cache["h"], rtol=1e-4,
+                          atol=1e-4)
+
+
+def test_forward_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    cfg = get_config("falcon-mamba-7b").reduced()
+    params = TF.init_params(cfg, seed=3, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32)
+    want, _, _ = TF.forward(params, toks, cfg)
+    on_card = {k: {kk: (vv.to(cuda) if not isinstance(vv, dict) else
+                        {k3: v3.to(cuda) for k3, v3 in vv.items()})
+                   for kk, vv in v.items()} for k, v in params.items()}
+    got, _, _ = TF.forward(on_card, toks.to(cuda), cfg)
+    assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -35,7 +35,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1) \
         if " " in proc.stdout.strip() else (proc.stdout.strip(), "")
-    assert int(count) >= 15          # every module of the slice was imported
+    assert int(count) >= 37          # every module of the slices was imported
     assert bad == "", f"port imports pulled in {bad}"
 
 
@@ -46,7 +46,7 @@ _BAD_IMPORT = re.compile(
 
 def test_port_sources_name_no_jax_or_repro_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) >= 38          # the 37 modules and chip_smoke.py
     offenders = {str(f.relative_to(ROOT)): _BAD_IMPORT.findall(f.read_text())
                  for f in files}
     assert {f: m for f, m in offenders.items() if m} == {}

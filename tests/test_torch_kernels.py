@@ -1,5 +1,7 @@
 """The port's matmul entry point on the CPU against the JAX package's Pallas
-kernel (interpret mode), and the port's numpy interop.
+kernel (interpret mode), the port's numpy interop, and the kernel build's
+orchestration (one compiler per source, started together, then one link),
+run with a stand-in ``nvcc`` script since the CPU has no CUDA toolkit.
 
 Same inputs, made from a seed with numpy, go through
 ``repro.kernels.ops.matmul(..., interpret=True)`` and
@@ -120,3 +122,64 @@ def test_interop_does_not_alias_readonly_or_strided_input():
     t = tensor_from_numpy(ro, "cpu")
     t += 1
     assert ro[0, 0] == 0.0
+
+
+# --------------------------------------------------------------- the build
+
+_FAKE_NVCC = r"""#!/usr/bin/env python3
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+if "-c" in args:
+    src = args[-1]
+    with open(out + ".times", "w") as f:
+        f.write(f"{time.time()}\n")
+        time.sleep(1.5)
+        f.write(f"{time.time()}\n")
+    if src.endswith("FAIL_SRC"):
+        print("error: broken source")
+        sys.exit(2)
+    print(f"ptxas info    : Compiling entry function 'k_{src.rsplit('/', 1)[-1]}'")
+    open(out, "w").write(src)
+else:
+    open(out, "w").write("|".join(open(p).read() for p in args[args.index("-o") + 2:]))
+"""
+
+
+def _fake_build(tmp_path, monkeypatch, fail=""):
+    from repro_torch.kernels import _build
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.replace("FAIL_SRC", fail or "no-such.cu"))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    out_dir = tmp_path / "out"
+    return _build, out_dir
+
+
+def test_build_compiles_each_source_at_once_and_links_one_library(
+        tmp_path, monkeypatch):
+    _build, out_dir = _fake_build(tmp_path, monkeypatch)
+    _build._compile(out_dir)
+    sources = [p.name for p in _build._sources() if p.suffix == ".cu"]
+    assert {"matmul.cu", "ssm_scan.cu"} <= set(sources)
+    log = (out_dir / "nvcc.log").read_text()
+    for name in sources:
+        assert f"== {name}\n" in log and f"'k_{name}'" in log
+    assert sorted((out_dir / "libkernels.so").read_text().split("|")) == \
+        sorted(str(p) for p in _build._sources() if p.suffix == ".cu")
+    # every compile started before any one of them ended
+    spans = [list(map(float, p.read_text().split()))
+             for p in out_dir.glob("*.times")]
+    assert len(spans) == len(sources)
+    assert max(s for s, _ in spans) < min(e for _, e in spans)
+    assert not list(out_dir.glob("*.o"))
+    assert [p.name for p in out_dir.glob("*.log")] == ["nvcc.log"]
+
+
+def test_build_failure_names_the_source_and_leaves_no_library(
+        tmp_path, monkeypatch):
+    _build, out_dir = _fake_build(tmp_path, monkeypatch, fail="ssm_scan.cu")
+    with pytest.raises(RuntimeError, match="ssm_scan.cu"):
+        _build._compile(out_dir)
+    assert not (out_dir / "libkernels.so").exists()
+    assert not list(out_dir.glob("*.o"))

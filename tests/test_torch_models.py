@@ -1,0 +1,232 @@
+"""The port's Mamba1 LM on the CPU against the JAX package.
+
+Parameters come from ``repro.models.transformer.init_params`` on the
+reduced falcon-mamba-7b config (float32 params and compute) and cross
+through ``repro_torch.interop.params_from_numpy``, so both packages compute
+with the same numbers; inputs are made with numpy from a seed.  Tolerance
+1e-4: both sides compute in float32 and differ only in summation order.
+"""
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import ssm as jax_ssm  # noqa: E402
+from repro.models import transformer as JTF  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.interop import params_from_numpy, tensor_to_numpy  # noqa: E402
+from repro_torch.models import layers as pt_layers  # noqa: E402
+from repro_torch.models import ssm as pt_ssm  # noqa: E402
+from repro_torch.models import transformer as PTF  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+ARCH = "falcon-mamba-7b"
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jax_config(ARCH).reduced()
+    cfg = get_config(ARCH).reduced()
+    jparams = JTF.init_params(jcfg, jax.random.PRNGKey(3))
+    params = params_from_numpy(jax.device_get(jparams), "cpu")
+    return jcfg, cfg, jparams, params
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _layer(tree, i):
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+def test_configs_are_the_references(arch):
+    assert ARCHS == JAX_ARCHS
+    for reduce in (False, True):
+        jc, pc = jax_config(arch), get_config(arch)
+        if reduce:
+            jc, pc = jc.reduced(), pc.reduced()
+        assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
+        assert (pc.d_inner, pc.head_dim, pc.sub_quadratic) == \
+            (jc.d_inner, jc.head_dim, jc.sub_quadratic)
+        assert str(pc.pdtype) == f"torch.{jc.pdtype}"
+        assert str(pc.cdtype) == f"torch.{jc.cdtype}"
+
+
+def test_causal_conv_matches(setup):
+    rng = np.random.default_rng(0)
+    x, state = (rng.standard_normal(s, dtype=np.float32)
+                for s in ((2, 7, 16), (2, 3, 16)))
+    w = rng.standard_normal((4, 16), dtype=np.float32)
+    b = rng.standard_normal((16,), dtype=np.float32)
+    for st in (None, state):
+        want, want_state = jax_ssm._causal_conv(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+            None if st is None else jnp.asarray(st))
+        got, got_state = pt_ssm._causal_conv(
+            *(torch.from_numpy(a) for a in (x, w, b)),
+            None if st is None else torch.from_numpy(st))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got_state.numpy(), np.asarray(want_state),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("with_cache", [False, True])
+def test_mamba1_block_matches(setup, with_cache):
+    jcfg, cfg, jparams, params = setup
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 9, cfg.d_model), dtype=np.float32)
+    jcache = cache = None
+    if with_cache:
+        conv = rng.standard_normal((2, 3, cfg.d_inner), dtype=np.float32)
+        h = rng.standard_normal((2, cfg.d_inner, cfg.ssm_state),
+                                dtype=np.float32)
+        jcache = {"conv": jnp.asarray(conv), "h": jnp.asarray(h)}
+        cache = {"conv": torch.from_numpy(conv), "h": torch.from_numpy(h)}
+    want, want_cache = jax_ssm.mamba1_block(
+        jax.tree.map(lambda a: a[1], jparams["layers"]["mixer"]),
+        jnp.asarray(x), jcfg, cache=jcache)
+    got, got_cache = pt_ssm.mamba1_block(
+        _layer(params["layers"]["mixer"], 1), torch.from_numpy(x), cfg,
+        cache=cache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if with_cache:
+        for k in ("conv", "h"):
+            np.testing.assert_allclose(got_cache[k].numpy(),
+                                       np.asarray(want_cache[k]), **TOL)
+    else:
+        assert got_cache is None and want_cache is None
+
+
+def test_forward_logits_match(setup):
+    jcfg, cfg, jparams, params = setup
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    want, _, _ = JTF.forward(jparams, jnp.asarray(toks), jcfg)
+    got, cache, aux = PTF.forward(params, torch.from_numpy(toks), cfg)
+    assert got.dtype == torch.float32 and cache is None
+    assert tuple(got.shape) == (2, 40, cfg.vocab_size) and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_prefill_and_decode_match_reference_and_forward(setup):
+    """tests/test_models.py's prefill(S-1) + decode(1) consistency, run
+    through the port, with the caches held against the reference's."""
+    jcfg, cfg, jparams, params = setup
+    S = 12
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32)
+    full, _, _ = PTF.forward(params, torch.from_numpy(toks), cfg)
+
+    prefill = PTF.make_prefill_step(cfg, max_len=S + 4)
+    decode = PTF.make_decode_step(cfg)
+    _, cache = prefill(params, torch.from_numpy(toks[:, :-1]))
+    got, cache = decode(params, cache, torch.from_numpy(toks[:, -1:]))
+    np.testing.assert_allclose(got.numpy(), full[:, -1].numpy(), **TOL)
+    assert int(cache["pos"]) == S
+
+    jcache = JTF.make_prefill_step(jcfg, max_len=S + 4)(
+        jparams, jnp.asarray(toks[:, :-1]))[1]
+    jgot, jcache = JTF.make_decode_step(jcfg)(jparams, jcache,
+                                             jnp.asarray(toks[:, -1:]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), **TOL)
+    for k in ("conv", "h"):
+        assert cache["layers"][k].dtype == torch.float32
+        np.testing.assert_allclose(cache["layers"][k].numpy(),
+                                   np.asarray(jcache["layers"][k]), **TOL)
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_params_from_numpy_round_trips_bit_for_bit(param_dtype):
+    jcfg = jax_config(ARCH).reduced(param_dtype=param_dtype, n_layers=2)
+    tree = jax.device_get(JTF.init_params(jcfg, jax.random.PRNGKey(0)))
+    params = params_from_numpy(tree, "cpu")
+    want = dict(_leaves(tree))
+    got = dict(_leaves(params))
+    assert got.keys() == want.keys()
+    for name, a in want.items():
+        t = got[name]
+        assert str(t.dtype) == f"torch.{a.dtype}", name
+        back = tensor_to_numpy(t)
+        assert back.dtype == a.dtype and back.shape == a.shape, name
+        assert back.tobytes() == np.ascontiguousarray(a).tobytes(), name
+
+
+def test_init_params_gives_the_reference_tree_and_distributions():
+    cfg = get_config(ARCH).reduced(d_model=256)
+    jcfg = jax_config(ARCH).reduced(d_model=256)
+    want = dict(_leaves(jax.eval_shape(
+        lambda: JTF.init_params(jcfg, jax.random.PRNGKey(0)))))
+    params = PTF.init_params(cfg, seed=11, device="cpu")
+    got = dict(_leaves(params))
+    assert got.keys() == want.keys()
+    for name, s in want.items():
+        assert tuple(got[name].shape) == s.shape, name
+        assert str(got[name].dtype) == f"torch.{s.dtype}", name
+    assert PTF.count_params(cfg) == sum(t.numel() for t in got.values())
+
+    mixer = params["layers"]["mixer"]
+    dt = torch.nn.functional.softplus(mixer["dt_bias"])
+    assert 1e-3 * 0.999 <= float(dt.min()) and float(dt.max()) <= 0.1 * 1.001
+    N = cfg.ssm_state
+    assert torch.allclose(mixer["A_log"],
+                          torch.log(torch.arange(1., N + 1)).expand(
+                              mixer["A_log"].shape))
+    assert torch.all(mixer["conv_b"] == 0) and torch.all(mixer["D"] == 1)
+    assert torch.all(params["final_norm"]["scale"] == 1)
+    for name, t, scale in [("tok", params["embed"]["tok"], 1.0),
+                           ("unembed", params["embed"]["unembed"],
+                            cfg.d_model ** -0.5),
+                           ("in_proj", mixer["in_proj"], cfg.d_model ** -0.5),
+                           ("out_proj", mixer["out_proj"],
+                            cfg.d_inner ** -0.5),
+                           ("conv_w", mixer["conv_w"], 4 ** -0.5)]:
+        assert abs(float(t.std()) / scale - 1) < 0.1, name
+        assert abs(float(t.mean())) < 0.1 * scale, name
+
+    again = PTF.init_params(cfg, seed=11, device="cpu")
+    other = PTF.init_params(cfg, seed=12, device="cpu")
+    assert torch.equal(again["embed"]["tok"], params["embed"]["tok"])
+    assert not torch.equal(other["embed"]["tok"], params["embed"]["tok"])
+    # each parameter has its own stream: its values do not depend on others
+    spec = PTF.param_specs(cfg)["layers"]["mixer"]["x_proj"]
+    alone = pt_layers.init_param(spec, 11, torch.float32, torch.device("cpu"))
+    assert torch.equal(alone, mixer["x_proj"])
+
+
+def test_counts_match_the_reference():
+    for cfg, jcfg in [(get_config(ARCH), jax_config(ARCH)),
+                      (get_config(ARCH).reduced(), jax_config(ARCH).reduced())]:
+        assert PTF.count_params(cfg) == JTF.count_params(jcfg)
+        assert pt_ssm.ssm_flops_per_token(cfg, "mamba1") == \
+            jax_ssm.ssm_flops_per_token(jcfg, "mamba1")
+        assert pt_ssm.dt_rank(cfg) == jax_ssm.dt_rank(jcfg)
+    assert PTF.count_params(get_config(ARCH)) == 7_272_665_088
+    assert math.isclose(PTF.count_params(get_config(ARCH)) * 4 / 1e9, 29.09,
+                        abs_tol=0.005)
+
+
+@pytest.mark.parametrize("arch,item", [("qwen2-7b", "§1 item 6"),
+                                       ("dbrx-132b", "§1 item 7"),
+                                       ("zamba2-7b", "§1 item 7"),
+                                       ("whisper-tiny", "§1 item 7")])
+def test_other_plans_raise_naming_the_roadmap_item(arch, item):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match=item):
+        PTF.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        PTF.forward({}, torch.zeros((1, 2), dtype=torch.int32), cfg)
