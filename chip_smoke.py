@@ -32,10 +32,23 @@ Each phase prints one line; any failure raises and exits non-zero:
    prefix of request 0's, and 64 scan launches per forward;
 7. long prefill — one 2048-token prompt through the prefill step and 8
    greedy decode steps, once with the scan kernel and once with its plain
-   version on the same tokens: last-position logits within ``LOGIT_TOL``.
+   version on the same tokens: last-position logits within ``LOGIT_TOL``;
+8. flash_attention — the flash-attention kernel against its plain version
+   at qwen2-7b's long prefill (q 1x28x2048x128, k, v 1x4x2048x128,
+   causal), a served prefill (S = 12), a ragged shape (2x8x1000x64, 2 kv
+   heads) and a cross-shaped one (Sq 300, Sk 777, not causal), in float32
+   and bfloat16, with CUDA-event times of the kernel, the plain version
+   and ``scaled_dot_product_attention`` beside the card's bound;
+9. serve — falcon-mamba-7b's parameters freed, qwen2-7b at full width
+   (28 layers, 7,615,616,512 float32 parameters drawn on the card from a
+   seed) served by the same launcher and argv: 28 decode steps, the traced
+   tokens a prefix of request 0's, 28 flash launches per prefill and none
+   per decode step;
+10. long prefill — phase 7 for qwen2-7b, with the flash kernel and with its
+   plain version: 28 launches in the kernel run, none in the plain one.
 
-With ``--profile`` it then profiles one decode step and two prefills of
-the served model (device time by kernel, device busy share).
+With ``--profile`` it also profiles one decode step and two prefills of
+each served model (device time by kernel, device busy share).
 
 Then one JSON line of the kernels, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -66,13 +79,16 @@ N_TASKS, SIZE, N_WORKERS = 16, 4096, 4          # the main path's DAG
 KERNEL_SHAPES = [(SIZE, SIZE, SIZE), (1000, 1531, 777)]   # (M, N, K)
 REPS = 10
 
-# the serve path: falcon-mamba-7b at full width, the JAX launcher's
-# defaults for prompts (4-12 tokens) and --max-len 64
+# the serve paths: falcon-mamba-7b and qwen2-7b at full width, the JAX
+# launcher's defaults for prompts (4-12 tokens) and --max-len 64
 ARCH, N_PARAMS = "falcon-mamba-7b", 7_272_665_088
-SERVE_ARGV = ["--arch", ARCH, "--requests", "4", "--slots", "2",
-              "--max-new", "8", "--show-graph", "--backend", "thread"]
+DENSE_ARCH, DENSE_N_PARAMS = "qwen2-7b", 7_615_616_512
+SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
+              "--show-graph", "--backend", "thread"]
+SERVE_MAX_LEN = 64               # serve.py's --max-len default
 SERVE_DECODE_STEPS = 28          # 4 requests x 7 decode steps each
 SERVE_FORWARDS = 3 + 4 + 28      # traced request + prefills + decode steps
+SERVE_PREFILLS = 1 + 4           # traced request + requests
 # (Bsz, S, D, N, with h0): the long prefill, one decode step and one
 # served prefill (from the cache's zero state) of falcon-mamba-7b, and a
 # ragged shape
@@ -80,11 +96,18 @@ SCAN_SHAPES = [(1, 2048, 8192, 16, False), (1, 1, 8192, 16, True),
                (1, 12, 8192, 16, True), (3, 1000, 1000, 16, True)]
 # tests/test_kernels.py's ssm tolerances (rtol = atol)
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# (B, H, KH, Sq, Sk, D, causal): qwen2-7b's long prefill and a served
+# prefill, a ragged shape and a cross-shaped one
+FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
+                (1, 28, 4, 12, 12, 128, True),
+                (2, 8, 2, 1000, 1000, 64, True),
+                (1, 8, 2, 300, 777, 128, False)]
 LONG_PROMPT, LONG_DECODE = 2048, 8
-# Kernel and plain scan agree to the last bits of float32, but the model
-# rounds the scan's output to bf16 in each of its 64 layers, so a last-bit
+LONG_MAX_LEN = LONG_PROMPT + LONG_DECODE + 1     # the long run's KV cache
+# Kernel and plain version agree to the last bits of float32, but the model
+# rounds each layer's scan or attention output to bf16, so a last-bit
 # difference can flip a bf16 rounding and grow through the depth.  The
-# logits have about unit scale (printed); a broken scan moves them by
+# logits have about unit scale (printed); a broken kernel moves them by
 # whole units, this drift by a small fraction of one.
 LOGIT_TOL = 0.5
 
@@ -139,7 +162,7 @@ def phase_build() -> None:
             m = re.search(r"(\d+) bytes smem", text)
             entry["smem_bytes"] = int(m.group(1)) if m else 0
     sources = {k["source"] for k in kernels}
-    if sources != {"matmul.cu", "ssm_scan.cu"} or \
+    if sources != {"matmul.cu", "ssm_scan.cu", "flash_attention.cu"} or \
             any("registers" not in k for k in kernels):
         fail(f"no ptxas report for every kernel:\n{_build.ptxas_report()}")
     line("build", {"seconds": seconds, "cached": cached,
@@ -359,10 +382,80 @@ def phase_scan_kernels(torch) -> list:
     return checks
 
 
-def phase_params(torch):
+def flash_bound(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
+                causal: bool, dtype: str, itemsize: int):
+    """Least time the card could take for one attention: 4 * D operations
+    (the two products) per visible (query, key) pair at the input type's
+    peak, or q, k, v read once and the output written once at HBM
+    bandwidth.  Under the top-left causal mask query i sees min(i + 1, Sk)
+    keys."""
+    if causal:
+        n = min(Sq, Sk)
+        pairs = n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
+    else:
+        pairs = Sq * Sk
+    ops_ms = 4.0 * D * pairs * B * H / PEAK_FLOPS[dtype] * 1e3
+    nbytes = itemsize * (2 * B * H * Sq * D + 2 * B * KH * Sk * D)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_flash_kernels(torch) -> list:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks = []
+    for B, H, KH, Sq, Sk, D, causal in FLASH_SHAPES:
+        q = torch.randn(B, H, Sq, D, generator=gen, device="cuda")
+        k = torch.randn(B, KH, Sk, D, generator=gen, device="cuda")
+        v = torch.randn(B, KH, Sk, D, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            args = [t.to(dtype) for t in (q, k, v)]
+            got = fa.flash_attention(*args, causal=causal)
+            want = ref.attention(*args, causal=causal)
+            torch.cuda.synchronize()
+            tol = TOL[dname]
+            err = (got.float() - want.float()).abs().max().item()
+            if got.dtype != dtype or not torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"flash_attention {dname} {(B, H, KH, Sq, Sk, D)} "
+                     f"causal={causal}: kernel disagrees with the plain "
+                     f"version, max |err| {err}")
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    *args, is_causal=causal, enable_gqa=True)
+            # the library call against the same plain version, so the
+            # kernel's error can be read beside one it does not make
+            lib_err = (library().float() - want.float()).abs().max().item()
+            b_ms, b_by = flash_bound(B, H, KH, Sq, Sk, D, causal, dname,
+                                     dtype.itemsize)
+            checks.append({
+                "shape": [B, H, KH, Sq, Sk, D], "causal": causal,
+                "dtype": dname, "max_abs_err": err, "tol": tol,
+                "library_max_abs_err": lib_err,
+                "ms": cuda_ms(torch, lambda: fa.flash_attention(
+                    *args, causal=causal)),
+                "plain_ms": cuda_ms(torch, lambda: ref.attention(
+                    *args, causal=causal)),
+                "library_ms": cuda_ms(torch, library),
+                "bound_ms": b_ms, "bound_by": b_by})
+            c = checks[-1]
+            print(f"flash_attention {dname} {B}x{H}x{Sq}x{D} kv {KH}x{Sk} "
+                  f"causal={causal}: err {err:.3g} (tol {tol}) | kernel "
+                  f"{c['ms']:.4f} ms | plain {c['plain_ms']:.4f} ms | sdpa "
+                  f"{c['library_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+            del args, got, want
+    line("flash_attention_vs_plain", checks)
+    return checks
+
+
+def phase_params(torch, arch: str, n_params: int):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TF
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = TF.init_params(cfg, 0, "cuda")
@@ -376,59 +469,81 @@ def phase_params(torch):
         else:
             leaves.append(node)
     n = sum(t.numel() for t in leaves)
-    if n != N_PARAMS or n != TF.count_params(cfg):
-        fail(f"{ARCH}: drew {n} parameters, expected {N_PARAMS}")
+    if n != n_params or n != TF.count_params(cfg):
+        fail(f"{arch}: drew {n} parameters, expected {n_params}")
     if not all(t.is_cuda and t.dtype == cfg.pdtype for t in leaves):
-        fail(f"{ARCH}: parameters not all {cfg.pdtype} on the card")
-    line("params", {"arch": ARCH, "n_params": n, "dtype": cfg.param_dtype,
+        fail(f"{arch}: parameters not all {cfg.pdtype} on the card")
+    line("params", {"arch": arch, "n_params": n, "dtype": cfg.param_dtype,
                     "bytes": sum(t.numel() * t.element_size()
                                  for t in leaves),
                     "draw_s": seconds, "layers": cfg.n_layers,
-                    "d_model": cfg.d_model, "d_inner": cfg.d_inner,
-                    "vocab": cfg.vocab_size,
-                    "compute_dtype": cfg.compute_dtype})
+                    "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                    "compute_dtype": cfg.compute_dtype,
+                    **({"d_inner": cfg.d_inner, "state": cfg.ssm_state}
+                       if _path_kernel(cfg) == "ssm_scan" else
+                       {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff})})
     return cfg, params
 
 
+def _counters():
+    from repro_torch.kernels import flash_attention as fa, matmul as mm
+    from repro_torch.kernels import ssm_scan as scan
+    return {"matmul": mm.matmul, "ssm_scan": scan.ssm_scan,
+            "flash_attention": fa.flash_attention}
+
+
+def _path_kernel(cfg) -> str:
+    """The kernel a model's path launches: the scan for Mamba1 (every
+    forward), flash attention for the dense transformer (every prefill)."""
+    return "ssm_scan" if cfg.layer_plan[0] == "mamba1" else "flash_attention"
+
+
 def phase_serve(torch, cfg, params) -> int:
-    from repro_torch.kernels import matmul as mm, ssm_scan as scan
     from repro_torch.launch import serve
+    counters = _counters()
+    kernel = _path_kernel(cfg)
+    argv = ["--arch", cfg.name] + SERVE_ARGS
     torch.cuda.reset_peak_memory_stats()
-    mm.matmul.launches = 0
-    scan.ssm_scan.launches = 0
-    out = serve.main(SERVE_ARGV, params=params)
-    launches = scan.ssm_scan.launches
+    for fn in counters.values():
+        fn.launches = 0
+    out = serve.main(argv, params=params)
+    launches = {name: fn.launches for name, fn in counters.items()}
     finished = sorted(out["finished"], key=lambda r: r.rid)
     if len(finished) != 4 or out["decode_steps"] != SERVE_DECODE_STEPS:
         fail(f"served {len(finished)} requests in {out['decode_steps']} "
              f"decode steps, expected 4 in {SERVE_DECODE_STEPS}")
     if out["forwards"] != SERVE_FORWARDS or \
-            launches != cfg.n_layers * out["forwards"]:
-        fail(f"{launches} ssm_scan launches in {out['forwards']} forwards, "
-             f"expected {cfg.n_layers} per forward and {SERVE_FORWARDS} "
-             f"forwards")
-    if mm.matmul.launches != 0:
-        fail("the serve path launched the matmul kernel")
+            out["prefills"] != SERVE_PREFILLS:
+        fail(f"{out['forwards']} forwards and {out['prefills']} prefills, "
+             f"expected {SERVE_FORWARDS} and {SERVE_PREFILLS}")
+    # the scan runs in every forward, flash attention in every prefill
+    per = out["forwards"] if kernel == "ssm_scan" else out["prefills"]
+    want = {name: 0 for name in counters}
+    want[kernel] = cfg.n_layers * per
+    if launches != want:
+        fail(f"{cfg.name}: kernel launches {launches}, expected {want}")
     if out["traced_tokens"] != finished[0].out[:3]:
         fail(f"traced tokens {out['traced_tokens']} do not prefix request "
              f"0's {finished[0].out}")
     if any(not 0 <= t < cfg.vocab_size for r in finished for t in r.out):
         fail("a served token lies outside the vocabulary")
     line("serve", {
-        "arch": ARCH, "argv": SERVE_ARGV, "requests": len(finished),
+        "arch": cfg.name, "argv": argv, "requests": len(finished),
         "decode_steps": out["decode_steps"], "forwards": out["forwards"],
-        "ssm_scan_launches": launches, "wall_s": out["wall"],
+        "prefills": out["prefills"], "launches": launches,
+        "wall_s": out["wall"],
         "ttft_p50_s": out["ttft_p50"], "latency_p50_s": out["latency_p50"],
         "decode_tok_s": out["decode_tok_s"],
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "traced_tokens": out["traced_tokens"],
         "tokens": {r.rid: r.out for r in finished}})
-    return launches
+    return launches[kernel]
 
 
 def phase_long_prefill(torch, cfg, params) -> dict:
-    from repro_torch.kernels import ssm_scan as scan
     from repro_torch.models import transformer as TF
+    counter = _counters()[_path_kernel(cfg)]
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(1, cfg.vocab_size, (1, LONG_PROMPT),
                            generator=gen, device="cuda", dtype=torch.int32)
@@ -436,7 +551,7 @@ def phase_long_prefill(torch, cfg, params) -> dict:
     def run(impl, feed=None):
         """Prefill, then LONG_DECODE greedy steps fed the run's own tokens
         or ``feed``'s; returns tokens, last-position logits, seconds."""
-        prefill = TF.make_prefill_step(cfg, impl=impl)
+        prefill = TF.make_prefill_step(cfg, LONG_MAX_LEN, impl=impl)
         decode = TF.make_decode_step(cfg, impl=impl)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -456,21 +571,23 @@ def phase_long_prefill(torch, cfg, params) -> dict:
         return toks, logits, prefill_s, decode_s
 
     torch.cuda.reset_peak_memory_stats()
-    scan.ssm_scan.launches = 0
+    counter.launches = 0
     toks_k, logits_k, pre_k, dec_k = run("kernel")
-    launches_k = scan.ssm_scan.launches
+    launches_k = counter.launches
     peak = torch.cuda.max_memory_allocated()
     toks_r, logits_r, pre_r, dec_r = run("ref", feed=toks_k)
-    if launches_k != cfg.n_layers * (1 + LONG_DECODE) or \
-            scan.ssm_scan.launches != launches_k:
-        fail(f"{launches_k} and {scan.ssm_scan.launches - launches_k} scan "
-             f"launches in the kernel and plain runs, expected "
-             f"{cfg.n_layers * (1 + LONG_DECODE)} and 0")
+    # the scan runs in every forward, flash attention in the prefill
+    want = cfg.n_layers * (1 + LONG_DECODE if counter.__name__ == "ssm_scan"
+                           else 1)
+    if launches_k != want or counter.launches != launches_k:
+        fail(f"{launches_k} and {counter.launches - launches_k} "
+             f"{counter.__name__} launches in the kernel and plain runs, "
+             f"expected {want} and 0")
     if not (torch.isfinite(logits_k).all() and torch.isfinite(logits_r).all()):
         fail("non-finite logits in the long prefill")
     diff = (logits_k - logits_r).abs().max().item()
     if diff > LOGIT_TOL:
-        fail(f"long prefill: kernel and plain scans give last-position "
+        fail(f"long prefill: kernel and plain versions give last-position "
              f"logits {diff} apart, tolerance {LOGIT_TOL}")
     for j, (a, b) in enumerate(zip(toks_k, toks_r)):
         top2 = logits_r[j].topk(2).values
@@ -478,7 +595,8 @@ def phase_long_prefill(torch, cfg, params) -> dict:
             fail(f"long prefill: greedy token {j} differs ({a} vs {b}) and "
                  f"the plain run's top two logits are "
                  f"{(top2[0] - top2[1]).item()} apart")
-    out = {"prompt_tokens": LONG_PROMPT, "decode_steps": LONG_DECODE,
+    out = {"arch": cfg.name, "prompt_tokens": LONG_PROMPT,
+           "decode_steps": LONG_DECODE,
            "max_abs_logit_diff": diff, "tol": LOGIT_TOL,
            "logit_std": logits_r.std().item(),
            "logit_max_abs": logits_r.abs().max().item(),
@@ -486,20 +604,22 @@ def phase_long_prefill(torch, cfg, params) -> dict:
            "prefill_s_kernel": pre_k, "decode_ms_per_step_kernel":
            dec_k / LONG_DECODE * 1e3, "prefill_s_plain": pre_r,
            "decode_ms_per_step_plain": dec_r / LONG_DECODE * 1e3,
-           "ssm_scan_launches": launches_k, "peak_device_bytes": peak}
+           f"{counter.__name__}_launches": launches_k,
+           "peak_device_bytes": peak}
     line("long_prefill", out)
     return out
 
 
 def phase_profile(torch, cfg, params) -> None:
-    """Where the serve path's device time goes (``--profile`` only): one
+    """Where a serve path's device time goes (``--profile`` only): one
     decode step, one served-size prefill and one LONG_PROMPT prefill under
     ``torch.profiler``, with the device time of each kernel name and the
     device's busy share of the host-clock wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as TF
-    prefill = TF.make_prefill_step(cfg)
+    prefill = TF.make_prefill_step(cfg, SERVE_MAX_LEN)
+    prefill_long = TF.make_prefill_step(cfg, LONG_MAX_LEN)
     decode = TF.make_decode_step(cfg)
     prompt = torch.randint(1, cfg.vocab_size, (1, LONG_PROMPT),
                            device="cuda", dtype=torch.int32)
@@ -509,7 +629,7 @@ def phase_profile(torch, cfg, params) -> None:
     for name, fn in (("decode_step", lambda: decode(params, cache, token)),
                      ("prefill_12", lambda: prefill(params, short)),
                      (f"prefill_{LONG_PROMPT}",
-                      lambda: prefill(params, prompt))):
+                      lambda: prefill_long(params, prompt))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -526,12 +646,30 @@ def phase_profile(torch, cfg, params) -> None:
                    and e.self_device_time_total > 0]
         kernels.sort(reverse=True)
         busy_us = sum(k[0] for k in kernels)
-        line(f"profile_{name}", {
+        line(f"profile_{cfg.name}_{name}", {
             "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e6 / wall,
             "kernel_launches": sum(k[1] for k in kernels),
             "top": [{"kernel": k[2][:120], "count": k[1],
                      "device_ms": k[0] / 1e3} for k in kernels[:12]]})
+
+
+def phase_model(torch, arch: str, n_params: int, profile: bool):
+    """Draw ``arch`` on the card, serve it, run the long prefill (and, with
+    ``profile``, profile it), then free its parameters; returns the path
+    kernel's launches in the serve and long-prefill runs."""
+    import gc
+    cfg, params = phase_params(torch, arch, n_params)
+    launches = phase_serve(torch, cfg, params)
+    long = phase_long_prefill(torch, cfg, params)
+    if profile:
+        phase_profile(torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    line("freed", {"arch": arch,
+                   "allocated_bytes": torch.cuda.memory_allocated()})
+    return launches, long[f"{_path_kernel(cfg)}_launches"]
 
 
 def main() -> int:
@@ -553,12 +691,13 @@ def main() -> int:
     checks = phase_kernels(torch)
     launches = phase_main_path(torch, checks)
     scan_checks = phase_scan_kernels(torch)
-    cfg, params = phase_params(torch)
-    scan_launches = phase_serve(torch, cfg, params)
-    phase_long_prefill(torch, cfg, params)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(torch, cfg, params)
-    del params
+    profile = "--profile" in sys.argv[1:]
+    # the two parameter sets (29 GB and 30.5 GB) are on the card one at a
+    # time
+    scan_launches = sum(phase_model(torch, ARCH, N_PARAMS, profile))
+    flash_checks = phase_flash_kernels(torch)
+    flash_launches = sum(phase_model(torch, DENSE_ARCH, DENSE_N_PARAMS,
+                                     profile))
 
     def entry(kernel, replaces, n, check, all_checks):
         return {"name": kernel, "route": "cuda",
@@ -572,14 +711,20 @@ def main() -> int:
 
     main_check = next(c for c in checks
                       if c["dtype"] == "float32" and c["shape"] == [SIZE] * 3)
-    # the serve path's most launched shape: one decode step from the cache
+    # the Mamba1 path's most launched shape: one decode step from the cache
     decode_check = next(c for c in scan_checks
                         if c["dtype"] == "float32" and c["shape"][1] == 1)
+    # the dense path's longest launch: the long prefill in its compute type
+    long_check = next(c for c in flash_checks
+                      if c["dtype"] == "bfloat16"
+                      and c["shape"][3] == LONG_PROMPT)
     print(json.dumps({"kernels": [
         entry("matmul", "src/repro/kernels/matmul_pallas.py:45", launches,
               main_check, checks),
         entry("ssm_scan", "src/repro/kernels/ssm_scan.py:48", scan_launches,
-              decode_check, scan_checks)]}), flush=True)
+              decode_check, scan_checks),
+        entry("flash_attention", "src/repro/kernels/flash_attention.py:76",
+              flash_launches, long_check, flash_checks)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,7 @@
 Port of ``repro/kernels/ops.py``.  ``impl="kernel"`` (the default) calls the
 hand-written kernel's wrapper, which launches the kernel for CUDA tensors
 and uses the plain version for CPU tensors; ``impl="ref"`` calls the plain
-version on any device.  Flash attention is not ported yet (ROADMAP §2).
+version on any device.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from . import flash_attention as _flash
 from . import matmul as _matmul
 from . import ref
 from . import ssm_scan as _ssm_scan
@@ -22,6 +23,19 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
         return ref.matmul(x, y)
     if impl == "kernel":
         return _matmul.matmul(x, y)
+    raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, impl: str = "kernel") -> torch.Tensor:
+    """Attention of ``q (B, H, Sq, D)`` over ``k, v (B, KH, Sk, D)``; see
+    :func:`repro_torch.kernels.flash_attention.flash_attention`.  Mirrors
+    ``repro.kernels.ops.flash_attention`` without its TPU block sizes: the
+    kernel takes any ``Sq`` and ``Sk``."""
+    if impl == "ref":
+        return ref.attention(q, k, v, causal=causal)
+    if impl == "kernel":
+        return _flash.flash_attention(q, k, v, causal=causal)
     raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")
 
 

@@ -24,6 +24,36 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x.float() @ y.float()).to(x.dtype)
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """Softmax attention of ``q (B, H, Sq, D)`` over ``k, v (B, KH, Sk, D)``,
+    returned as ``(B, H, Sq, D)`` in ``q.dtype``.
+
+    K/V are repeated to ``H`` heads (query head ``h`` reads kv head
+    ``h // (H // KH)``); scores, softmax and ``p @ v`` are float32, with
+    scale ``D ** -0.5``.  ``causal`` masks key ``j`` from query ``i`` unless
+    ``j <= i`` on absolute indices from 0 (top-left, also when Sq != Sk).
+    Port of ``repro/kernels/ref.py::attention``.  Like :func:`matmul` it
+    refuses to run on the card while TF32 is allowed.
+    """
+    if q.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "ref.attention needs torch.backends.cuda.matmul.allow_tf32 = "
+            "False")
+    H, Sq, D = q.shape[1], q.shape[2], q.shape[3]
+    KH, Sk = k.shape[1], k.shape[2]
+    if H != KH:
+        k = torch.repeat_interleave(k, H // KH, dim=1)
+        v = torch.repeat_interleave(v, H // KH, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, A: torch.Tensor,
              h0: Optional[torch.Tensor] = None, *,

@@ -13,12 +13,15 @@ scheduler:
     §1 item 3).
 
 It runs on the card unless ``--device`` names another device; with no card
-and no ``--device`` it raises.  This slice serves the Mamba1 family
-(falcon-mamba-7b); other architectures raise ``NotImplementedError``.
-One parameter set serves both the traced request and the main loop.
+and no ``--device`` it raises.  This slice serves the dense transformer
+family (qwen2-7b, qwen3-14b, granite-20b, yi-9b; every prefill runs the
+flash-attention kernel) and the Mamba1 family (falcon-mamba-7b); MoE,
+Mamba2, hybrid and encoder-decoder architectures raise
+``NotImplementedError``.  One parameter set serves both the traced request
+and the main loop.
 
 CPU example (reduced config):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --reduced --device cpu --requests 6 --slots 2 --max-new 8
 """
 from __future__ import annotations
@@ -134,7 +137,7 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     decode = TF.make_decode_step(cfg)
 
     # ---- traced one-request driver executed on the chosen backend ----
-    traced_tokens, demo_forwards = None, 0
+    traced_tokens, demo_forwards, demo_prefills = None, 0, 0
     if args.show_graph:
         demo_prompt = tuple(
             synth_requests(1, cfg.vocab_size, max_new=3,
@@ -154,7 +157,9 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
         print(g.summary())
         res = execute_traced(g, args)
         traced_tokens = res[g.outputs[0]]
-        demo_forwards = sum(1 for n in g if n.name in ("prefill", "decode"))
+        demo_prefills = sum(1 for n in g if n.name == "prefill")
+        demo_forwards = demo_prefills + sum(1 for n in g
+                                            if n.name == "decode")
         print(f"traced request tokens: {traced_tokens}", flush=True)
 
     reqs = synth_requests(args.requests, cfg.vocab_size,
@@ -211,6 +216,7 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     return {"finished": finished, "wall": wall,
             "decode_steps": n_decode_steps,
             "forwards": demo_forwards + n_prefills + n_decode_steps,
+            "prefills": demo_prefills + n_prefills,
             "traced_tokens": traced_tokens,
             "ttft_p50": float(np.median(ttft)),
             "latency_p50": float(np.median(lat)),

@@ -1,0 +1,139 @@
+"""The port's flash attention on the CPU against the JAX package.
+
+Same inputs, made from a seed with numpy, go through
+``repro.kernels.ops.flash_attention(..., interpret=True)`` (the Pallas
+kernel) and ``repro.kernels.ref.attention`` on one side and
+``repro_torch.kernels.ops.flash_attention`` (whose wrapper takes the plain
+PyTorch version for CPU tensors) and ``repro_torch.kernels.ref.attention``
+on the other.  Tolerances are ``tests/test_kernels.py``'s: 2e-5 in float32
+and 2e-2 in bfloat16.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jax_ops, ref as jax_ref  # noqa: E402
+from repro_torch.interop import tensor_from_numpy  # noqa: E402
+from repro_torch.kernels import flash_attention as pt_flash  # noqa: E402
+from repro_torch.kernels import ops as pt_ops, ref as pt_ref  # noqa: E402
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _inputs(B, H, KH, Sq, Sk, D, dtype="float32", seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Sq, D), dtype=np.float32)
+    k = rng.standard_normal((B, KH, Sk, D), dtype=np.float32)
+    v = rng.standard_normal((B, KH, Sk, D), dtype=np.float32)
+    if dtype == "bfloat16":
+        q, k, v = (a.astype(jnp.bfloat16) for a in (q, k, v))
+    return q, k, v
+
+
+def _cpu(arrays):
+    return [tensor_from_numpy(a, "cpu") for a in arrays]
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+# test_kernels.py's flash shapes, with its blocks (128 x 128)
+@pytest.mark.parametrize("B,H,KH,S,D", [(1, 4, 4, 256, 64),    # MHA
+                                        (2, 4, 2, 256, 64),    # GQA 2:1
+                                        (1, 8, 1, 512, 128)])  # MQA
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_pallas_and_ref(B, H, KH, S, D, causal,
+                                                dtype):
+    arrays = _inputs(B, H, KH, S, S, D, dtype, seed=S + H)
+    jx = [jnp.asarray(a) for a in arrays]
+    pallas = jax_ops.flash_attention(*jx, causal=causal, bq=128, bk=128,
+                                     interpret=True)
+    plain = jax_ref.attention(*jx, causal=causal)
+    got = pt_ops.flash_attention(*_cpu(arrays), causal=causal)
+    assert tuple(got.shape) == (B, H, S, D)
+    assert got.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                         else torch.float32)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_f32(got), _f32(plain), **TOL[dtype])
+
+
+# Sq != Sk: the causal mask is top-left (key j visible to query i iff
+# j <= i), also where Sq != Sk; test_kernels.py checks only the unmasked
+# cross shape.  The second pair has ragged lengths that the TPU kernel's
+# blocks divide (bq = Sq, bk = Sk).
+@pytest.mark.parametrize("Sq,Sk,bq,bk", [(128, 384, 128, 128),
+                                         (384, 128, 128, 128),
+                                         (37, 53, 37, 53)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cross_shaped_and_ragged_match_pallas(Sq, Sk, bq, bk, causal):
+    arrays = _inputs(1, 4, 2, Sq, Sk, 64, seed=Sq + Sk)
+    jx = [jnp.asarray(a) for a in arrays]
+    pallas = jax_ops.flash_attention(*jx, causal=causal, bq=bq, bk=bk,
+                                     interpret=True)
+    got = pt_ops.flash_attention(*_cpu(arrays), causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **TOL["float32"])
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D", [(2, 6, 3, 5, 5, 32),
+                                            (1, 4, 1, 12, 20, 112),
+                                            (1, 2, 2, 9, 4, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_attention_matches_the_references(B, H, KH, Sq, Sk, D, causal,
+                                              dtype):
+    arrays = _inputs(B, H, KH, Sq, Sk, D, dtype, seed=Sq * Sk)
+    want = jax_ref.attention(*(jnp.asarray(a) for a in arrays),
+                             causal=causal)
+    got = pt_ref.attention(*_cpu(arrays), causal=causal)
+    assert got.dtype == pt_ops.flash_attention(*_cpu(arrays)).dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+def test_causal_rows_see_only_keys_up_to_their_index():
+    """Top-left: query 0 sees key 0 alone, so its output is v[0] whatever
+    Sk is; a later query sees more."""
+    q, k, v = _cpu(_inputs(1, 2, 2, 3, 7, 8, seed=4))
+    out = pt_ops.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(out[:, :, 0], v[:, :, 0], rtol=0, atol=1e-6)
+    assert not torch.allclose(out[:, :, 1], v[:, :, 1])
+
+
+def test_empty_keys_give_zeros():
+    q, k, v = _cpu(_inputs(1, 2, 1, 3, 0, 8))
+    out = pt_ops.flash_attention(q, k, v, causal=False)
+    assert tuple(out.shape) == (1, 2, 3, 8)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_impls_agree_and_cpu_counts_no_launch():
+    q, k, v = _cpu(_inputs(2, 4, 2, 33, 33, 16, seed=5))
+    before = pt_flash.flash_attention.launches
+    got = pt_ops.flash_attention(q, k, v)
+    want = pt_ops.flash_attention(q, k, v, impl="ref")
+    assert torch.equal(got, want)
+    assert pt_flash.flash_attention.launches == before
+    with pytest.raises(ValueError):
+        pt_ops.flash_attention(q, k, v, impl="pallas")
+
+
+def test_wrapper_rejects_mismatched_inputs():
+    q, k, v = _cpu(_inputs(1, 4, 2, 8, 8, 16))
+    with pytest.raises(ValueError):
+        pt_flash.flash_attention(q[0], k, v)                # not 4-D
+    with pytest.raises(ValueError):
+        pt_flash.flash_attention(q, k, v[:, :, :4])         # k, v differ
+    with pytest.raises(ValueError):
+        pt_flash.flash_attention(q, k[..., :8], v[..., :8])  # D differs
+    with pytest.raises(ValueError):
+        q3 = _cpu(_inputs(1, 3, 2, 8, 8, 16))[0]
+        pt_flash.flash_attention(q3, k, v)                  # H % KH != 0
+    with pytest.raises(TypeError):
+        pt_flash.flash_attention(q, k.double(), v)

@@ -5,7 +5,8 @@ present.  On the card run ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Kernel tolerances: ``tests/test_kernels.py``'s matmul tolerances (2e-5
 float32, 2e-2 bfloat16) applied to ``out / sqrt(K)``, against the plain
 version with TF32 off; its ssm tolerances (1e-4 float32, 5e-2 bfloat16)
-for the selective scan.
+for the selective scan; its flash tolerances (2e-5 float32, 2e-2 bfloat16)
+for flash attention.
 """
 import math
 
@@ -240,3 +241,139 @@ def test_forward_on_the_card_matches_the_cpu(cuda):
                    for kk, vv in v.items()} for k, v in params.items()}
     got, _, _ = TF.forward(on_card, toks.to(cuda), cfg)
     assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- flash attention
+
+def _attn_inputs(device, B, H, KH, Sq, Sk, D, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(B, H, Sq, D, generator=g, device=device).to(dtype)
+    k = torch.randn(B, KH, Sk, D, generator=g, device=device).to(dtype)
+    v = torch.randn(B, KH, Sk, D, generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D", [
+    (1, 28, 4, 2048, 2048, 128),    # qwen2-7b's long prefill
+    (1, 28, 4, 12, 12, 128),        # a served prefill
+    (2, 8, 2, 1000, 1000, 64),      # ragged, GQA
+    (2, 4, 2, 300, 777, 112),       # cross-shaped, Sq < Sk
+    (1, 4, 1, 129, 64, 32),         # cross-shaped, Sq > Sk, MQA
+    (3, 6, 3, 65, 65, 1),
+    (1, 2, 2, 5, 0, 16)])           # no keys: zeros
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(cuda, B, H, KH, Sq, Sk,
+                                                      D, causal, dtype):
+    from repro_torch.kernels import flash_attention as fa, ref
+    q, k, v = _attn_inputs(cuda, B, H, KH, Sq, Sk, D, dtype, seed=Sq + Sk)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = ref.attention(q, k, v, causal=causal)
+    assert torch.allclose(got.float(), want.float(), rtol=TOL[dtype],
+                          atol=TOL[dtype])
+    if Sk == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_flash_attention_kernel_is_deterministic_across_launches(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 2, 8, 2, 700, 700, 128, torch.float32)
+    first = fa.flash_attention(q, k, v)
+    for _ in range(2):
+        assert torch.equal(fa.flash_attention(q, k, v).view(torch.int32),
+                           first.view(torch.int32))
+
+
+def test_flash_attention_launch_counter_loses_no_update_under_threads(cuda):
+    import sys
+    import threading
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 1, 2, 1, 4, 4, 8, torch.float32)
+    n_threads, per_thread = 32, 50
+    before = fa.flash_attention.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [fa.flash_attention(q, k, v)
+                            for _ in range(per_thread)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + n_threads * per_thread
+
+
+def test_flash_attention_wrapper_rejects_what_it_cannot_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 1, 4, 2, 8, 8, 16, torch.float32)
+    with pytest.raises(ValueError):                       # D > 128
+        fa.flash_attention(*_attn_inputs(cuda, 1, 2, 1, 4, 4, 129,
+                                         torch.float32))
+    with pytest.raises(TypeError):                        # mixed dtypes
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError):                        # float16
+        fa.flash_attention(q.half(), k.half(), v.half())
+    not_contiguous = torch.randn(1, 4, 16, 8, device=cuda).transpose(2, 3)
+    assert not_contiguous.shape == q.shape
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(not_contiguous, k, v)
+    with pytest.raises(ValueError):                       # H % KH != 0
+        fa.flash_attention(*_attn_inputs(cuda, 1, 3, 2, 4, 4, 16,
+                                         torch.float32))
+    with pytest.raises(ValueError):                       # devices differ
+        fa.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_dense_forward_kernel_matches_plain_attention(cuda, compute_dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as TF
+    cfg = get_config("qwen2-7b").reduced(compute_dtype=compute_dtype,
+                                         d_model=512, n_heads=8,
+                                         n_kv_heads=2, head_dim=128)
+    params = TF.init_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 77), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = fa.flash_attention.launches
+    got, _, _ = TF.forward(params, toks, cfg)
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    want, _, _ = TF.forward(params, toks, cfg, impl="ref")
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    # bf16 compute rounds each layer's attention output to bf16, so a
+    # last-bit difference can flip a rounding: 5e-2 as for the scan
+    tol = 1e-4 if compute_dtype == "float32" else 5e-2
+    assert torch.allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_dense_forward_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    cfg = get_config("qwen2-7b").reduced()
+    params = TF.init_params(cfg, seed=3, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32)
+    prefill = TF.make_prefill_step(cfg, max_len=48)
+    decode = TF.make_decode_step(cfg)
+    want, cache = prefill(params, toks)
+    want_step, _ = decode(params, cache, toks[:, :1])
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+    on_card = to_card(params)
+    got, cache = prefill(on_card, toks.to(cuda))
+    got_step, _ = decode(on_card, cache, toks[:, :1].to(cuda))
+    assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(got_step.cpu(), want_step, rtol=1e-4, atol=1e-4)

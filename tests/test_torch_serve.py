@@ -4,7 +4,8 @@ The JAX launcher draws its parameters with
 ``TF.init_params(cfg, jax.random.PRNGKey(seed))``; the test draws the same
 tree, carries it across with ``params_from_numpy`` and hands it to the
 port's ``main`` through its ``params`` keyword, so both serve the same
-model on the same argv (plus ``--device cpu``).  Greedy tokens must be
+model on the same argv (plus ``--device cpu``), for the Mamba1 family
+(falcon-mamba-7b) and the dense family (qwen2-7b).  Greedy tokens must be
 equal: both compute in float32 and differ only in summation order.
 """
 import pytest
@@ -17,22 +18,31 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.launch import serve as jax_serve  # noqa: E402
 from repro.models import transformer as JTF  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.kernels import flash_attention as pt_flash  # noqa: E402
 from repro_torch.kernels import ssm_scan as pt_scan  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
-ARGV = ["--arch", "falcon-mamba-7b", "--reduced", "--requests", "3",
-        "--slots", "2", "--max-new", "5", "--show-graph",
-        "--backend", "thread"]
+ARGS = ["--reduced", "--requests", "3", "--slots", "2", "--max-new", "5",
+        "--show-graph", "--backend", "thread"]
+
+
+def _both(arch):
+    argv = ["--arch", arch] + ARGS
+    want = jax_serve.main(argv)
+    tree = JTF.init_params(jax_config(arch).reduced(), jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.device_get(tree), "cpu")
+    got = serve.main(argv + ["--device", "cpu"], params=params)
+    return want, got
 
 
 @pytest.fixture(scope="module")
 def both_runs():
-    want = jax_serve.main(ARGV)
-    tree = JTF.init_params(jax_config("falcon-mamba-7b").reduced(),
-                           jax.random.PRNGKey(0))
-    params = params_from_numpy(jax.device_get(tree), "cpu")
-    got = serve.main(ARGV + ["--device", "cpu"], params=params)
-    return want, got
+    return _both("falcon-mamba-7b")
+
+
+@pytest.fixture(scope="module")
+def dense_runs():
+    return _both("qwen2-7b")
 
 
 def test_request_tokens_equal_the_jax_launchers(both_runs):
@@ -41,6 +51,7 @@ def test_request_tokens_equal_the_jax_launchers(both_runs):
     assert {r.rid: r.out for r in got["finished"]} == \
         {r.rid: r.out for r in want["finished"]}
     assert got["forwards"] == 3 + 3 + 12      # traced + prefills + decodes
+    assert got["prefills"] == 1 + 3
     assert got["device"] == "cpu"
 
 
@@ -48,6 +59,14 @@ def test_traced_tokens_prefix_request_0(both_runs):
     _, got = both_runs
     req0 = next(r for r in got["finished"] if r.rid == 0)
     assert got["traced_tokens"] == req0.out[:3]
+
+
+def test_dense_request_tokens_equal_the_jax_launchers(dense_runs):
+    test_request_tokens_equal_the_jax_launchers(dense_runs)
+
+
+def test_dense_traced_tokens_prefix_request_0(dense_runs):
+    test_traced_tokens_prefix_request_0(dense_runs)
 
 
 def test_serves_on_the_cpu_without_kernel_launches():
@@ -59,9 +78,20 @@ def test_serves_on_the_cpu_without_kernel_launches():
     assert pt_scan.ssm_scan.launches == before
 
 
-def test_dense_arch_raises_naming_the_dense_slice():
-    with pytest.raises(NotImplementedError, match="dense transformer slice"):
-        serve.main(["--arch", "qwen2-7b", "--reduced", "--device", "cpu"])
+def test_dense_arch_serves_on_the_cpu_without_kernel_launches():
+    before = (pt_flash.flash_attention.launches, pt_scan.ssm_scan.launches)
+    out = serve.main(["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
+                      "--requests", "2", "--slots", "1", "--max-new", "3"])
+    assert len(out["finished"]) == 2 and out["decode_steps"] == 4
+    assert out["prefills"] == 2
+    assert (pt_flash.flash_attention.launches,
+            pt_scan.ssm_scan.launches) == before
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "zamba2-7b"])
+def test_unported_arch_raises_naming_roadmap_item_7(arch):
+    with pytest.raises(NotImplementedError, match="§1 item 7"):
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("extra", [["--backend", "process"],
