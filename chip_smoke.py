@@ -14,9 +14,11 @@ Each phase prints one line; any failure raises and exits non-zero:
 2. build — the CUDA kernels built with ``nvcc`` for sm_90a, with the
    registers, shared memory and spills that ``-Xptxas -v`` reports;
 3. kernels — each kernel against its plain PyTorch version at the main
-   path's shape and at a ragged one, in float32 and bfloat16, with CUDA-event
-   times of the kernel, the plain version and one library call (a yardstick
-   only: the port never calls it) beside the card's bound;
+   path's shape, at a ragged one and at an aligned one that is no tile
+   multiple, in float32 and bfloat16, with CUDA-event times of the kernel,
+   the plain version and one library call (a yardstick only: the port never
+   calls it) beside the card's bound; each check names its route, ``wgmma``
+   (bf16 on the tensor cores, fed by TMA) or ``simt`` (the CUDA cores);
 4. main path — the paper's Fig. 2 DAG (16 units of 4096x4096 float32) traced
    and run on the sequential oracle and on the threaded work-stealing
    executor: threaded == sequential bit for bit, each ``mul`` against the
@@ -36,16 +38,18 @@ Each phase prints one line; any failure raises and exits non-zero:
 8. flash_attention — the flash-attention kernel against its plain version
    at qwen2-7b's long prefill (q 1x28x2048x128, k, v 1x4x2048x128,
    causal), a served prefill (S = 12), a ragged shape (2x8x1000x64, 2 kv
-   heads) and a cross-shaped one (Sq 300, Sk 777, not causal), in float32
-   and bfloat16, with CUDA-event times of the kernel, the plain version
-   and ``scaled_dot_product_attention`` beside the card's bound;
+   heads), a cross-shaped one (Sq 300, Sk 777, not causal) and one with
+   D = 72, in float32 and bfloat16, with CUDA-event times of the kernel, the
+   plain version and ``scaled_dot_product_attention`` beside the card's
+   bound, and the route of each check;
 9. serve — falcon-mamba-7b's parameters freed, qwen2-7b at full width
    (28 layers, 7,615,616,512 float32 parameters drawn on the card from a
    seed) served by the same launcher and argv: 28 decode steps, the traced
-   tokens a prefix of request 0's, 28 flash launches per prefill and none
-   per decode step;
+   tokens a prefix of request 0's, 28 flash launches per prefill, all on
+   the wgmma route, and none per decode step;
 10. long prefill — phase 7 for qwen2-7b, with the flash kernel and with its
-   plain version: 28 launches in the kernel run, none in the plain one.
+   plain version: 28 launches in the kernel run, all on the wgmma route,
+   none in the plain one.
 
 With ``--profile`` it also profiles one decode step and two prefills of
 each served model (device time by kernel, device busy share).
@@ -76,7 +80,9 @@ HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 N_TASKS, SIZE, N_WORKERS = 16, 4096, 4          # the main path's DAG
-KERNEL_SHAPES = [(SIZE, SIZE, SIZE), (1000, 1531, 777)]   # (M, N, K)
+# (M, N, K): the main shape, a ragged one (bf16 keeps the CUDA cores: its
+# rows are not 16-byte aligned) and an aligned one that no tile divides
+KERNEL_SHAPES = [(SIZE, SIZE, SIZE), (1000, 1531, 777), (1000, 1528, 776)]
 REPS = 10
 
 # the serve paths: falcon-mamba-7b and qwen2-7b at full width, the JAX
@@ -97,11 +103,13 @@ SCAN_SHAPES = [(1, 2048, 8192, 16, False), (1, 1, 8192, 16, True),
 # tests/test_kernels.py's ssm tolerances (rtol = atol)
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # (B, H, KH, Sq, Sk, D, causal): qwen2-7b's long prefill and a served
-# prefill, a ragged shape and a cross-shaped one
+# prefill, a ragged shape, a cross-shaped one and one whose D is a multiple
+# of 8 but not of 16
 FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (1, 28, 4, 12, 12, 128, True),
                 (2, 8, 2, 1000, 1000, 64, True),
-                (1, 8, 2, 300, 777, 128, False)]
+                (1, 8, 2, 300, 777, 128, False),
+                (1, 4, 2, 200, 333, 72, True)]
 LONG_PROMPT, LONG_DECODE = 2048, 8
 LONG_MAX_LEN = LONG_PROMPT + LONG_DECODE + 1     # the long run's KV cache
 # Kernel and plain version agree to the last bits of float32, but the model
@@ -162,7 +170,8 @@ def phase_build() -> None:
             m = re.search(r"(\d+) bytes smem", text)
             entry["smem_bytes"] = int(m.group(1)) if m else 0
     sources = {k["source"] for k in kernels}
-    if sources != {"matmul.cu", "ssm_scan.cu", "flash_attention.cu"} or \
+    if sources != {"matmul.cu", "matmul_wgmma.cu", "ssm_scan.cu",
+                   "flash_attention.cu", "flash_attention_wgmma.cu"} or \
             any("registers" not in k for k in kernels):
         fail(f"no ptxas report for every kernel:\n{_build.ptxas_report()}")
     line("build", {"seconds": seconds, "cached": cached,
@@ -210,25 +219,38 @@ def phase_kernels(torch) -> list:
         for M, N, K in KERNEL_SHAPES:
             x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
             y = torch.randn(K, N, generator=gen, device="cuda").to(dtype)
+            path = mm.route(dtype, N, K)
+            before = mm.matmul.route_launches[path]
             got = mm.matmul(x, y)
             want = ref.matmul(x, y)
             torch.cuda.synchronize()
+            if mm.matmul.route_launches[path] != before + 1:
+                fail(f"matmul {dname} {M}x{N}x{K}: no launch on the "
+                     f"{path} route")
             err, norm_err, ok = close(torch, got, want, K, dname)
             if not ok:
-                fail(f"matmul {dname} {M}x{N}x{K}: kernel disagrees with "
-                     f"the plain version, max |err|/sqrt(K) = {norm_err}")
+                fail(f"matmul {dname} {M}x{N}x{K} ({path}): kernel "
+                     f"disagrees with the plain version, max "
+                     f"|err|/sqrt(K) = {norm_err}")
             # the library call against the same plain version, so a zero
             # error above can be read beside one the comparison does see
             lib_err = close(torch, torch.matmul(x, y), want, K, dname)[0]
             b_ms, b_by = bound(M, N, K, dname, x.element_size())
             checks.append({
-                "shape": [M, N, K], "dtype": dname, "max_abs_err": err,
+                "shape": [M, N, K], "dtype": dname, "route": path,
+                "max_abs_err": err,
                 "max_err_over_sqrt_k": norm_err, "tol": TOL[dname],
                 "library_max_abs_err": lib_err,
                 "ms": cuda_ms(torch, lambda: mm.matmul(x, y)),
                 "plain_ms": cuda_ms(torch, lambda: ref.matmul(x, y)),
                 "library_ms": cuda_ms(torch, lambda: torch.matmul(x, y)),
                 "bound_ms": b_ms, "bound_by": b_by})
+            c = checks[-1]
+            print(f"matmul {dname} {M}x{N}x{K} ({path}): err/sqrt(K) "
+                  f"{norm_err:.3g} (tol {TOL[dname]}) | kernel "
+                  f"{c['ms']:.4f} ms | plain {c['plain_ms']:.4f} ms | "
+                  f"torch.matmul {c['library_ms']:.4f} ms | bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
             del x, y, got, want
     line("kernels_vs_plain", checks)
     return checks
@@ -244,7 +266,7 @@ def phase_main_path(torch, checks: list) -> int:
         return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
 
     torch.cuda.reset_peak_memory_stats()
-    mm.matmul.launches = 0
+    _reset(mm.matmul)
     graph, seq, rep_seq = run_matrix_dag(N_TASKS, SIZE, 1)
     seq_launches = mm.matmul.launches
     _, par, rep_par = run_matrix_dag(N_TASKS, SIZE, N_WORKERS)
@@ -254,6 +276,8 @@ def phase_main_path(torch, checks: list) -> int:
             or launches - seq_launches != n_mul:
         fail(f"expected {n_mul} kernel launches per run, got "
              f"{seq_launches} and {launches - seq_launches}")
+    if mm.matmul.route_launches != {"wgmma": 0, "simt": launches}:
+        fail(f"float32 mul launches by route: {mm.matmul.route_launches}")
     if len(graph) != 3 * N_TASKS + 1 or set(seq) != set(par):
         fail("the two runs computed different node sets")
     for tid, a in seq.items():
@@ -412,16 +436,21 @@ def phase_flash_kernels(torch) -> list:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             args = [t.to(dtype) for t in (q, k, v)]
+            path = fa.route(dtype, D)
+            before = fa.flash_attention.route_launches[path]
             got = fa.flash_attention(*args, causal=causal)
             want = ref.attention(*args, causal=causal)
             torch.cuda.synchronize()
+            if fa.flash_attention.route_launches[path] != before + 1:
+                fail(f"flash_attention {dname} {(B, H, KH, Sq, Sk, D)}: no "
+                     f"launch on the {path} route")
             tol = TOL[dname]
             err = (got.float() - want.float()).abs().max().item()
             if got.dtype != dtype or not torch.allclose(
                     got.float(), want.float(), rtol=tol, atol=tol):
                 fail(f"flash_attention {dname} {(B, H, KH, Sq, Sk, D)} "
-                     f"causal={causal}: kernel disagrees with the plain "
-                     f"version, max |err| {err}")
+                     f"causal={causal} ({path}): kernel disagrees with the "
+                     f"plain version, max |err| {err}")
 
             def library():
                 return F.scaled_dot_product_attention(
@@ -433,7 +462,8 @@ def phase_flash_kernels(torch) -> list:
                                      dtype.itemsize)
             checks.append({
                 "shape": [B, H, KH, Sq, Sk, D], "causal": causal,
-                "dtype": dname, "max_abs_err": err, "tol": tol,
+                "dtype": dname, "route": path, "max_abs_err": err,
+                "tol": tol,
                 "library_max_abs_err": lib_err,
                 "ms": cuda_ms(torch, lambda: fa.flash_attention(
                     *args, causal=causal)),
@@ -443,7 +473,7 @@ def phase_flash_kernels(torch) -> list:
                 "bound_ms": b_ms, "bound_by": b_by})
             c = checks[-1]
             print(f"flash_attention {dname} {B}x{H}x{Sq}x{D} kv {KH}x{Sk} "
-                  f"causal={causal}: err {err:.3g} (tol {tol}) | kernel "
+                  f"causal={causal} ({path}): err {err:.3g} (tol {tol}) | kernel "
                   f"{c['ms']:.4f} ms | plain {c['plain_ms']:.4f} ms | sdpa "
                   f"{c['library_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
@@ -493,6 +523,29 @@ def _counters():
             "flash_attention": fa.flash_attention}
 
 
+def _reset(fn) -> None:
+    """Sets a kernel wrapper's launch counts, and its counts by route, to 0."""
+    fn.launches = 0
+    if hasattr(fn, "route_launches"):
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+
+
+# the route that every launch of a path's kernel must take: qwen2-7b's bf16
+# attention at D = 128 runs on the tensor cores
+PATH_ROUTE = {"flash_attention": "wgmma"}
+
+
+def _check_routes(fn, what: str) -> dict:
+    """A path kernel's launches by route; fails if one left its route."""
+    routes = getattr(fn, "route_launches", None)
+    want = PATH_ROUTE.get(fn.__name__)
+    if want and routes != {r: (fn.launches if r == want else 0)
+                           for r in routes}:
+        fail(f"{what}: {fn.__name__} launches by route {routes}, expected "
+             f"all {fn.launches} on {want}")
+    return routes
+
+
 def _path_kernel(cfg) -> str:
     """The kernel a model's path launches: the scan for Mamba1 (every
     forward), flash attention for the dense transformer (every prefill)."""
@@ -506,9 +559,10 @@ def phase_serve(torch, cfg, params) -> int:
     argv = ["--arch", cfg.name] + SERVE_ARGS
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
-        fn.launches = 0
+        _reset(fn)
     out = serve.main(argv, params=params)
     launches = {name: fn.launches for name, fn in counters.items()}
+    routes = _check_routes(counters[kernel], f"{cfg.name} serve")
     finished = sorted(out["finished"], key=lambda r: r.rid)
     if len(finished) != 4 or out["decode_steps"] != SERVE_DECODE_STEPS:
         fail(f"served {len(finished)} requests in {out['decode_steps']} "
@@ -532,7 +586,7 @@ def phase_serve(torch, cfg, params) -> int:
         "arch": cfg.name, "argv": argv, "requests": len(finished),
         "decode_steps": out["decode_steps"], "forwards": out["forwards"],
         "prefills": out["prefills"], "launches": launches,
-        "wall_s": out["wall"],
+        "launches_by_route": routes, "wall_s": out["wall"],
         "ttft_p50_s": out["ttft_p50"], "latency_p50_s": out["latency_p50"],
         "decode_tok_s": out["decode_tok_s"],
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
@@ -571,9 +625,10 @@ def phase_long_prefill(torch, cfg, params) -> dict:
         return toks, logits, prefill_s, decode_s
 
     torch.cuda.reset_peak_memory_stats()
-    counter.launches = 0
+    _reset(counter)
     toks_k, logits_k, pre_k, dec_k = run("kernel")
     launches_k = counter.launches
+    routes = _check_routes(counter, f"{cfg.name} long prefill")
     peak = torch.cuda.max_memory_allocated()
     toks_r, logits_r, pre_r, dec_r = run("ref", feed=toks_k)
     # the scan runs in every forward, flash attention in the prefill
@@ -605,7 +660,7 @@ def phase_long_prefill(torch, cfg, params) -> dict:
            dec_k / LONG_DECODE * 1e3, "prefill_s_plain": pre_r,
            "decode_ms_per_step_plain": dec_r / LONG_DECODE * 1e3,
            f"{counter.__name__}_launches": launches_k,
-           "peak_device_bytes": peak}
+           "launches_by_route": routes, "peak_device_bytes": peak}
     line("long_prefill", out)
     return out
 
@@ -700,9 +755,13 @@ def main() -> int:
                                      profile))
 
     def entry(kernel, replaces, n, check, all_checks):
+        # the headline check's source: the tensor-core kernel for its wgmma
+        # route, the CUDA-core one otherwise
+        stem = kernel + ("_wgmma" if check.get("route") == "wgmma" else "")
         return {"name": kernel, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{kernel}.cu",
+                "source": f"src/repro_torch/kernels/csrc/{stem}.cu",
                 "replaces": replaces, "launches": n,
+                "kernel_route": check.get("route", "simt"),
                 "max_abs_err": check["max_abs_err"], "ms": check["ms"],
                 "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
                 "bound_by": check["bound_by"],

@@ -36,10 +36,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_matmul_bf16_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ssm_scan_f32": [_P] * 8 + [_I] * 5 + [_P],
     "repro_ssm_scan_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "repro_flash_attention_f32": [_P] * 4 + [_I] * 8 + [_P],
     "repro_flash_attention_bf16": [_P] * 4 + [_I] * 8 + [_P],
+    "repro_flash_attention_bf16_wgmma": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,18 +1,26 @@
-"""The hand-written CUDA flash-attention kernel (``csrc/flash_attention.cu``)
-and its wrapper.
+"""The hand-written CUDA flash-attention kernels and their wrapper.
 
 Port of ``repro/kernels/flash_attention.py::flash_attention``: forward
 attention of ``q (B, H, Sq, D)`` over ``k, v (B, KH, Sk, D)`` with an online
 softmax in float32, GQA by kv head ``h // (H // KH)`` and a top-left causal
 mask.  Unlike the TPU kernel it takes any ``Sq`` and ``Sk`` (the served
-prompts are 4-12 tokens long).  The source's header says how the TPU kernel
-translates and what bounds the kernel on the H100.
+prompts are 4-12 tokens long).  Two routes, chosen by :func:`route` from
+the dtype and the head dim alone:
+
+- ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 with ``D % 8 == 0``
+  (TMA needs 16-byte row strides), on the tensor cores;
+- ``"simt"`` (``csrc/flash_attention.cu``): float32, which stays IEEE
+  float32 on the CUDA cores (the tensor cores' float32 input is TF32, about
+  three decimal digits), and bf16 with other head dims.
+
+The sources' headers say how the TPU kernel translates and what bounds each
+kernel on the H100.
 
 For tensors on the CPU the wrapper returns the plain version
-(:func:`repro_torch.kernels.ref.attention`).  For CUDA tensors it launches
-the kernel or raises; it never falls back.  ``flash_attention.launches``
-counts the kernel's launches, so a run can show that its work went through
-the kernel.
+(:func:`repro_torch.kernels.ref.attention`).  For CUDA tensors it launches a
+kernel or raises; it never falls back.  ``flash_attention.launches`` counts
+every launch and ``flash_attention.route_launches`` the launches of each
+route, so a run can show that its work went through the kernels.
 """
 from __future__ import annotations
 
@@ -22,12 +30,20 @@ import torch
 
 from . import _build, ref
 
-_ENTRY = {torch.float32: "repro_flash_attention_f32",
-          torch.bfloat16: "repro_flash_attention_bf16"}
+_ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
+          ("simt", torch.bfloat16): "repro_flash_attention_bf16",
+          ("wgmma", torch.bfloat16): "repro_flash_attention_bf16_wgmma"}
+ROUTES = ("wgmma", "simt")
 MAX_HEAD_DIM = 128
 _INT_MAX = 2 ** 31 - 1
 _MAX_GRID_YZ = 65535       # heads and batch are the grid's y and z
 _launch_lock = threading.Lock()   # guards flash_attention.launches
+
+
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel that takes head dim ``1 <= D <= 128`` in ``dtype`` on the
+    card."""
+    return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -60,7 +76,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.attention(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
-    if q.dtype not in _ENTRY:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the flash_attention kernel takes float32 or "
                         f"bfloat16, not {q.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -71,17 +87,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"<= {MAX_HEAD_DIM}, got D = {D}")
     if max(B, H) > _MAX_GRID_YZ or max(Sq, Sk) > _INT_MAX:
         raise ValueError(f"shape {(B, H, Sq, Sk)} exceeds the kernel's grid")
+    path = route(q.dtype, D)
+    if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the wgmma flash_attention kernel takes 16-byte "
+                         "aligned tensors")
     out = torch.empty_like(q)
     if B and Sq:
         lib = _build.library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, _ENTRY[q.dtype])(
+        err = getattr(lib, _ENTRY[path, q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, KH, Sq, Sk, D, int(causal), q.device.index, stream)
-        _build.check(err, "flash_attention kernel launch")
+        _build.check(err, f"flash_attention kernel launch ({path})")
         with _launch_lock:
             flash_attention.launches += 1
+            flash_attention.route_launches[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

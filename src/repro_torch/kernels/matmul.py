@@ -1,14 +1,24 @@
-"""The hand-written CUDA matmul kernel (``csrc/matmul.cu``) and its wrapper.
+"""The hand-written CUDA matmul kernels and their wrapper.
 
 Port of ``repro/kernels/matmul_pallas.py::matmul``, the compute payload of
 the paper's Fig. 2 benchmark: ``(M, K) @ (K, N) -> (M, N)`` in ``x.dtype``
-with a float32 sum.  The source's header says how the TPU kernel's blocking
-translates and what bounds the kernel on the H100.
+with a float32 sum.  Two routes, chosen by :func:`route` from the dtype and
+the shape alone:
+
+- ``"wgmma"`` (``csrc/matmul_wgmma.cu``): bf16 with ``K % 8 == 0`` and
+  ``N % 8 == 0`` (TMA needs 16-byte row strides), on the tensor cores;
+- ``"simt"`` (``csrc/matmul.cu``): float32, which stays IEEE float32 on the
+  CUDA cores (the tensor cores' float32 input is TF32, about three decimal
+  digits), and the other bf16 shapes.
+
+The sources' headers say how the TPU kernel's blocking translates and what
+bounds each kernel on the H100.
 
 For tensors on the CPU the wrapper returns the plain version
-(:func:`repro_torch.kernels.ref.matmul`).  For CUDA tensors it launches the
-kernel or raises; it never falls back.  ``matmul.launches`` counts the
-kernel's launches, so a run can show that its work went through the kernel.
+(:func:`repro_torch.kernels.ref.matmul`).  For CUDA tensors it launches a
+kernel or raises; it never falls back.  ``matmul.launches`` counts every
+launch and ``matmul.route_launches`` the launches of each route, so a run
+can show that its work went through the kernels.
 """
 from __future__ import annotations
 
@@ -18,10 +28,19 @@ import torch
 
 from . import _build, ref
 
-_ENTRY = {torch.float32: "repro_matmul_f32",
-          torch.bfloat16: "repro_matmul_bf16"}
+_ENTRY = {("simt", torch.float32): "repro_matmul_f32",
+          ("simt", torch.bfloat16): "repro_matmul_bf16",
+          ("wgmma", torch.bfloat16): "repro_matmul_bf16_wgmma"}
+ROUTES = ("wgmma", "simt")
 _INT_MAX = 2 ** 31 - 1
 _launch_lock = threading.Lock()   # guards matmul.launches across workers
+
+
+def route(dtype: torch.dtype, N: int, K: int) -> str:
+    """The kernel that takes ``(M, K) @ (K, N)`` in ``dtype`` on the card."""
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -41,7 +60,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return ref.matmul(x, y)
     if x.device.type != "cuda":
         raise ValueError(f"no matmul kernel for device {x.device}")
-    if x.dtype not in _ENTRY:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the matmul kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
     if not (x.is_contiguous() and y.is_contiguous()):
@@ -49,18 +68,24 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     (M, K), N = x.shape, y.shape[1]
     if max(M, N, K) > _INT_MAX:
         raise ValueError(f"dims {M}, {N}, {K} exceed the kernel's int range")
+    path = route(x.dtype, N, K)
+    if path == "wgmma" and (x.data_ptr() % 16 or y.data_ptr() % 16):
+        raise ValueError("the wgmma matmul kernel takes 16-byte aligned "
+                         "tensors")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, _ENTRY[x.dtype])(
+    err = getattr(lib, _ENTRY[path, x.dtype])(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
         x.device.index, stream)
-    _build.check(err, "matmul kernel launch")
+    _build.check(err, f"matmul kernel launch ({path})")
     with _launch_lock:
         matmul.launches += 1
+        matmul.route_launches[path] += 1
     return out
 
 
 matmul.launches = 0
+matmul.route_launches = dict.fromkeys(ROUTES, 0)

@@ -124,6 +124,33 @@ def test_impls_agree_and_cpu_counts_no_launch():
         pt_ops.flash_attention(q, k, v, impl="pallas")
 
 
+# (dtype, D) -> the kernel the card runs: bf16 head dims whose rows are
+# 16-byte aligned (D % 8 == 0) go to the tensor cores; float32 never
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 128, "wgmma"),    # qwen2-7b
+    (torch.bfloat16, 112, "wgmma"),
+    (torch.bfloat16, 72, "wgmma"),     # D % 16 != 0: zero-padded to 128
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 8, "wgmma"),
+    (torch.bfloat16, 100, "simt"),     # D % 8 != 0
+    (torch.bfloat16, 1, "simt"),
+    (torch.float32, 128, "simt"),
+    (torch.float32, 72, "simt"),
+    (torch.float32, 1, "simt")])
+def test_route_follows_dtype_and_head_dim(dtype, D, want):
+    assert pt_flash.route(dtype, D) == want
+
+
+def test_cpu_bf16_launches_no_route():
+    q, k, v = _cpu(_inputs(1, 28, 4, 40, 40, 128, "bfloat16", seed=6))
+    assert pt_flash.route(q.dtype, 128) == "wgmma"
+    before = dict(pt_flash.flash_attention.route_launches)
+    got = pt_ops.flash_attention(q, k, v)
+    assert torch.equal(got, pt_ref.attention(q, k, v))
+    assert pt_flash.flash_attention.route_launches == before
+    assert set(before) == {"wgmma", "simt"}
+
+
 def test_wrapper_rejects_mismatched_inputs():
     q, k, v = _cpu(_inputs(1, 4, 2, 8, 8, 16))
     with pytest.raises(ValueError):

@@ -29,18 +29,29 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+# the bf16 shapes with K % 8 == 0 and N % 8 == 0, which take the wgmma
+# route; every other case takes the CUDA-core (simt) kernel
+_MM_WGMMA = {(128, 128, 128), (1000, 1528, 776), (64, 64, 0)}
+
+
 @pytest.mark.parametrize("M,N,K", [(128, 128, 128), (1000, 1531, 777),
-                                   (1, 129, 7), (257, 3, 1), (64, 64, 0)])
+                                   (1, 129, 7), (257, 3, 1), (64, 64, 0),
+                                   (1000, 1528, 776)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, M, N, K, dtype):
     from repro_torch.kernels import matmul as mm, ref
     g = torch.Generator(device=cuda).manual_seed(M * 7 + N * 3 + K)
     x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
     y = torch.randn(K, N, generator=g, device=cuda).to(dtype)
+    path = ("wgmma" if dtype == torch.bfloat16 and (M, N, K) in _MM_WGMMA
+            else "simt")
+    assert mm.route(dtype, N, K) == path
     before = mm.matmul.launches
+    before_route = mm.matmul.route_launches[path]
     got = mm.matmul(x, y)
     torch.cuda.synchronize()
     assert mm.matmul.launches == before + 1
+    assert mm.matmul.route_launches[path] == before_route + 1
     assert got.shape == (M, N) and got.dtype == dtype
     s = math.sqrt(max(K, 1))
     want = ref.matmul(x, y)
@@ -57,6 +68,38 @@ def test_kernel_is_deterministic_across_launches(cuda):
     for _ in range(3):
         assert torch.equal(mm.matmul(x, y).view(torch.int32),
                            first.view(torch.int32))
+
+
+def test_wgmma_kernel_is_deterministic_across_launches(cuda):
+    from repro_torch.kernels import matmul as mm
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(777, 1024, generator=g, device=cuda).bfloat16()
+    y = torch.randn(1024, 336, generator=g, device=cuda).bfloat16()
+    before = mm.matmul.route_launches["wgmma"]
+    first = mm.matmul(x, y)
+    for _ in range(3):
+        assert torch.equal(mm.matmul(x, y).view(torch.int16),
+                           first.view(torch.int16))
+    assert mm.matmul.route_launches["wgmma"] == before + 4
+
+
+def test_wgmma_wrappers_reject_misaligned_pointers(cuda):
+    from repro_torch.kernels import flash_attention as fa, matmul as mm
+    # a contiguous bf16 view that starts 2 bytes past a 16-byte boundary
+    buf = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    x = buf[1:].view(64, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    y = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        mm.matmul(x, y)
+    with pytest.raises(ValueError, match="aligned"):
+        mm.matmul(y, x)
+    q = x.view(1, 1, 64, 64)
+    kv = y.view(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(kv, kv, q)
 
 
 def test_launch_counter_loses_no_update_under_threads(cuda):
@@ -260,17 +303,25 @@ def _attn_inputs(device, B, H, KH, Sq, Sk, D, dtype, seed=0):
     (2, 4, 2, 300, 777, 112),       # cross-shaped, Sq < Sk
     (1, 4, 1, 129, 64, 32),         # cross-shaped, Sq > Sk, MQA
     (3, 6, 3, 65, 65, 1),
-    (1, 2, 2, 5, 0, 16)])           # no keys: zeros
+    (1, 2, 2, 5, 0, 16),            # no keys: zeros
+    (1, 4, 2, 200, 333, 72),        # D % 16 != 0, Sk not a tile multiple
+    (1, 14, 2, 100, 300, 128),      # GQA group 7 (qwen2-7b's), Sq < Sk
+    (2, 7, 1, 333, 129, 64)])       # group 7, Sq > Sk
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain_version(cuda, B, H, KH, Sq, Sk,
                                                       D, causal, dtype):
     from repro_torch.kernels import flash_attention as fa, ref
     q, k, v = _attn_inputs(cuda, B, H, KH, Sq, Sk, D, dtype, seed=Sq + Sk)
+    # every bf16 case here has D % 8 == 0 except D = 1
+    path = "wgmma" if dtype == torch.bfloat16 and D != 1 else "simt"
+    assert fa.route(dtype, D) == path
     before = fa.flash_attention.launches
+    before_route = fa.flash_attention.route_launches[path]
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.route_launches[path] == before_route + 1
     assert got.shape == q.shape and got.dtype == dtype
     want = ref.attention(q, k, v, causal=causal)
     assert torch.allclose(got.float(), want.float(), rtol=TOL[dtype],
@@ -286,6 +337,17 @@ def test_flash_attention_kernel_is_deterministic_across_launches(cuda):
     for _ in range(2):
         assert torch.equal(fa.flash_attention(q, k, v).view(torch.int32),
                            first.view(torch.int32))
+
+
+def test_flash_attention_wgmma_is_deterministic_across_launches(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 2, 8, 2, 700, 700, 128, torch.bfloat16)
+    before = fa.flash_attention.route_launches["wgmma"]
+    first = fa.flash_attention(q, k, v)
+    for _ in range(2):
+        assert torch.equal(fa.flash_attention(q, k, v).view(torch.int16),
+                           first.view(torch.int16))
+    assert fa.flash_attention.route_launches["wgmma"] == before + 3
 
 
 def test_flash_attention_launch_counter_loses_no_update_under_threads(cuda):
@@ -377,3 +439,27 @@ def test_dense_forward_on_the_card_matches_the_cpu(cuda):
     got_step, _ = decode(on_card, cache, toks[:, :1].to(cuda))
     assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert torch.allclose(got_step.cpu(), want_step, rtol=1e-4, atol=1e-4)
+
+
+def test_dense_prefill_launches_flash_per_layer_on_wgmma(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as TF
+    # qwen2-7b's depth, head dim and GQA group of 7, at a narrow width
+    cfg = get_config("qwen2-7b").reduced(
+        compute_dtype="bfloat16", n_layers=28, d_model=256, n_heads=7,
+        n_kv_heads=1, head_dim=128)
+    params = TF.init_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 77), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    prefill = TF.make_prefill_step(cfg, max_len=80)
+    decode = TF.make_decode_step(cfg)
+    before = dict(fa.flash_attention.route_launches)
+    last, cache = prefill(params, toks)
+    after_prefill = dict(fa.flash_attention.route_launches)
+    step, _ = decode(params, cache, toks[:, :1])
+    torch.cuda.synchronize()
+    assert after_prefill == {"wgmma": before["wgmma"] + 28,
+                             "simt": before["simt"]}
+    assert fa.flash_attention.route_launches == after_prefill
+    assert torch.isfinite(last).all() and torch.isfinite(step).all()

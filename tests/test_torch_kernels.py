@@ -68,6 +68,35 @@ def test_ops_impls_agree_and_cpu_does_not_count_launches():
         pt_ops.matmul(x, y, impl="pallas")
 
 
+# (dtype, N, K) -> the kernel the card runs: bf16 rows that are 16-byte
+# aligned (K % 8 == 0, N % 8 == 0) go to the tensor cores; float32 never
+@pytest.mark.parametrize("dtype,N,K,want", [
+    (torch.bfloat16, 4096, 4096, "wgmma"),    # the bf16 main shape
+    (torch.bfloat16, 1528, 776, "wgmma"),     # aligned, not a tile multiple
+    (torch.bfloat16, 64, 0, "wgmma"),         # K = 0: zeros
+    (torch.bfloat16, 8, 8, "wgmma"),
+    (torch.bfloat16, 1531, 777, "simt"),      # neither aligned
+    (torch.bfloat16, 1528, 777, "simt"),      # K % 8 != 0
+    (torch.bfloat16, 1531, 776, "simt"),      # N % 8 != 0
+    (torch.bfloat16, 129, 7, "simt"),
+    (torch.float32, 4096, 4096, "simt"),      # Fig. 2's mul
+    (torch.float32, 1528, 776, "simt"),
+    (torch.float32, 64, 0, "simt")])
+def test_matmul_route_follows_dtype_and_alignment(dtype, N, K, want):
+    assert pt_matmul.route(dtype, N, K) == want
+
+
+def test_cpu_matmul_launches_no_route():
+    x, y = (tensor_from_numpy(a, "cpu") for a in _inputs(64, 48, 32,
+                                                          "bfloat16"))
+    assert pt_matmul.route(x.dtype, 32, 48) == "wgmma"
+    before = dict(pt_matmul.matmul.route_launches)
+    out = pt_ops.matmul(x, y)
+    assert torch.equal(out, pt_ref.matmul(x, y))
+    assert pt_matmul.matmul.route_launches == before
+    assert set(before) == {"wgmma", "simt"}
+
+
 @pytest.mark.parametrize("bad", ["inner", "dtype", "rank"])
 def test_matmul_wrapper_rejects_bad_arguments(bad):
     x = torch.zeros(4, 3)
