@@ -18,7 +18,8 @@ Each phase prints one line; any failure raises and exits non-zero:
    multiple, in float32 and bfloat16, with CUDA-event times of the kernel,
    the plain version and one library call (a yardstick only: the port never
    calls it) beside the card's bound; each check names its route, ``wgmma``
-   (bf16 on the tensor cores, fed by TMA) or ``simt`` (the CUDA cores);
+   (bf16 on the tensor cores, fed by TMA) or ``simt`` (the CUDA cores), and
+   its load variant (``tma``; ``vector`` or ``scalar`` for simt);
 4. main path — the paper's Fig. 2 DAG (16 units of 4096x4096 float32) traced
    and run on the sequential oracle and on the threaded work-stealing
    executor: threaded == sequential bit for bit, each ``mul`` against the
@@ -52,7 +53,8 @@ Each phase prints one line; any failure raises and exits non-zero:
    none in the plain one.
 
 With ``--profile`` it also profiles one decode step and two prefills of
-each served model (device time by kernel, device busy share).
+each served model (device time by kernel, device busy share, and the
+device time of the port's own kernels).
 
 Then one JSON line of the kernels, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -219,7 +221,9 @@ def phase_kernels(torch) -> list:
         for M, N, K in KERNEL_SHAPES:
             x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
             y = torch.randn(K, N, generator=gen, device="cuda").to(dtype)
+            # fresh allocations: 16-byte aligned
             path = mm.route(dtype, N, K)
+            loads = mm.variant(dtype, N, K)
             before = mm.matmul.route_launches[path]
             got = mm.matmul(x, y)
             want = ref.matmul(x, y)
@@ -229,7 +233,7 @@ def phase_kernels(torch) -> list:
                      f"{path} route")
             err, norm_err, ok = close(torch, got, want, K, dname)
             if not ok:
-                fail(f"matmul {dname} {M}x{N}x{K} ({path}): kernel "
+                fail(f"matmul {dname} {M}x{N}x{K} ({path}, {loads}): kernel "
                      f"disagrees with the plain version, max "
                      f"|err|/sqrt(K) = {norm_err}")
             # the library call against the same plain version, so a zero
@@ -238,7 +242,7 @@ def phase_kernels(torch) -> list:
             b_ms, b_by = bound(M, N, K, dname, x.element_size())
             checks.append({
                 "shape": [M, N, K], "dtype": dname, "route": path,
-                "max_abs_err": err,
+                "variant": loads, "max_abs_err": err,
                 "max_err_over_sqrt_k": norm_err, "tol": TOL[dname],
                 "library_max_abs_err": lib_err,
                 "ms": cuda_ms(torch, lambda: mm.matmul(x, y)),
@@ -246,8 +250,8 @@ def phase_kernels(torch) -> list:
                 "library_ms": cuda_ms(torch, lambda: torch.matmul(x, y)),
                 "bound_ms": b_ms, "bound_by": b_by})
             c = checks[-1]
-            print(f"matmul {dname} {M}x{N}x{K} ({path}): err/sqrt(K) "
-                  f"{norm_err:.3g} (tol {TOL[dname]}) | kernel "
+            print(f"matmul {dname} {M}x{N}x{K} ({path}, {loads} loads): "
+                  f"err/sqrt(K) {norm_err:.3g} (tol {TOL[dname]}) | kernel "
                   f"{c['ms']:.4f} ms | plain {c['plain_ms']:.4f} ms | "
                   f"torch.matmul {c['library_ms']:.4f} ms | bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
@@ -530,6 +534,10 @@ def _reset(fn) -> None:
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
+# the port's kernels among a profile's device entries
+PORT_KERNEL = re.compile(r"\b(matmul|matmul_wgmma|ssm_scan|flash_attention|"
+                         r"flash_wgmma)_kernel\b")
+
 # the route that every launch of a path's kernel must take: qwen2-7b's bf16
 # attention at D = 128 runs on the tensor cores
 PATH_ROUTE = {"flash_attention": "wgmma"}
@@ -706,7 +714,11 @@ def phase_profile(torch, cfg, params) -> None:
             "device_busy_share": busy_us / 1e6 / wall,
             "kernel_launches": sum(k[1] for k in kernels),
             "top": [{"kernel": k[2][:120], "count": k[1],
-                     "device_ms": k[0] / 1e3} for k in kernels[:12]]})
+                     "device_ms": k[0] / 1e3} for k in kernels[:12]],
+            # the port's own kernels, wherever they rank
+            "port_kernels": [{"kernel": k[2][:120], "count": k[1],
+                              "device_ms": k[0] / 1e3} for k in kernels
+                             if PORT_KERNEL.search(k[2])]})
 
 
 def phase_model(torch, arch: str, n_params: int, profile: bool):
@@ -762,6 +774,8 @@ def main() -> int:
                 "source": f"src/repro_torch/kernels/csrc/{stem}.cu",
                 "replaces": replaces, "launches": n,
                 "kernel_route": check.get("route", "simt"),
+                **({"kernel_variant": check["variant"]}
+                   if "variant" in check else {}),
                 "max_abs_err": check["max_abs_err"], "ms": check["ms"],
                 "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
                 "bound_by": check["bound_by"],

@@ -1,0 +1,225 @@
+#!/usr/bin/env python3
+"""Time the port's CUDA-core matmul, selective-scan and flash-attention kernels
+of two or more checkouts on one card, in turns, and compare their outputs bit
+for bit.
+
+    python3 kernel_ab.py parent=build/ab/parent change=. [--prefill]
+
+Each ``NAME=DIR`` names the root of a checkout (its ``src/repro_torch``
+builds its own kernels under ``DIR/build``).  The checkouts run in the order
+of ``--order`` (default: the first, the second, the second, the first; for
+an A/B of a parent and a change that is parent, change, change, parent),
+each in a process of its own, so no two builds share a library.  In each
+run, on the same seeded inputs:
+
+- matmul (simt route): 4096^3 float32 (the Fig. 2 ``mul``), 1000x1531x777
+  and 1000x1528x776 float32, 1000x1531x777 bf16;
+- ssm_scan: ``chip_smoke.SCAN_SHAPES`` in float32 and bf16, with the model's
+  dt and A;
+- flash_attention: bf16 at qwen2-7b's long prefill (``FLASH_SHAPES[0]``);
+- with ``--prefill``: falcon-mamba-7b at full width (parameters drawn on the
+  card from seed 0) and its 2048-token prefill, three times.
+
+Kernel times are CUDA-event means over ``chip_smoke.REPS`` launches after a
+warm-up; each output's largest error against the plain version
+(``kernels/ref.py``) is recorded, and its SHA-256 tells whether two
+checkouts computed the same bits.  It prints the card's ``nvidia-smi`` name
+and power limit, one JSON line per run and a summary line, and writes them
+to ``--out`` (default ``build/kernel_ab.json``).  It needs a CUDA card and
+imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+MATMUL_SHAPES = [(4096, 4096, 4096, "float32"), (1000, 1531, 777, "float32"),
+                 (1000, 1528, 776, "float32"), (1000, 1531, 777, "bfloat16")]
+
+CHILD = r'''
+import hashlib, json, sys, time
+import torch
+root, smoke_dir, matmul_shapes, prefill = (sys.argv[1], sys.argv[2],
+                                           json.loads(sys.argv[3]),
+                                           sys.argv[4] == "1")
+sys.path.insert(0, root + "/src")
+sys.path.insert(0, smoke_dir)
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.kernels import _build, matmul as mm, ref, ssm_scan as scan
+t0 = time.perf_counter()
+_build.library()
+out = {"build_s": time.perf_counter() - t0, "build_dir": str(_build.build_dir())}
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+gen = torch.Generator(device="cuda").manual_seed(0)
+out["matmul"] = []
+for M, N, K, dname in matmul_shapes:
+    dtype = getattr(torch, dname)
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    y = torch.randn(K, N, generator=gen, device="cuda").to(dtype)
+    got = mm.matmul(x, y)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.matmul(x, y).float()).abs().max().item()
+    out["matmul"].append({"shape": [M, N, K], "dtype": dname,
+                          "max_err_over_sqrt_k": err / K ** 0.5,
+                          "ms": cs.cuda_ms(torch, lambda: mm.matmul(x, y)),
+                          "sha256": digest(got)})
+
+import torch.nn.functional as F
+from repro_torch.models.layers import ParamSpec, init_param
+dev = torch.device("cuda")
+gen = torch.Generator(device="cuda").manual_seed(0)
+out["ssm_scan"] = []
+for Bsz, S, D, N, with_h0 in cs.SCAN_SHAPES:
+    # as chip_smoke.phase_scan_kernels draws them
+    dt_bias = init_param(ParamSpec("smoke/dt_bias", (D,), "mamba_dt"), 0,
+                         torch.float32, dev)
+    A = -torch.exp(init_param(ParamSpec("smoke/A_log", (D, N), "mamba_A"), 0,
+                              torch.float32, dev))
+    x = torch.randn(Bsz, S, D, generator=gen, device=dev)
+    dt = F.softplus(torch.randn(Bsz, S, D, generator=gen, device=dev)
+                    + dt_bias)
+    B = torch.randn(Bsz, S, N, generator=gen, device=dev)
+    C = torch.randn(Bsz, S, N, generator=gen, device=dev)
+    h0 = torch.randn(Bsz, D, N, generator=gen, device=dev) if with_h0 else None
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (x, dt, B, C)] + [A, h0]
+        y, h = scan.ssm_scan(*args, return_state=True)
+        want_y, want_h = ref.ssm_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        out["ssm_scan"].append({
+            "shape": [Bsz, S, D, N], "h0": with_h0,
+            "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err_y": (y.float() - want_y.float()).abs().max().item(),
+            "max_abs_err_h": (h - want_h).abs().max().item(),
+            "ms": cs.cuda_ms(torch, lambda: scan.ssm_scan(
+                *args, return_state=True)),
+            "sha256_y": digest(y), "sha256_h": digest(h)})
+
+# the bf16 flash-attention kernel at qwen2-7b's long prefill, a check that
+# the other kernels did not move
+from repro_torch.kernels import flash_attention as fa
+B, H, KH, Sq, Sk, Dh, causal = cs.FLASH_SHAPES[0]
+q = torch.randn(B, H, Sq, Dh, generator=gen, device=dev).bfloat16()
+k = torch.randn(B, KH, Sk, Dh, generator=gen, device=dev).bfloat16()
+v = torch.randn(B, KH, Sk, Dh, generator=gen, device=dev).bfloat16()
+o = fa.flash_attention(q, k, v, causal=causal)
+out["flash_attention"] = [{
+    "shape": [B, H, KH, Sq, Sk, Dh], "dtype": "bfloat16",
+    "ms": cs.cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                       causal=causal)),
+    "sha256": digest(o)}]
+
+if prefill:
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    cfg = get_config(cs.ARCH)
+    params = TF.init_params(cfg, 0, "cuda")
+    prompt = torch.randint(1, cfg.vocab_size, (1, cs.LONG_PROMPT),
+                           generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda", dtype=torch.int32)
+    step = TF.make_prefill_step(cfg, cs.LONG_MAX_LEN)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, _ = step(params, prompt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out["prefill"] = {"arch": cfg.name, "prompt_tokens": cs.LONG_PROMPT,
+                      "seconds": secs, "sha256_logits": digest(last)}
+print("RESULT " + json.dumps(out))
+'''
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", metavar="NAME=DIR")
+    ap.add_argument("--order", help="comma-separated names (default: "
+                    "first, second, second, first)")
+    ap.add_argument("--prefill", action="store_true",
+                    help="also time falcon-mamba-7b's 2048-token prefill")
+    ap.add_argument("--timeout", type=float, default=600.0,
+                    help="seconds for each run")
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "build" / "kernel_ab.json",
+                    help="where to write the runs and the summary as JSON")
+    args = ap.parse_args()
+    trees = dict(t.split("=", 1) for t in args.trees)
+    names = list(trees)
+    order = (args.order.split(",") if args.order else
+             [names[0], names[1], names[1], names[0]] if len(names) > 1
+             else names)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    shapes = json.dumps([list(s) for s in MATMUL_SHAPES])
+    runs = []
+    for name in order:
+        root = str((ROOT / trees[name]).resolve())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CHILD, root, str(ROOT), shapes,
+             "1" if args.prefill else "0"],
+            capture_output=True, text=True, timeout=args.timeout)
+        result = next((json.loads(ln[7:]) for ln in proc.stdout.splitlines()
+                       if ln.startswith("RESULT ")), None)
+        if proc.returncode != 0 or result is None:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"run of {name} ({root}) failed with exit "
+                               f"code {proc.returncode}")
+        result.update(name=name, wall_s=time.perf_counter() - t0)
+        runs.append(result)
+        print(f"run {name}: {json.dumps(result)}", flush=True)
+
+    def rows(key):
+        """Per case: each run's time, and whether all runs' bits agree."""
+        out = []
+        for i, case in enumerate(runs[0][key]):
+            row = {k: case[k] for k in ("shape", "dtype", "h0") if k in case}
+            for k in case:
+                if k == "ms" or k.startswith("max_"):
+                    row[k] = {}
+                    for r in runs:
+                        row[k].setdefault(r["name"], []).append(r[key][i][k])
+            hashes = [k for k in case if k.startswith("sha256")]
+            row["bits_equal"] = {
+                h: len({r[key][i][h] for r in runs}) == 1 for h in hashes}
+            out.append(row)
+        return out
+
+    summary = {"nvidia_smi": smi, "order": order,
+               "matmul": rows("matmul"), "ssm_scan": rows("ssm_scan"),
+               "flash_attention": rows("flash_attention")}
+    if args.prefill:
+        summary["prefill_s"] = {}
+        for r in runs:
+            summary["prefill_s"].setdefault(r["name"], []).append(
+                r["prefill"]["seconds"])
+        summary["prefill_logits_bits_equal"] = len(
+            {r["prefill"]["sha256_logits"] for r in runs}) == 1
+    print("summary: " + json.dumps(summary), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"summary": summary, "runs": runs},
+                                   indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

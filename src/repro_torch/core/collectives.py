@@ -109,21 +109,24 @@ def _op_sum(a, b):
     return a + b
 
 
+# With a tensor ``a``, a number or array ``b`` becomes a tensor on a's device
+# first, so torch's type promotion applies as numpy's does in the reference.
+
 def _op_max(a, b):
     if isinstance(a, torch.Tensor):
-        return torch.maximum(a, b)
+        return torch.maximum(a, torch.as_tensor(b, device=a.device))
     return np.maximum(a, b) if hasattr(a, "shape") else max(a, b)
 
 
 def _op_min(a, b):
     if isinstance(a, torch.Tensor):
-        return torch.minimum(a, b)
+        return torch.minimum(a, torch.as_tensor(b, device=a.device))
     return np.minimum(a, b) if hasattr(a, "shape") else min(a, b)
 
 
 def _op_concat(a, b):
     if isinstance(a, torch.Tensor):
-        return torch.cat([a, b])
+        return torch.cat([a, torch.as_tensor(b, device=a.device)])
     if hasattr(a, "shape"):
         return np.concatenate([a, b])
     return a + b

@@ -35,6 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C function -> argtypes; each returns a cudaError_t as int
 _SIGNATURES = {
     "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_matmul_f32_scalar": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_matmul_bf16_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ssm_scan_f32": [_P] * 8 + [_I] * 5 + [_P],

@@ -8,142 +8,350 @@
 // over t = 0..S-1, with x, dt (Bsz,S,D), B, C (Bsz,S,N), A (D,N) float32,
 // state h float32 (Bsz,D,N) starting from h0 (or zeros), returning y in the
 // input type and the final state.  Unlike the TPU kernel it takes any Bsz,
-// S >= 0 and D (ragged edges are masked), h0, and returns h_final.
+// S >= 0 and D (ragged edges are masked), 1 <= N <= 32, h0, and returns
+// h_final.
 //
 // Translation.  The TPU kernel tiles channels over a parallel grid axis and
 // carries the (bd, N) state in VMEM across a sequential chunk axis.  GPU
-// blocks run in no order, so here the time loop runs inside the block: one
-// thread owns one state element (b, d, n) for the whole sequence and keeps
-// it in a register.  G = 8, 16 or 32 adjacent lanes (the power of two
-// >= N) hold the N states of one channel, so a 128-thread block covers
-// 128/G channels of one batch row: 1,024 blocks at D = 8192, N = 16, which
-// fills the 132 SMs even at batch 1 (one thread per channel would give
-// 64 blocks).  Each step reduces h * C over the G lanes with
-// __shfl_xor_sync; lanes n >= N see B = C = 0 and add nothing.  Chunks of
-// CH time steps of x, dt, B and C are staged in shared memory with
-// coalesced loads, and y is staged there and written back per chunk.
+// blocks run in no order, so here the time loop runs inside the block and
+// the state lives in registers for the whole sequence: one thread owns
+// R = 4 states of one channel, and G = 1, 2, 4 or 8 adjacent lanes (the
+// power of two with G * R >= N) hold the channel's N states.  A block holds
+// CPB = 32 channels of one batch row (32 * G threads): at D = 8192 that is
+// 256 blocks, which covers the 132 SMs at batch 1.
+//
+// What bounds it.  Each input read once and each output written once is
+// 203 MB at the long-prefill shape (1x2048x8192, N = 16, float32): 0.061 ms
+// at 3.35 TB/s.  But every state-step costs an exp and a handful of
+// dependent float operations, 268 M state-steps there, so the kernel is
+// bound by instruction issue and latency: the 268 M exps alone take about
+// 0.065 ms on the SMs' 16 MUFU.EX2 lanes a clock, and at batch 1 an SM
+// holds only about 8 warps.  The first version spent about 28 instructions
+// a state-step (one lane a state: its own shared loads of dt and x, 4
+// shuffles and adds for y_t, an accurate expf), and its chunk staging did
+// not overlap the time loop.  The design:
+//   - R = 4 states a thread, and a thread walks its channel in groups of
+//     GS = max(G, 4) steps.  x and dt sit transposed in shared memory
+//     ([channel][step]), so a group's dt and x are one 16-byte read each
+//     per 4 steps; B_t and C_t are one 16-byte read each per step; dt_t *
+//     x_t is formed once per step; the R products h * C are summed with 3
+//     FMAs.  The exps depend on dt only, so they issue ahead of the h
+//     chains.
+//   - y: at the end of a group each lane holds the partial sums of its R
+//     states for the group's steps, and a reduce-scatter over the G lanes
+//     (G - 1 shuffles per G steps, against log2(G) per step for a
+//     butterfly) leaves lane g with the whole y of step g of each G steps,
+//     which it stores: every lane stores, no branch per step.
+//   - The exp is one MUFU.EX2: exp(dt * A) = 2^(dt * (A * log2 e)), with
+//     A * log2 e formed once a state (ex2.approx, about 2 ulp; results
+//     under 2^-126 flush to 0).  The accurate expf it replaces cost 8
+//     instructions on a dependent chain.
+//   - The next chunk of CH = 32 steps of x, dt, B and C is staged into the
+//     other half of a double buffer while the current chunk runs, with one
+//     __syncthreads() a chunk: float32 through 4-byte cp.async copies,
+//     zero-filled past the edges; bf16 (2 bytes, under cp.async's smallest
+//     copy) loaded into registers before the chunk and widened and stored
+//     after it (widened at the load, the compiler would wait on the loads
+//     before the time loop).
+//     Each thread's copy offsets are formed once; a chunk adds t0 rows.
 //
 // Numbers.  The state update uses __fmul_rn/__fadd_rn, so it is not fused
-// into FMAs and rounds exactly as the plain PyTorch version's elementwise
-// ops do (exp(dt*A) * h + (dt*x) * B), with expf (no fast math).  Only the
-// sum over N is taken in another order (a butterfly), so y differs from
-// the plain version in the last bits of float32.
-//
-// Bound (published H100 SXM peaks).  Each input is read once and each
-// output written once: at the long-prefill shape 1x2048x8192, N = 16,
-// float32 that is 203,161,600 B -> 0.061 ms at 3.35 TB/s, against
-// 7*Bsz*S*D*N = 1.9 GFLOP -> 0.028 ms at 67 TFLOP/s: bound by bytes.  A
-// decode step (S = 1) moves 1.67 MB (0.5 us) and is bound by the launch.
-// This kernel is meant to be right first: the time loop is a chain of
-// dependent steps per thread, and overlapping the staging of the next
-// chunk (cp.async / TMA) with the current one is work for a later change.
+// into FMAs and rounds as the plain PyTorch version's elementwise ops do
+// (exp(dt*A) * h + (dt*x) * B); only the exp differs from its expf, by a
+// few ulp, and the state carries that error at the scale of 1e-7 of h.
+// The sum over N is taken in another order (the thread's R products in
+// order, then the reduce-scatter over its G lanes), fixed for a given N, so
+// y is the same in every launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "simt.cuh"
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
-constexpr int THREADS = 128;  // threads of one block
-constexpr int CH = 64;        // time steps staged in shared memory at once
+using simt::cp_async4;
+using simt::cp_async_commit;
+using simt::cp_async_wait;
+using simt::from_f32;
+using simt::to_f32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int R = 4;      // states of one thread
+constexpr int CPB = 32;   // channels of one block
+constexpr int CH = 32;    // time steps of one staged chunk
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+// G: lanes per channel (1, 2, 4 or 8).  One half of the double buffer holds
+// a chunk's x and dt, transposed ([CPB][CHP] each, so a lane reads 4 steps
+// of its channel at once), and B and C ([CH][NP] each).
+template <int G>
+struct Shape {
+  static constexpr int THREADS = CPB * G;
+  static constexpr int NP = G * R;            // states padded to the lanes
+  static constexpr int CHP = CH + 4;          // a channel's row: 9 x 16 B
+  static constexpr int XS = CPB * CHP;
+  static constexpr int BS = CH * NP;
+  static constexpr int HALF = 2 * XS + 2 * BS;
+  static constexpr int GS = G < 4 ? 4 : G;    // steps of one group
+  static constexpr int X_ELEMS = CH * CPB / THREADS;   // a thread's copies
+  static constexpr int B_ELEMS = BS / THREADS;         // of x and of B
+  static_assert((CH * CPB) % THREADS == 0 && BS % THREADS == 0 &&
+                    CH % GS == 0,
+                "even split");
+  static_assert((HALF * 4) % 16 == 0 && (XS * 4) % 16 == 0,
+                "16-byte reads of x, dt, B and C");
+};
 
-// G: lanes per channel (a power of two, N <= G <= 32).
+// One thread's share of a chunk's staging.  Element i of x and dt is step
+// (tid >> 5) + G * i of channel d0 + (tid & 31), at [channel][step] in the
+// half; element i of B and C is step tid / NP + 8 * i of state tid % NP, at
+// tid + i * THREADS.  Elements past S, D or N are zeros.
 template <typename T, int G>
-__global__ void __launch_bounds__(THREADS)
+struct Stager {
+  using Sh = Shape<G>;
+  const T *x, *dt, *Bm, *Cm;
+  size_t x0, b0;          // this thread's element 0 at t0 = 0
+  size_t D, N;            // one row of x, of B
+  int xt, bt, S, xs0;
+  bool x_ok, b_ok;        // the channel lies inside D, the state inside N
+
+  __device__ Stager(const T* x_, const T* dt_, const T* B_, const T* C_,
+                    size_t row0, int S_, int D_, int N_, int d0)
+      : x(x_), dt(dt_), Bm(B_), Cm(C_), D(D_), N(N_), S(S_) {
+    const int tid = threadIdx.x;
+    xt = tid >> 5;
+    bt = tid / Sh::NP;
+    x0 = (row0 + xt) * D + d0 + (tid & 31);
+    b0 = (row0 + bt) * N + tid % Sh::NP;
+    xs0 = (tid & 31) * Sh::CHP + xt;
+    x_ok = d0 + (tid & 31) < D_;
+    b_ok = tid % Sh::NP < N_;
+  }
+
+  // float32: queue the chunk at t0 into `half` as cp.async copies; a copy
+  // that is not valid reads nothing and writes zeros
+  __device__ void issue(float* half, int t0) const {
+    const size_t xstep = G * D, bstep = 8 * N;
+    const T* xp = x + x0 + t0 * D;
+    const T* dp = dt + x0 + t0 * D;
+#pragma unroll
+    for (int i = 0; i < Sh::X_ELEMS; ++i) {
+      const bool ok = x_ok && t0 + xt + G * i < S;
+      cp_async4(half + xs0 + G * i, xp + i * xstep, ok);
+      cp_async4(half + Sh::XS + xs0 + G * i, dp + i * xstep, ok);
+    }
+    const T* bp = Bm + b0 + t0 * N;
+    const T* cp = Cm + b0 + t0 * N;
+    float* bs = half + 2 * Sh::XS + threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < Sh::B_ELEMS; ++i) {
+      const bool ok = b_ok && t0 + bt + 8 * i < S;
+      cp_async4(bs + i * Sh::THREADS, bp + i * bstep, ok);
+      cp_async4(bs + Sh::BS + i * Sh::THREADS, cp + i * bstep, ok);
+    }
+  }
+
+  // The registers hold the chunk as loaded; it is widened only when it is
+  // stored, so no instruction waits on the loads before the time loop.
+  struct Regs {
+    T x[Sh::X_ELEMS], dt[Sh::X_ELEMS], b[Sh::B_ELEMS], c[Sh::B_ELEMS];
+  };
+  // bf16: read the chunk at t0 into registers (a chunk past S is all zeros
+  // and reads nothing), ...
+  __device__ void load(Regs& r, int t0) const {
+    const size_t xstep = G * D, bstep = 8 * N;
+    const T* xp = x + x0 + t0 * D;
+    const T* dp = dt + x0 + t0 * D;
+    const T zero = from_f32<T>(0.0f);
+#pragma unroll
+    for (int i = 0; i < Sh::X_ELEMS; ++i) {
+      const bool ok = x_ok && t0 + xt + G * i < S;
+      r.x[i] = ok ? xp[i * xstep] : zero;
+      r.dt[i] = ok ? dp[i * xstep] : zero;
+    }
+    const T* bp = Bm + b0 + t0 * N;
+    const T* cp = Cm + b0 + t0 * N;
+#pragma unroll
+    for (int i = 0; i < Sh::B_ELEMS; ++i) {
+      const bool ok = b_ok && t0 + bt + 8 * i < S;
+      r.b[i] = ok ? bp[i * bstep] : zero;
+      r.c[i] = ok ? cp[i * bstep] : zero;
+    }
+  }
+  // ... and store it into `half`, widened
+  __device__ void store(float* half, const Regs& r) const {
+#pragma unroll
+    for (int i = 0; i < Sh::X_ELEMS; ++i) {
+      half[xs0 + G * i] = to_f32(r.x[i]);
+      half[Sh::XS + xs0 + G * i] = to_f32(r.dt[i]);
+    }
+    float* bs = half + 2 * Sh::XS + threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < Sh::B_ELEMS; ++i) {
+      bs[i * Sh::THREADS] = to_f32(r.b[i]);
+      bs[Sh::BS + i * Sh::THREADS] = to_f32(r.c[i]);
+    }
+  }
+};
+
+// 2^v on the SFU (MUFU.EX2): about 2 ulp, denormal results flushed to 0
+__device__ __forceinline__ float exp2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// The G lanes of a channel hold q[0..G) each; lane g returns the sum over
+// the lanes of q[g].  Each round halves the live entries: a lane keeps the
+// half its bit of g selects and adds its partner's copy of that half, so
+// G partial sums take G - 1 shuffles in all, in a fixed order.
+template <int G>
+__device__ __forceinline__ float reduce_scatter(float (&q)[G], int g) {
+#pragma unroll
+  for (int w = G / 2; w >= 1; w /= 2) {
+    const bool up = g & w;
+#pragma unroll
+    for (int k = 0; k < w; ++k) {
+      const float send = up ? q[k] : q[k + w];
+      const float keep = up ? q[k + w] : q[k];
+      q[k] = keep + __shfl_xor_sync(0xffffffffu, send, w, G);
+    }
+  }
+  return q[0];
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(Shape<G>::THREADS)
     ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                     const T* __restrict__ Bm, const T* __restrict__ Cm,
                     const float* __restrict__ A, const float* __restrict__ h0,
                     T* __restrict__ y, float* __restrict__ h_final, int S,
                     int D, int N) {
-  constexpr int CPB = THREADS / G;  // channels of one block
-  __shared__ float xs[CH][CPB];
-  __shared__ float dts[CH][CPB];
-  __shared__ float ys[CH][CPB];
-  __shared__ float bs[CH][G];
-  __shared__ float cs[CH][G];
+  using Sh = Shape<G>;
+  constexpr int GS = Sh::GS;
+  __shared__ __align__(16) float smem[2 * Sh::HALF];
 
-  const int tid = threadIdx.x;
-  const int c = tid / G;  // this thread's channel within the block
-  const int n = tid % G;  // and its state index
+  const int c = threadIdx.x / G;   // this thread's channel in the block
+  const int g = threadIdx.x % G;   // and its lane in the channel
   const int d0 = blockIdx.x * CPB;
   const int d = d0 + c;
   const size_t b = blockIdx.y;
-  const bool owns = d < D && n < N;
-  const size_t state = (b * D + d) * N + n;
+  const Stager<T, G> stager(x, dt, Bm, Cm, b * S, S, D, N, d0);
 
-  const float a = owns ? A[static_cast<size_t>(d) * N + n] : 0.0f;
-  float h = (owns && h0 != nullptr) ? h0[state] : 0.0f;
-
-  for (int t0 = 0; t0 < S; t0 += CH) {
-    const int steps = min(CH, S - t0);
-    const size_t row0 = b * S + t0;  // row (b, t0) of the (Bsz*S, .) views
-    // Stage x, dt for this block's channels and B, C for all N.  Elements
-    // past an edge are zero: a channel past D only computes zeros, and a
-    // state past N adds 0 to every sum.
-    for (int e = tid; e < CH * CPB; e += THREADS) {
-      const int t = e / CPB, cc = e % CPB;
-      const bool ok = t < steps && d0 + cc < D;
-      const size_t off = (row0 + t) * D + d0 + cc;
-      xs[t][cc] = ok ? to_f32(x[off]) : 0.0f;
-      dts[t][cc] = ok ? to_f32(dt[off]) : 0.0f;
-    }
-    for (int e = tid; e < CH * G; e += THREADS) {
-      const int t = e / G, nn = e % G;
-      const bool ok = t < steps && nn < N;
-      const size_t off = (row0 + t) * N + nn;
-      bs[t][nn] = ok ? to_f32(Bm[off]) : 0.0f;
-      cs[t][nn] = ok ? to_f32(Cm[off]) : 0.0f;
-    }
-    __syncthreads();
-
-    for (int t = 0; t < steps; ++t) {
-      const float dtv = dts[t][c];
-      const float da = expf(__fmul_rn(dtv, a));
-      const float u = __fmul_rn(__fmul_rn(dtv, xs[t][c]), bs[t][n]);
-      h = __fadd_rn(__fmul_rn(da, h), u);
-      float part = __fmul_rn(h, cs[t][n]);
+  // this thread's states n = g*R + r: A * log2(e), and h from h0 (or
+  // zeros); a state past N or a channel past D has A = 0 and
+  // B = C = x = dt = 0, so its h stays 0 and it adds nothing to y
+  float a2[R], h[R];
 #pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1) {
-        part += __shfl_xor_sync(0xffffffffu, part, off, G);
-      }
-      if (n == 0) ys[t][c] = part;
-    }
-    __syncthreads();
-
-    for (int e = tid; e < CH * CPB; e += THREADS) {
-      const int t = e / CPB, cc = e % CPB;
-      if (t < steps && d0 + cc < D) {
-        y[(row0 + t) * D + d0 + cc] = from_f32<T>(ys[t][cc]);
-      }
-    }
-    // The next chunk's staging writes xs, dts, bs and cs, which nobody
-    // reads any more; ys is rewritten only after its __syncthreads.
+  for (int r = 0; r < R; ++r) {
+    const int n = g * R + r;
+    const bool owns = d < D && n < N;
+    a2[r] = owns ? __fmul_rn(A[static_cast<size_t>(d) * N + n], kLog2e)
+                 : 0.0f;
+    h[r] = (owns && h0 != nullptr) ? h0[(b * D + d) * N + n] : 0.0f;
   }
-  if (owns) h_final[state] = h;
+
+  const int chunks = (S + CH - 1) / CH;
+  constexpr bool kAsync = std::is_same<T, float>::value;
+  typename Stager<T, G>::Regs regs;
+  if (chunks > 0) {
+    if constexpr (kAsync) {
+      stager.issue(smem, 0);
+      cp_async_commit();
+    } else {
+      stager.load(regs, 0);
+      stager.store(smem, regs);
+    }
+  }
+  for (int k = 0; k < chunks; ++k) {
+    if constexpr (kAsync) cp_async_wait<0>();
+    // chunk k is visible to all, and every thread is done with chunk k-1,
+    // whose half the next staging overwrites
+    __syncthreads();
+    const int t0 = k * CH;
+    float* next = smem + ((k + 1) & 1) * Sh::HALF;
+    if constexpr (kAsync) {
+      if (k + 1 < chunks) stager.issue(next, t0 + CH);
+      cp_async_commit();
+    } else {
+      // unconditional, so the loads stay ahead of the time loop
+      stager.load(regs, t0 + CH);
+    }
+
+    const float* half = smem + (k & 1) * Sh::HALF;
+    const float* xs = half + c * Sh::CHP;
+    const float* dts = xs + Sh::XS;
+    const float* bs = half + 2 * Sh::XS + g * R;
+    const float* cs = bs + Sh::BS;
+    const int steps = min(CH, S - t0);
+    T* yp = y + (b * S + t0) * D + d;
+    // groups of GS steps; steps past the chunk's end are zeros in shared
+    // memory (dt = 0 leaves h as it is) and store nothing
+    for (int t = 0; t < steps; t += GS) {
+      float dtv[GS], xv[GS], part[GS];
+#pragma unroll
+      for (int q = 0; q < GS; q += 4) {
+        const float4 dv = *reinterpret_cast<const float4*>(dts + t + q);
+        const float4 xq = *reinterpret_cast<const float4*>(xs + t + q);
+        dtv[q] = dv.x, dtv[q + 1] = dv.y, dtv[q + 2] = dv.z, dtv[q + 3] = dv.w;
+        xv[q] = xq.x, xv[q + 1] = xq.y, xv[q + 2] = xq.z, xv[q + 3] = xq.w;
+      }
+#pragma unroll
+      for (int s = 0; s < GS; ++s) {
+        const float4 bv =
+            *reinterpret_cast<const float4*>(bs + (t + s) * Sh::NP);
+        const float4 cv =
+            *reinterpret_cast<const float4*>(cs + (t + s) * Sh::NP);
+        const float bb[R] = {bv.x, bv.y, bv.z, bv.w};
+        const float cc[R] = {cv.x, cv.y, cv.z, cv.w};
+        const float dtx = __fmul_rn(dtv[s], xv[s]);
+        float p = 0.0f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float da = exp2_approx(__fmul_rn(dtv[s], a2[r]));
+          h[r] = __fadd_rn(__fmul_rn(da, h[r]), __fmul_rn(dtx, bb[r]));
+          p = fmaf(h[r], cc[r], p);
+        }
+        part[s] = p;
+      }
+      // lane g of the channel gets y of step j * G + g of the group
+#pragma unroll
+      for (int j = 0; j < GS / G; ++j) {
+        float q[G];
+#pragma unroll
+        for (int s = 0; s < G; ++s) q[s] = part[j * G + s];
+        const float sum = reduce_scatter<G>(q, g);
+        const int ts = t + j * G + g;
+        if (ts < steps && d < D) {
+          yp[static_cast<size_t>(ts) * D] = from_f32<T>(sum);
+        }
+      }
+    }
+
+    if constexpr (!kAsync) stager.store(next, regs);
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int n = g * R + r;
+    if (d < D && n < N) h_final[(b * D + d) * N + n] = h[r];
+  }
+}
+
+template <typename T, int G>
+void launch_g(const T* x, const T* dt, const T* B, const T* C,
+              const float* A, const float* h0, T* y, float* h_final, int Bsz,
+              int S, int D, int N, cudaStream_t stream) {
+  const dim3 grid((D + CPB - 1) / CPB, Bsz);
+  ssm_scan_kernel<T, G><<<grid, Shape<G>::THREADS, 0, stream>>>(
+      x, dt, B, C, A, h0, y, h_final, S, D, N);
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* B, const void* C,
            const void* A, const void* h0, void* y, void* h_final, int Bsz,
            int S, int D, int N, int device, void* stream) {
-  if (Bsz < 0 || S < 0 || D < 0 || N < 1 || N > 32) {
+  if (Bsz < 0 || S < 0 || D < 0 || N < 1 || N > 8 * R) {
     return cudaErrorInvalidValue;
   }
   if (Bsz == 0 || D == 0) return cudaSuccess;
@@ -159,18 +367,14 @@ int launch(const void* x, const void* dt, const void* B, const void* C,
   auto* yp = static_cast<T*>(y);
   auto* hp = static_cast<float*>(h_final);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (N <= 8) {
-    const dim3 grid((D + THREADS / 8 - 1) / (THREADS / 8), Bsz);
-    ssm_scan_kernel<T, 8><<<grid, THREADS, 0, s>>>(xp, dtp, bp, cp, ap, h0p,
-                                                   yp, hp, S, D, N);
-  } else if (N <= 16) {
-    const dim3 grid((D + THREADS / 16 - 1) / (THREADS / 16), Bsz);
-    ssm_scan_kernel<T, 16><<<grid, THREADS, 0, s>>>(xp, dtp, bp, cp, ap, h0p,
-                                                    yp, hp, S, D, N);
+  if (N <= R) {
+    launch_g<T, 1>(xp, dtp, bp, cp, ap, h0p, yp, hp, Bsz, S, D, N, s);
+  } else if (N <= 2 * R) {
+    launch_g<T, 2>(xp, dtp, bp, cp, ap, h0p, yp, hp, Bsz, S, D, N, s);
+  } else if (N <= 4 * R) {
+    launch_g<T, 4>(xp, dtp, bp, cp, ap, h0p, yp, hp, Bsz, S, D, N, s);
   } else {
-    const dim3 grid((D + THREADS / 32 - 1) / (THREADS / 32), Bsz);
-    ssm_scan_kernel<T, 32><<<grid, THREADS, 0, s>>>(xp, dtp, bp, cp, ap, h0p,
-                                                    yp, hp, S, D, N);
+    launch_g<T, 8>(xp, dtp, bp, cp, ap, h0p, yp, hp, Bsz, S, D, N, s);
   }
   return cudaGetLastError();
 }

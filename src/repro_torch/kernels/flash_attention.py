@@ -5,13 +5,14 @@ attention of ``q (B, H, Sq, D)`` over ``k, v (B, KH, Sk, D)`` with an online
 softmax in float32, GQA by kv head ``h // (H // KH)`` and a top-left causal
 mask.  Unlike the TPU kernel it takes any ``Sq`` and ``Sk`` (the served
 prompts are 4-12 tokens long).  Two routes, chosen by :func:`route` from
-the dtype and the head dim alone:
+the dtype, the head dim and the pointers' alignment:
 
 - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 with ``D % 8 == 0``
-  (TMA needs 16-byte row strides), on the tensor cores;
+  and 16-byte aligned q, k and v (TMA needs 16-byte rows and bases), on the
+  tensor cores;
 - ``"simt"`` (``csrc/flash_attention.cu``): float32, which stays IEEE
   float32 on the CUDA cores (the tensor cores' float32 input is TF32, about
-  three decimal digits), and bf16 with other head dims.
+  three decimal digits), and every other bf16 call.
 
 The sources' headers say how the TPU kernel translates and what bounds each
 kernel on the H100.
@@ -40,10 +41,11 @@ _MAX_GRID_YZ = 65535       # heads and batch are the grid's y and z
 _launch_lock = threading.Lock()   # guards flash_attention.launches
 
 
-def route(dtype: torch.dtype, D: int) -> str:
+def route(dtype: torch.dtype, D: int, *, aligned: bool = True) -> str:
     """The kernel that takes head dim ``1 <= D <= 128`` in ``dtype`` on the
-    card."""
-    return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 else "simt"
+    card; ``aligned``: q, k and v start on 16-byte boundaries."""
+    return ("wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and aligned
+            else "simt")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -87,10 +89,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"<= {MAX_HEAD_DIM}, got D = {D}")
     if max(B, H) > _MAX_GRID_YZ or max(Sq, Sk) > _INT_MAX:
         raise ValueError(f"shape {(B, H, Sq, Sk)} exceeds the kernel's grid")
-    path = route(q.dtype, D)
-    if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the wgmma flash_attention kernel takes 16-byte "
-                         "aligned tensors")
+    path = route(q.dtype, D,
+                 aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     out = torch.empty_like(q)
     if B and Sq:
         lib = _build.library()

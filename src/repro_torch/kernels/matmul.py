@@ -2,14 +2,20 @@
 
 Port of ``repro/kernels/matmul_pallas.py::matmul``, the compute payload of
 the paper's Fig. 2 benchmark: ``(M, K) @ (K, N) -> (M, N)`` in ``x.dtype``
-with a float32 sum.  Two routes, chosen by :func:`route` from the dtype and
-the shape alone:
+with a float32 sum.  Two routes, chosen by :func:`route` from the dtype, the
+shape and the pointers' alignment:
 
 - ``"wgmma"`` (``csrc/matmul_wgmma.cu``): bf16 with ``K % 8 == 0`` and
-  ``N % 8 == 0`` (TMA needs 16-byte row strides), on the tensor cores;
+  ``N % 8 == 0`` and 16-byte aligned pointers (TMA needs 16-byte rows and
+  bases), on the tensor cores;
 - ``"simt"`` (``csrc/matmul.cu``): float32, which stays IEEE float32 on the
   CUDA cores (the tensor cores' float32 input is TF32, about three decimal
-  digits), and the other bf16 shapes.
+  digits), and every other bf16 product.
+
+The simt kernel has two load variants, chosen by :func:`variant` from the
+same facts: ``"vector"`` (float32 with ``N % 4 == 0`` and 16-byte aligned
+pointers: y's tiles move as 16-byte copies and the output rows are stored
+16 bytes at a time) and ``"scalar"`` (everything else, bf16 included).
 
 The sources' headers say how the TPU kernel's blocking translates and what
 bounds each kernel on the H100.
@@ -28,19 +34,31 @@ import torch
 
 from . import _build, ref
 
-_ENTRY = {("simt", torch.float32): "repro_matmul_f32",
-          ("simt", torch.bfloat16): "repro_matmul_bf16",
-          ("wgmma", torch.bfloat16): "repro_matmul_bf16_wgmma"}
+_ENTRY = {("simt", "vector", torch.float32): "repro_matmul_f32",
+          ("simt", "scalar", torch.float32): "repro_matmul_f32_scalar",
+          ("simt", "scalar", torch.bfloat16): "repro_matmul_bf16",
+          ("wgmma", "tma", torch.bfloat16): "repro_matmul_bf16_wgmma"}
 ROUTES = ("wgmma", "simt")
 _INT_MAX = 2 ** 31 - 1
 _launch_lock = threading.Lock()   # guards matmul.launches across workers
 
 
-def route(dtype: torch.dtype, N: int, K: int) -> str:
-    """The kernel that takes ``(M, K) @ (K, N)`` in ``dtype`` on the card."""
-    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0:
+def route(dtype: torch.dtype, N: int, K: int, *, aligned: bool = True) -> str:
+    """The kernel that takes ``(M, K) @ (K, N)`` in ``dtype`` on the card;
+    ``aligned``: x and y start on 16-byte boundaries."""
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 and aligned:
         return "wgmma"
     return "simt"
+
+
+def variant(dtype: torch.dtype, N: int, K: int, *,
+            aligned: bool = True) -> str:
+    """How the kernel that :func:`route` picks loads its tiles: ``"tma"``
+    for wgmma; ``"vector"`` or ``"scalar"`` for simt."""
+    if route(dtype, N, K, aligned=aligned) == "wgmma":
+        return "tma"
+    return ("vector" if dtype == torch.float32 and N % 4 == 0 and aligned
+            else "scalar")
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -68,19 +86,18 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     (M, K), N = x.shape, y.shape[1]
     if max(M, N, K) > _INT_MAX:
         raise ValueError(f"dims {M}, {N}, {K} exceed the kernel's int range")
-    path = route(x.dtype, N, K)
-    if path == "wgmma" and (x.data_ptr() % 16 or y.data_ptr() % 16):
-        raise ValueError("the wgmma matmul kernel takes 16-byte aligned "
-                         "tensors")
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    path = route(x.dtype, N, K, aligned=aligned)
+    loads = variant(x.dtype, N, K, aligned=aligned)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, _ENTRY[path, x.dtype])(
+    err = getattr(lib, _ENTRY[path, loads, x.dtype])(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
         x.device.index, stream)
-    _build.check(err, f"matmul kernel launch ({path})")
+    _build.check(err, f"matmul kernel launch ({path}, {loads})")
     with _launch_lock:
         matmul.launches += 1
         matmul.route_launches[path] += 1

@@ -270,8 +270,12 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     version) over the k, v the reference attends over: with an int8 cache,
     the dequantized first S slots.  Every other call attends over the cache
     with :func:`attention_scores`.  At bf16 compute the reference rounds the
-    probabilities to bf16 before ``p @ v`` and the kernel keeps them in
-    float32, so the two differ by bf16 rounding; in float32 they agree.
+    probabilities to bf16 before ``p @ v``, and so does the kernel's wgmma
+    route, which takes every bf16 call with ``hd % 8 == 0`` on 16-byte
+    aligned tensors (every call made here).  Only the plain version
+    (``impl="ref"``, :func:`repro_torch.kernels.ref.attention`) and the simt
+    route keep them in float32, so those differ from the reference by bf16
+    rounding.  In float32 they all agree.
     """
     B, S, _ = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

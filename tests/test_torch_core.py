@@ -170,6 +170,23 @@ def test_all_reduce_on_tensors_matches_reference_on_arrays(op):
     assert results["jax"].tobytes() == results["torch"].tobytes()
 
 
+# a tensor combined with a number or a numpy array, as when one task of an
+# all_reduce returns a tensor and another a float
+@pytest.mark.parametrize("op,other,want", [
+    ("max", 2.0, [2.0, 5.0]),
+    ("min", 2.0, [1.0, 2.0]),
+    ("concat", np.array([2.0]), [1.0, 5.0, 2.0])])
+def test_combine_ops_take_a_tensor_with_a_number_or_array(op, other, want):
+    from repro.core.collectives import REDUCE_OPS as JAX_OPS
+    from repro_torch.core.collectives import REDUCE_OPS as PT_OPS
+    ref = np.asarray(JAX_OPS[op](jnp.array([1.0, 5.0]), other))
+    got = PT_OPS[op](torch.tensor([1.0, 5.0]), other)
+    assert isinstance(got, torch.Tensor)
+    got = got.numpy()
+    assert ref.tolist() == want and got.tolist() == want
+    assert got.dtype == ref.dtype
+
+
 def test_unported_backends_raise_not_implemented():
     g, _ = pcore.trace(make_paper_main(pcore, torch.arange, []))
     with pytest.raises(NotImplementedError, match="item 3"):

@@ -141,6 +141,15 @@ def test_route_follows_dtype_and_head_dim(dtype, D, want):
     assert pt_flash.route(dtype, D) == want
 
 
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 72),
+                                     (torch.bfloat16, 100),
+                                     (torch.float32, 128)])
+def test_route_takes_misaligned_pointers_to_simt(dtype, D):
+    assert pt_flash.route(dtype, D, aligned=False) == "simt"
+    assert pt_flash.route(dtype, D, aligned=True) == pt_flash.route(dtype, D)
+
+
 def test_cpu_bf16_launches_no_route():
     q, k, v = _cpu(_inputs(1, 28, 4, 40, 40, 128, "bfloat16", seed=6))
     assert pt_flash.route(q.dtype, 128) == "wgmma"

@@ -84,22 +84,75 @@ def test_wgmma_kernel_is_deterministic_across_launches(cuda):
 
 
 def test_wgmma_wrappers_reject_misaligned_pointers(cuda):
-    from repro_torch.kernels import flash_attention as fa, matmul as mm
-    # a contiguous bf16 view that starts 2 bytes past a 16-byte boundary
-    buf = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    # a contiguous bf16 tensor 2 bytes past a 16-byte boundary is no TMA
+    # base: both wrappers send it to the CUDA-core (simt) kernel, which
+    # computes the same function, instead of refusing it
+    from repro_torch.kernels import flash_attention as fa, matmul as mm, ref
+    g = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn(64 * 64 + 1, generator=g, device=cuda).bfloat16()
     x = buf[1:].view(64, 64)
     assert x.is_contiguous() and x.data_ptr() % 16 == 2
-    y = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="aligned"):
-        mm.matmul(x, y)
-    with pytest.raises(ValueError, match="aligned"):
-        mm.matmul(y, x)
+    y = torch.randn(64, 64, generator=g, device=cuda).bfloat16()
+    assert mm.route(x.dtype, 64, 64, aligned=False) == "simt"
+    for a, b in ((x, y), (y, x)):
+        before = dict(mm.matmul.route_launches)
+        got = mm.matmul(a, b)
+        torch.cuda.synchronize()
+        assert mm.matmul.route_launches == {
+            "wgmma": before["wgmma"], "simt": before["simt"] + 1}
+        assert torch.allclose(got.float() / 8, ref.matmul(a, b).float() / 8,
+                              rtol=TOL[a.dtype], atol=TOL[a.dtype])
     q = x.view(1, 1, 64, 64)
     kv = y.view(1, 1, 64, 64)
-    with pytest.raises(ValueError, match="aligned"):
-        fa.flash_attention(q, kv, kv)
-    with pytest.raises(ValueError, match="aligned"):
-        fa.flash_attention(kv, kv, q)
+    assert fa.route(q.dtype, 64, aligned=False) == "simt"
+    for args in ((q, kv, kv), (kv, kv, q)):
+        before = dict(fa.flash_attention.route_launches)
+        got = fa.flash_attention(*args)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.route_launches == {
+            "wgmma": before["wgmma"], "simt": before["simt"] + 1}
+        assert torch.allclose(got.float(), ref.attention(*args).float(),
+                              rtol=TOL[q.dtype], atol=TOL[q.dtype])
+
+
+# the simt kernel's edges: its tiles are 16 deep and 128 x 128 on a grid of
+# at least 264 of them, else 64 x 128; its vector variant needs N % 4 == 0
+# and 16-byte aligned pointers
+@pytest.mark.parametrize("M,N,K,offset,want", [
+    (200, 136, 20, 0, "vector"),      # K % 4 == 0, not a multiple of 16
+    (64, 64, 12, 0, "vector"),        # K < 16
+    (31, 44, 4, 0, "vector"),
+    (130, 130, 64, 0, "scalar"),      # N % 4 != 0, K % 4 == 0
+    (100, 128, 96, 1, "scalar"),      # base 4 bytes past a 16-byte boundary
+    (129, 132, 33, 0, "vector"),      # one row and 4 columns past a tile
+    (257, 129, 129, 0, "scalar"),     # one past a tile in every dim
+    (2177, 2052, 36, 0, "vector"),    # 128-row tiles, past their edges
+    (2177, 2049, 20, 0, "scalar"),
+    (1, 1, 1, 0, "scalar")])
+def test_simt_kernel_edges_and_load_variants(cuda, M, N, K, offset, want):
+    from repro_torch.kernels import matmul as mm, ref
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    x = torch.randn(M * K + offset, generator=g, device=cuda)[offset:]
+    x = x.view(M, K)
+    y = torch.randn(K, N, generator=g, device=cuda)
+    aligned = x.data_ptr() % 16 == 0
+    assert aligned == (offset == 0)
+    assert mm.variant(x.dtype, N, K, aligned=aligned) == want
+    before = mm.matmul.route_launches["simt"]
+    got = mm.matmul(x, y)
+    torch.cuda.synchronize()
+    assert mm.matmul.route_launches["simt"] == before + 1
+    s = math.sqrt(K)
+    want_out = ref.matmul(x, y)
+    assert torch.allclose(got / s, want_out / s, rtol=TOL[x.dtype],
+                          atol=TOL[x.dtype])
+    # the same chain of fmaf in both variants: equal bits
+    if want == "vector":
+        xs = torch.randn(M * K + 1, generator=g, device=cuda)[1:].view(M, K)
+        xs.copy_(x)
+        assert mm.variant(x.dtype, N, K, aligned=False) == "scalar"
+        assert torch.equal(mm.matmul(xs, y).view(torch.int32),
+                           got.view(torch.int32))
 
 
 def test_launch_counter_loses_no_update_under_threads(cuda):
@@ -172,10 +225,16 @@ def _scan_inputs(device, Bsz, S, D, N, dtype, with_h0, seed=0):
     return [t.to(dtype) for t in (x, dt, B, C)] + [A, h0]
 
 
+# the kernel stages 32 steps a chunk, gives a thread 4 states of a channel
+# and a block 32 channels: S = 33 and 64 are one step past a chunk and two
+# whole chunks, N = 3, 7, 9 and 5 no multiple of 4, D = 33 and 65 one
+# channel past a block
 @pytest.mark.parametrize("Bsz,S,D,N", [(3, 1000, 1000, 16), (2, 37, 100, 5),
                                        (1, 1, 8192, 16), (2, 0, 64, 16),
                                        (1, 130, 17, 32), (4, 65, 129, 1),
-                                       (1, 64, 48, 9)])
+                                       (1, 64, 48, 9), (1, 33, 33, 3),
+                                       (2, 64, 65, 7), (1, 33, 40, 32),
+                                       (3, 64, 33, 16)])
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssm_scan_kernel_matches_plain_version(cuda, Bsz, S, D, N, with_h0,

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, and neither
+``chip_smoke.py`` nor ``kernel_ab.py``, imports JAX or the JAX package
+``repro``."""
 import os
 import re
 import subprocess
@@ -45,7 +46,8 @@ _BAD_IMPORT = re.compile(
 
 
 def test_port_sources_name_no_jax_or_repro_import():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "kernel_ab.py"]
     assert len(files) >= 38          # the 37 modules and chip_smoke.py
     offenders = {str(f.relative_to(ROOT)): _BAD_IMPORT.findall(f.read_text())
                  for f in files}

@@ -86,6 +86,37 @@ def test_matmul_route_follows_dtype_and_alignment(dtype, N, K, want):
     assert pt_matmul.route(dtype, N, K) == want
 
 
+# a pointer off a 16-byte boundary sends every product to the CUDA cores
+@pytest.mark.parametrize("dtype,N,K", [
+    (torch.bfloat16, 4096, 4096), (torch.bfloat16, 1528, 776),
+    (torch.bfloat16, 64, 0), (torch.bfloat16, 1531, 777),
+    (torch.float32, 4096, 4096)])
+def test_matmul_route_takes_misaligned_pointers_to_simt(dtype, N, K):
+    assert pt_matmul.route(dtype, N, K, aligned=False) == "simt"
+    assert pt_matmul.variant(dtype, N, K, aligned=False) == "scalar"
+
+
+# (dtype, N, K, aligned) -> how the kernel loads its tiles: TMA for wgmma;
+# 16-byte copies of y for float32 with N % 4 == 0 and aligned pointers
+@pytest.mark.parametrize("dtype,N,K,aligned,want", [
+    (torch.float32, 4096, 4096, True, "vector"),   # Fig. 2's mul
+    (torch.float32, 1528, 776, True, "vector"),
+    (torch.float32, 1528, 777, True, "vector"),    # x moves 4 B a copy
+    (torch.float32, 64, 12, True, "vector"),       # K < BK
+    (torch.float32, 1531, 776, True, "scalar"),    # N % 4 != 0
+    (torch.float32, 1531, 777, True, "scalar"),
+    (torch.float32, 1528, 776, False, "scalar"),   # misaligned pointer
+    (torch.bfloat16, 1528, 776, True, "tma"),      # wgmma
+    (torch.bfloat16, 1528, 776, False, "scalar"),
+    (torch.bfloat16, 1532, 776, True, "scalar"),   # bf16 simt: N % 8 != 0
+    (torch.bfloat16, 1531, 777, True, "scalar")])
+def test_matmul_variant_follows_dtype_shape_and_alignment(dtype, N, K,
+                                                          aligned, want):
+    assert pt_matmul.variant(dtype, N, K, aligned=aligned) == want
+    assert pt_matmul.route(dtype, N, K, aligned=aligned) == (
+        "wgmma" if want == "tma" else "simt")
+
+
 def test_cpu_matmul_launches_no_route():
     x, y = (tensor_from_numpy(a, "cpu") for a in _inputs(64, 48, 32,
                                                           "bfloat16"))
