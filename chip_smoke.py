@@ -24,6 +24,18 @@ Each phase prints one line; any failure raises and exits non-zero:
    and run on the sequential oracle and on the threaded work-stealing
    executor: threaded == sequential bit for bit, each ``mul`` against the
    plain matmul of its inputs, and 16 kernel launches per run;
+4b. main path on the process backend — the same DAG on
+   ``make_executor("process")`` with 4 spawned worker processes, three
+   times: fusion off, fusion on, and fusion on with worker 1 SIGKILLed after
+   its second super-task (lineage recovery re-runs what it held).  Each run
+   equals phase 4's sequential run bit for bit; its line gives the wall,
+   ``/dev/shm``'s size, the data plane's transport, the fusion and
+   control-plane counters, the bytes moved, the recomputed super-tasks,
+   the seconds to the first completed task (spawn, torch import, CUDA
+   context, kernel library) and to the last (the rest of the wall is the
+   final collection), and the workers' summed seconds in super-tasks.
+   Its ``mul`` launches (tasks run plus recomputed) count in the matmul
+   entry's ``launches``;
 5. ssm_scan — the selective-scan kernel against its plain version at the
    long-prefill shape (1x2048x8192, N = 16), a decode step (S = 1, with
    ``h0``) and a ragged shape (3x1000x1000, with ``h0``), in float32 and
@@ -33,6 +45,11 @@ Each phase prints one line; any failure raises and exits non-zero:
    launcher, ``repro_torch.launch.serve.main``, with a traced request on
    the threaded executor: 4 requests, 28 decode steps, the traced tokens a
    prefix of request 0's, and 64 scan launches per forward;
+6b. serve on the process backend — the launcher with ``--reduced
+   --backend process --graph-workers 2``: the traced request runs on two
+   spawned workers, each drawing the reduced model from the seed and
+   launching the scan kernel there; the traced tokens a prefix of request
+   0's;
 7. long prefill — one 2048-token prompt through the prefill step and 8
    greedy decode steps, once with the scan kernel and once with its plain
    version on the same tokens: last-position logits within ``LOGIT_TOL``;
@@ -48,6 +65,7 @@ Each phase prints one line; any failure raises and exits non-zero:
    seed) served by the same launcher and argv: 28 decode steps, the traced
    tokens a prefix of request 0's, 28 flash launches per prefill, all on
    the wgmma route, and none per decode step;
+9b. phase 6b for qwen2-7b (the flash kernel in the workers' prefill);
 10. long prefill — phase 7 for qwen2-7b, with the flash kernel and with its
    plain version: 28 launches in the kernel run, all on the wgmma route,
    none in the plain one.
@@ -64,6 +82,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -86,6 +105,11 @@ N_TASKS, SIZE, N_WORKERS = 16, 4096, 4          # the main path's DAG
 # rows are not 16-byte aligned) and an aligned one that no tile divides
 KERNEL_SHAPES = [(SIZE, SIZE, SIZE), (1000, 1531, 777), (1000, 1528, 776)]
 REPS = 10
+# phase 4b: (fuse, fail_worker) of the three process-backend runs
+PROCESS_RUNS = [("off", None), ("auto", None), ("auto", (1, 2))]
+# seconds without a completed task before a run fails; the first one waits
+# for spawned interpreters to import torch and open a CUDA context
+PROCESS_TIMEOUT = 120.0
 
 # the serve paths: falcon-mamba-7b and qwen2-7b at full width, the JAX
 # launcher's defaults for prompts (4-12 tokens) and --max-len 64
@@ -112,6 +136,10 @@ FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (2, 8, 2, 1000, 1000, 64, True),
                 (1, 8, 2, 300, 777, 128, False),
                 (1, 4, 2, 200, 333, 72, True)]
+# phases 6b and 9b: the serve traffic with the traced request on cluster
+# worker processes (see phase_serve_process)
+PROCESS_SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
+                      "--show-graph", "--backend", "process"]
 LONG_PROMPT, LONG_DECODE = 2048, 8
 LONG_MAX_LEN = LONG_PROMPT + LONG_DECODE + 1     # the long run's KV cache
 # Kernel and plain version agree to the last bits of float32, but the model
@@ -260,14 +288,26 @@ def phase_kernels(torch) -> list:
     return checks
 
 
-def phase_main_path(torch, checks: list) -> int:
+def _bits(torch, t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _same(torch, a, b) -> bool:
+    """Bit for bit equal: tensors by their bits, other values by ``==``."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and a.device == b.device
+                and torch.equal(_bits(torch, a), _bits(torch, b)))
+    return a == b
+
+
+def phase_main_path(torch, checks: list):
+    """Phase 4; returns the kernel launches, the graph and the sequential
+    run's values (phase 4b's reference)."""
     import numpy as np
     from repro_torch.interop import tensor_from_numpy
     from repro_torch.kernels import matmul as mm, ref
     from repro_torch.workloads import run_matrix_dag
-
-    def bits(t):
-        return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
 
     torch.cuda.reset_peak_memory_stats()
     _reset(mm.matmul)
@@ -285,10 +325,7 @@ def phase_main_path(torch, checks: list) -> int:
     if len(graph) != 3 * N_TASKS + 1 or set(seq) != set(par):
         fail("the two runs computed different node sets")
     for tid, a in seq.items():
-        b = par[tid]
-        same = (torch.equal(bits(a), bits(b)) if isinstance(a, torch.Tensor)
-                else a == b)
-        if not same:
+        if not _same(torch, a, par[tid]):
             fail(f"threaded != sequential at {graph.nodes[tid].name}#{tid}")
     worst = 0.0
     for node in graph:
@@ -305,7 +342,7 @@ def phase_main_path(torch, checks: list) -> int:
     if not math.isfinite(total):
         fail(f"reduce is not finite: {total}")
     peak = torch.cuda.max_memory_allocated()
-    del seq, par
+    del par
 
     # where the time goes: one gen is a host numpy draw, then a copy to
     # the card; timed apart, one at a time, on the host's clock
@@ -335,7 +372,122 @@ def phase_main_path(torch, checks: list) -> int:
         "gen_copy_ms_each": copy_ms, "mul_kernel_ms_each": mul_ms,
         "seq_share_gen": 2 * N_TASKS * gen_ms / 1e3 / seq_s,
         "seq_share_mul": N_TASKS * mul_ms / 1e3 / seq_s})
-    return launches
+    return launches, graph, seq
+
+
+def shm_bytes():
+    """Size and free bytes of ``/dev/shm`` ((0, 0) where there is none)."""
+    try:
+        st = os.statvfs("/dev/shm")
+    except OSError:
+        return 0, 0
+    return st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+
+
+def phase_process_path(torch, graph, seq) -> int:
+    """Phase 4b: phase 4's traced DAG on the cluster runtime's spawned
+    workers (a forked child cannot use CUDA once this process has); returns
+    the matmul launches of its runs as the workers counted them.  Each
+    worker reports its launches with every ``done`` and the executor sums
+    them; a run fails unless they equal the ``mul`` tasks that the
+    executor saw run (every ``mul`` once, plus those in recomputed
+    super-tasks), all on the simt route with vector loads, and this process
+    launched none.
+
+    A ``/dev/shm`` smaller than a value passes the shared-memory probe and
+    then kills the worker that writes the segment (SIGBUS).  The final
+    collection publishes every value at once and a recovery publishes again
+    what it recomputes, so unless ``/dev/shm`` has room for twice the run's
+    values the runs name ``transport="sock"`` (unix sockets) and say so."""
+    from repro_torch.cluster import serde
+    from repro_torch.config import ClusterConfig
+    from repro_torch.core import make_executor
+    from repro_torch.core.fusion import fuse
+    values = sum(n.out_bytes for n in graph)
+    shm_total, shm_free = shm_bytes()
+    room = serde.shm_available() and shm_free >= 2 * values
+    transport = "auto" if room else "sock"
+    n_mul = sum(1 for n in graph if n.name == "mul")
+    driver = _counters()["matmul"]
+    total = 0
+    for spec, fail_worker in PROCESS_RUNS:
+        _reset(driver)
+        config = ClusterConfig(n_workers=N_WORKERS, start_method="spawn",
+                               fuse=spec, fail_worker=fail_worker,
+                               transport=transport,
+                               progress_timeout=PROCESS_TIMEOUT)
+        ex = make_executor("process", N_WORKERS, config=config)
+        t0 = time.perf_counter()
+        try:
+            got = ex.run(graph)
+        finally:
+            ex.close()
+        wall = time.perf_counter() - t0
+        stats = ex.stats
+        what = f"process backend, fuse={spec}, fail_worker={fail_worker}"
+        if set(got) != set(seq):
+            fail(f"{what}: computed another node set")
+        for tid, want in seq.items():
+            if not _same(torch, got[tid], want):
+                fail(f"{what}: {graph.nodes[tid].name}#{tid} differs from "
+                     f"the sequential run")
+        plan = fuse(graph, spec)
+        if plan.n_clusters != stats["n_clusters"]:
+            fail(f"{what}: {stats['n_clusters']} super-tasks, the plan has "
+                 f"{plan.n_clusters}")
+        redo = [m for ev in ex.recovery_events for c in ev["plan"]
+                for m in plan.members[c] if graph.nodes[m].name == "mul"]
+        if fail_worker is None and (stats["failures"] or
+                                    stats["recomputed"]):
+            fail(f"{what}: {stats['failures']} worker deaths, "
+                 f"{stats['recomputed']} recomputed super-tasks")
+        if fail_worker is not None and (stats["failures"] != 1 or
+                                        stats["recomputed"] < 1):
+            fail(f"{what}: {stats['failures']} worker deaths and "
+                 f"{stats['recomputed']} recomputed super-tasks, expected "
+                 f"1 and at least 1")
+        if stats["n_speculative"]:
+            fail(f"{what}: {stats['n_speculative']} speculative runs")
+        ran = stats["tasks_run"].get("mul", 0)
+        if ran != n_mul + len(redo):
+            fail(f"{what}: the executor saw {ran} mul tasks run, expected "
+                 f"{n_mul} plus {len(redo)} recomputed")
+        in_workers = stats["kernel_launches"]
+        launches = in_workers.get("matmul", 0)
+        want = {"matmul": ran, "matmul/simt": ran, "matmul/vector": ran}
+        if in_workers != want:
+            fail(f"{what}: the workers launched {in_workers}, expected "
+                 f"{want}")
+        if driver.launches:
+            fail(f"{what}: this process launched {driver.launches} "
+                 f"matmuls")
+        total += launches
+        line("process_path", {
+            "fuse": spec, "fail_worker": fail_worker, "workers": N_WORKERS,
+            "start_method": ex.start_method, "nodes": len(graph),
+            "wall_s": wall,
+            "first_done_s": stats["first_done_s"],
+            "last_done_s": stats["last_done_s"],
+            # the workers' own seconds in super-tasks (inputs resolved,
+            # members run), summed over the completed ones
+            "worker_task_s": sum(ex.last_trace.tasks.values()),
+            "transport_requested": transport,
+            "transport_used": ex.transport_used,
+            "transport_note": None if room else
+            f"/dev/shm cannot hold twice the run's {values} bytes of "
+            f"values, so the run names transport='sock'",
+            "dev_shm_bytes": shm_total, "dev_shm_free_bytes": shm_free,
+            "values_bytes": values,
+            **{k: stats[k] for k in (
+                "n_clusters", "tasks_fused", "dispatched", "control_msgs",
+                "control_frames", "dispatch_overhead_s", "bytes_direct",
+                "bytes_driver", "bytes_moved", "transfers_direct",
+                "transfers_driver", "recomputed", "failures")},
+            "tasks_run": stats["tasks_run"], "recomputed_muls": len(redo),
+            "worker_kernel_launches": in_workers,
+            "equals_sequential": True, "reduce": got[graph.outputs[0]]})
+        del got
+    return total
 
 
 def scan_bound(Bsz: int, S: int, D: int, N: int, itemsize: int,
@@ -528,10 +680,12 @@ def _counters():
 
 
 def _reset(fn) -> None:
-    """Sets a kernel wrapper's launch counts, and its counts by route, to 0."""
+    """Sets a kernel wrapper's launch counts, and its counts by route and
+    load variant, to 0."""
     fn.launches = 0
-    if hasattr(fn, "route_launches"):
-        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+    for by in ("route_launches", "variant_launches"):
+        if hasattr(fn, by):
+            setattr(fn, by, dict.fromkeys(getattr(fn, by), 0))
 
 
 # the port's kernels among a profile's device entries
@@ -601,6 +755,81 @@ def phase_serve(torch, cfg, params) -> int:
         "traced_tokens": out["traced_tokens"],
         "tokens": {r.rid: r.out for r in finished}})
     return launches[kernel]
+
+
+def phase_serve_process(torch, arch: str, reduced: bool) -> int:
+    """Phases 6b and 9b: the serve launcher with its traced request on
+    cluster worker processes (``--backend process``).  They spawn, since
+    this process has initialised CUDA, and each draws its own parameter set
+    from the seed, so the phase runs after the full-width parameters are
+    freed.  Reduced, on two workers; then at full width on one worker, so
+    that this process and the worker hold two parameter sets (2 x 29 GB or
+    2 x 30.5 GB) on the 80 GB card, where two workers would need three.
+
+    The workers report their kernel launches with each ``done``; the
+    traced request's 3 forwards (1 prefill) must have launched the path's
+    kernel ``n_layers`` times each in them, and the main loop's the rest in
+    this process.  Returns the path kernel's launches in both."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    kernel = _path_kernel(cfg)
+    counters = _counters()
+    workers = 2 if reduced else 1
+    argv = (["--arch", arch] + (["--reduced"] if reduced else [])
+            + PROCESS_SERVE_ARGS + ["--graph-workers", str(workers)])
+    what = f"{arch}{' --reduced' if reduced else ''} --backend process"
+    for fn in counters.values():
+        _reset(fn)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    finished = sorted(out["finished"], key=lambda r: r.rid)
+    if len(finished) != 4:
+        fail(f"{what}: served {len(finished)} requests")
+    traced = out["traced_tokens"]
+    if traced is None or len(traced) != 3 or traced != finished[0].out[:3]:
+        fail(f"{what}: traced tokens {traced} do not prefix request 0's "
+             f"{finished[0].out}")
+    # this process ran the main loop; the traced request's 3 forwards (1
+    # prefill) ran in the workers
+    per = (out["forwards"] - 3 if kernel == "ssm_scan"
+           else out["prefills"] - 1)
+    want = {name: 0 for name in counters}
+    want[kernel] = cfg.n_layers * per
+    if launches != want:
+        fail(f"{what}: kernel launches in this process {launches}, "
+             f"expected {want}")
+    stats = out["graph_stats"]
+    ran = {k: stats["tasks_run"].get(k, 0) for k in ("prefill", "decode")}
+    if ran != {"prefill": 1, "decode": 2}:
+        fail(f"{what}: the workers ran {ran}, expected 1 prefill and 2 "
+             f"decodes")
+    in_workers = stats["kernel_launches"]
+    n = cfg.n_layers * (3 if kernel == "ssm_scan" else 1)
+    if {k: v for k, v in in_workers.items() if "/" not in k} != {kernel: n}:
+        fail(f"{what}: the workers launched {in_workers}, expected {n} "
+             f"{kernel} launches")
+    route = PATH_ROUTE.get(kernel)
+    if route and not reduced and in_workers.get(f"{kernel}/{route}") != n:
+        fail(f"{what}: the workers' {kernel} launches by route "
+             f"{in_workers}, expected all {n} on {route}")
+    line("serve_process", {
+        "arch": arch, "argv": argv, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "graph_workers": workers, "wall_s": wall,
+        "driver_launches": launches, "worker_launches": in_workers,
+        "worker_tasks_run": stats["tasks_run"],
+        "graph_first_done_s": stats["first_done_s"],
+        "graph_last_done_s": stats["last_done_s"],
+        "driver_peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "traced_tokens": traced,
+        "tokens": {r.rid: r.out for r in finished}})
+    del out
+    return launches[kernel] + in_workers[kernel]
 
 
 def phase_long_prefill(torch, cfg, params) -> dict:
@@ -723,8 +952,9 @@ def phase_profile(torch, cfg, params) -> None:
 
 def phase_model(torch, arch: str, n_params: int, profile: bool):
     """Draw ``arch`` on the card, serve it, run the long prefill (and, with
-    ``profile``, profile it), then free its parameters; returns the path
-    kernel's launches in the serve and long-prefill runs."""
+    ``profile``, profile it), free its parameters, then serve it on the
+    process backend, reduced and at full width; returns the path kernel's
+    launches in each of those runs."""
     import gc
     cfg, params = phase_params(torch, arch, n_params)
     launches = phase_serve(torch, cfg, params)
@@ -736,7 +966,11 @@ def phase_model(torch, arch: str, n_params: int, profile: bool):
     torch.cuda.empty_cache()
     line("freed", {"arch": arch,
                    "allocated_bytes": torch.cuda.memory_allocated()})
-    return launches, long[f"{_path_kernel(cfg)}_launches"]
+    process = [phase_serve_process(torch, arch, reduced)
+               for reduced in (True, False)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, long[f"{_path_kernel(cfg)}_launches"], *process
 
 
 def main() -> int:
@@ -756,7 +990,10 @@ def main() -> int:
     name = phase_device(torch)
     phase_build()
     checks = phase_kernels(torch)
-    launches = phase_main_path(torch, checks)
+    launches, graph, seq = phase_main_path(torch, checks)
+    launches += phase_process_path(torch, graph, seq)
+    del seq
+    torch.cuda.empty_cache()
     scan_checks = phase_scan_kernels(torch)
     profile = "--profile" in sys.argv[1:]
     # the two parameter sets (29 GB and 30.5 GB) are on the card one at a

@@ -9,16 +9,21 @@ nothing of ``repro``.  Top-level convenience surface::
     g, _ = repro_torch.trace(driver)      # or build a TaskGraph by hand
     repro_torch.run_graph(g, n_workers=4)
 
+    cfg = repro_torch.ClusterConfig(n_workers=4, fuse="auto")
+    repro_torch.run_graph(g, config=cfg, backend="process")
+
 Everything is imported lazily: ``import repro_torch`` must stay cheap (no
 torch import, no CUDA initialisation) because launchers and worker threads
-pay it on startup.  Only the names ported so far are exposed.
+pay it on startup.  The gateway client (``repro.connect``) is ROADMAP §1
+item 4.
 """
 from typing import Any
 
-__all__ = ["TaskGraph", "task", "io_task", "trace", "run_graph",
-           "make_executor", "execute_sequential"]
+__all__ = ["ClusterConfig", "TaskGraph", "task", "io_task", "trace",
+           "run_graph", "make_executor", "execute_sequential"]
 
 _LAZY = {
+    "ClusterConfig": ("repro_torch.config", "ClusterConfig"),
     "TaskGraph": ("repro_torch.core.graph", "TaskGraph"),
     "task": ("repro_torch.core.tracing", "task"),
     "io_task": ("repro_torch.core.tracing", "io_task"),

@@ -5,16 +5,20 @@ Port of ``repro/core/__init__.py``, exporting what is ported so far:
   broadcast, scatter, gather, all_reduce                  (collective nodes
       and their lowering to staged trees — core/collectives.py)
   TaskGraph                                               (the IR)
+  fuse, FusedPlan, parse_fuse_spec                        (graph compilation:
+      cluster the DAG into super-tasks before dispatch — core/fusion.py)
   infer_purity, declare, declared_purity                  (purity)
   EffectToken, initial_token                              (RealWorld tokens)
   list_schedule, replan                                   (static scheduling)
+  ClusterSim, simulate, WorkerEvent                       (cluster simulator)
   Executor, execute_sequential, ThreadedExecutor,
-  run_graph, make_executor                                (real execution,
-      backend="thread")
+  run_graph, make_executor                                (real execution;
+      backend="thread" stays in-process, backend="process" selects the
+      multi-process repro_torch.cluster.ClusterExecutor runtime)
   recovery_plan, recover                                  (lineage FT)
 
-The simulator, fusion, adaptive replanning, placement and the mesh executor
-come with later slices (ROADMAP §1).
+Placement and the mesh executor come with a later slice (ROADMAP §1
+item 8).
 """
 from .graph import TaskGraph, TaskNode, TaskKind, GraphError
 from .tracing import (task, io_task, trace, placeholder, checkpoint_barrier,
@@ -26,8 +30,11 @@ from .collectives import (lower_collectives, parse_collectives_spec,
                           add_scatter)
 from .purity import infer_purity, declare, declared_purity
 from .effects import EffectToken, initial_token
+from .fusion import (FusedPlan, WorkerFusionView, fuse, identity_plan,
+                     parse_fuse_spec)
 from .scheduler import (Schedule, Placement, list_schedule, replan,
                         theoretical_speedup, collective_comm_cost)
+from .simulator import ClusterSim, SimResult, WorkerEvent, simulate
 from .executor import (execute_sequential, ThreadedExecutor, run_graph,
                        make_executor, output_values, Executor, TaskFailed)
 from .lineage import recovery_plan, recover, replay, lineage_depth, NonIdempotentReplay

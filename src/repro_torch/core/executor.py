@@ -1,8 +1,8 @@
 """Executors that really run a TaskGraph.
 
-Port of ``repro/core/executor.py``: the sequential oracle and the threaded
-backend.  The multi-process backend and the gateway client are not ported
-yet; asking for them raises ``NotImplementedError``.
+Port of ``repro/core/executor.py``.  The gateway client (``connect=`` on
+the thread backend) is not ported yet and raises ``NotImplementedError``
+naming ROADMAP §1 item 4.
 
 * :class:`Executor` — the protocol every runtime backend satisfies:
   ``run(graph, inputs) -> {tid: value}`` plus ``stats``/``wall_time``
@@ -18,6 +18,12 @@ yet; asking for them raises ``NotImplementedError``.
   kernel is queued), the port's hand-written kernels are called through
   ``ctypes``, which releases the lock for the call, and numpy's bulk random
   generators release it while they fill.
+* :class:`repro_torch.cluster.ClusterExecutor` — the multi-process backend
+  (OS process workers, driver-side object store, lineage recovery); select
+  it with ``run_graph(..., backend="process")``.  Once this process has
+  initialised CUDA its workers spawn unless the config names a start
+  method (a forked child cannot initialise CUDA once the parent has), and
+  values cross processes as host bytes (``repro_torch/cluster/serde.py``).
 * Failure injection hooks drive the lineage-recovery tests.
 
 Streams: every worker thread launches on PyTorch's current stream, which is
@@ -231,9 +237,11 @@ class ThreadedExecutor:
 
 def make_executor(backend: str, n_workers: int, config=None,
                   **kw) -> Executor:
-    """Factory over runtime backends: ``thread`` (``process`` is not
-    ported yet).
+    """Factory over runtime backends: ``thread`` | ``process``.
 
+    ``config`` is a :class:`repro_torch.ClusterConfig` — the one object
+    carrying every process-backend knob; the loose keyword arguments are
+    the deprecated legacy spelling (see ``repro_torch/config.py``).
     Cluster-only options (``transport``, ``channel``, ``connect``, ... —
     or a ``config`` at all) passed to the thread backend are named errors
     here, not ``TypeError`` shrapnel from ``ThreadedExecutor.__init__``:
@@ -258,9 +266,8 @@ def make_executor(backend: str, n_workers: int, config=None,
                 f"one address space")
         return ThreadedExecutor(n_workers, **kw)
     if backend == "process":
-        raise NotImplementedError(
-            "backend='process' (the multi-process cluster runtime) is not "
-            "ported yet: ROADMAP §1 item 3")
+        from ..cluster import ClusterExecutor   # deferred: no cycle
+        return ClusterExecutor(n_workers, config=config, **kw)
     raise ValueError(f"unknown backend {backend!r} "
                      "(expected 'thread' or 'process')")
 
@@ -273,18 +280,28 @@ def run_graph(graph: TaskGraph, n_workers: int = 1,
     """Run ``graph`` on the selected backend.
 
     ``n_workers=1`` on the thread backend runs the sequential oracle.
-    ``connect=`` (a resident gateway, or the address a process-backend
-    driver binds) is not ported yet and raises ``NotImplementedError``.
+    With ``backend="process"``, ``connect="host:port"`` is the address the
+    driver *binds* for dialing workers (``python -m
+    repro_torch.launch.remote``); on the thread backend it would submit
+    to a resident gateway, which is not ported yet (ROADMAP §1 item 4) and
+    raises ``NotImplementedError``.  ``config`` is a
+    :class:`repro_torch.ClusterConfig` for the process backend.
 
     ``with_report=True`` returns ``(results, report)`` where ``report``
-    carries the backend, worker count, wall time, and the backend's stats
-    counters (``steals``, ``recomputed`` and the data-plane fields, which
-    are structurally zero in one address space).
+    carries the backend, worker count, wall time, the backend's stats
+    counters (``steals``, ``recomputed`` and the data-plane fields
+    ``bytes_moved`` / ``transfers_direct`` / ``transfers_driver``, which
+    are structurally zero in one address space; the process backend adds
+    the fusion and control-plane fields ``n_clusters`` / ``tasks_fused`` /
+    ``control_msgs`` / ``control_frames``, ``first_done_s`` /
+    ``last_done_s`` and the rest of ``ClusterExecutor.stats``) and, for
+    the process backend, the data plane's ``transport``, the workers'
+    ``start_method`` and the lineage ``recovery_events``.
     """
-    if connect is not None:
+    if connect is not None and backend != "process":
         raise NotImplementedError(
-            "connect= (the multi-tenant gateway and remote workers) is not "
-            "ported yet: ROADMAP §1 items 3 and 4")
+            "connect= on the thread backend (the multi-tenant gateway) is "
+            "not ported yet: ROADMAP §1 item 4")
     if token is not None:
         kw["token"] = token
     if n_workers == 1 and backend == "thread":
@@ -295,11 +312,18 @@ def run_graph(graph: TaskGraph, n_workers: int = 1,
                              "wall_time": _time.perf_counter() - t0,
                              "stats": {}}
         return results
+    if connect is not None:
+        kw["connect"] = connect
     ex = make_executor(backend, n_workers, config=config, **kw)
     results = ex.run(graph, inputs)
     if with_report:
-        return results, {"backend": backend, "n_workers": n_workers,
-                         "wall_time": ex.wall_time, "stats": dict(ex.stats)}
+        report = {"backend": backend, "n_workers": n_workers,
+                  "wall_time": ex.wall_time, "stats": dict(ex.stats)}
+        if backend == "process":
+            report.update(transport=ex.transport_used,
+                          start_method=ex.start_method,
+                          recovery_events=list(ex.recovery_events))
+        return results, report
     return results
 
 

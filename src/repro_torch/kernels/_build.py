@@ -10,13 +10,19 @@ an unchanged one is loaded as it is.  Each compiler's ``-Xptxas -v`` report
 (registers, shared memory, spills of each kernel) is kept beside it in
 ``nvcc.log``, under a ``== <source>`` header line per source.
 
-The first build is guarded by a lock: the threaded executor's workers can
-reach their first kernel at the same moment.  The library is linked into a
-temporary name and renamed, so a process that finds it finds it whole.
+The first build is guarded twice.  A thread lock covers the threaded
+executor's workers, which can reach their first kernel at the same moment;
+an ``fcntl.flock`` on ``lock`` in the build directory covers processes (the
+cluster runtime's spawned workers of a fresh checkout would otherwise each
+run the full set of ``nvcc``).  The kernel releases a flock when its holder
+dies, so a build cut off midway leaves no lock behind.  The library is
+linked into a temporary name and renamed, so a process that finds it finds
+it whole.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -113,15 +119,28 @@ def _compile(out_dir: Path) -> None:
     os.replace(tmp, out_dir / "libkernels.so")
 
 
+def ensure_built() -> Path:
+    """The checkout's ``libkernels.so``, built first if there is none; of
+    processes that get here together, one builds and the others wait for
+    it on the build directory's file lock."""
+    out_dir = build_dir()
+    path = out_dir / "libkernels.so"
+    if path.exists():
+        return path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released on close or death
+        if not path.exists():
+            _compile(out_dir)
+    return path
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this checkout has none."""
     global _lib
     with _lock:
         if _lib is None:
-            out_dir = build_dir()
-            if not (out_dir / "libkernels.so").exists():
-                _compile(out_dir)
-            lib = ctypes.CDLL(str(out_dir / "libkernels.so"))
+            lib = ctypes.CDLL(str(ensure_built()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -23,8 +23,9 @@ bounds each kernel on the H100.
 For tensors on the CPU the wrapper returns the plain version
 (:func:`repro_torch.kernels.ref.matmul`).  For CUDA tensors it launches a
 kernel or raises; it never falls back.  ``matmul.launches`` counts every
-launch and ``matmul.route_launches`` the launches of each route, so a run
-can show that its work went through the kernels.
+launch, ``matmul.route_launches`` the launches of each route and
+``matmul.variant_launches`` those of each load variant, so a run can show
+that its work went through the kernels.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ _ENTRY = {("simt", "vector", torch.float32): "repro_matmul_f32",
           ("simt", "scalar", torch.bfloat16): "repro_matmul_bf16",
           ("wgmma", "tma", torch.bfloat16): "repro_matmul_bf16_wgmma"}
 ROUTES = ("wgmma", "simt")
+VARIANTS = ("tma", "vector", "scalar")
 _INT_MAX = 2 ** 31 - 1
 _launch_lock = threading.Lock()   # guards matmul.launches across workers
 
@@ -101,8 +103,10 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     with _launch_lock:
         matmul.launches += 1
         matmul.route_launches[path] += 1
+        matmul.variant_launches[loads] += 1
     return out
 
 
 matmul.launches = 0
 matmul.route_launches = dict.fromkeys(ROUTES, 0)
+matmul.variant_launches = dict.fromkeys(VARIANTS, 0)

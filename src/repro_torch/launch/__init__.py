@@ -1,5 +1,8 @@
 """The port's launchers (``repro/launch/`` in the reference).
 
-Ported so far: ``serve.py`` (continuous-batching serving of the Mamba1
-family) and the thread backend of ``backend.py``.
+Ported so far: ``serve.py`` (continuous-batching serving of the Mamba1 and
+dense transformer families), ``backend.py`` (the thread and process
+backends of ``--show-graph``), ``remote.py`` (``repro-worker``: workers that
+dial a driver) and ``driver.py`` (``repro-driver``: a checkpointed driver
+that can be resumed).
 """

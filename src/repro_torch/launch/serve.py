@@ -9,8 +9,17 @@ scheduler:
     a finished slot is immediately refilled from the queue);
   * the loop itself is the paper's driver: prefill/decode are pure tasks —
     ``--show-graph`` traces one request into a task DAG, prints it and runs
-    it on ``--backend`` (the thread backend; the process backend is ROADMAP
-    §1 item 3).
+    it on ``--backend``.
+
+With ``--backend thread`` the traced request's tasks close over the
+launcher's one parameter set.  With ``--backend process`` they are the
+module-level recipe functions below (``_demo_prefill``/``_demo_decode``, as
+in the reference): the graph pickles into spawned workers, and each worker
+draws its own parameters from ``(arch, reduced, max_len, seed, device)``
+once (``_serve_runtime``), so the traced tokens match the main loop's.  The
+KV or SSM cache crosses between workers as host bytes.  A caller's own
+parameter tree (``main(params=...)``) cannot be rebuilt from a seed, so it
+serves only on the thread backend.
 
 It runs on the card unless ``--device`` names another device; with no card
 and no ``--device`` it raises.  This slice serves the dense transformer
@@ -23,11 +32,13 @@ and the main loop.
 CPU example (reduced config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --reduced --device cpu --requests 6 --slots 2 --max-new 8
+  ... --show-graph --backend process --graph-workers 2   (worker processes)
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional
 
@@ -67,10 +78,63 @@ def _greedy(logits: torch.Tensor) -> int:
     return int(torch.argmax(logits[0]))
 
 
+# --------------------------------------------------------------------------
+# traced-driver demo tasks for --backend process: module-level, with literal
+# arguments, so the graph pickles into spawned cluster workers; each worker
+# rebuilds its parameters and step functions from the recipe once.
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=2)
+def _serve_runtime(arch: str, reduced: bool, max_len: int, seed: int,
+                   device: str):
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    params = TF.init_params(cfg, seed, torch.device(device))
+    return (params, TF.make_prefill_step(cfg, max_len=max_len),
+            TF.make_decode_step(cfg))
+
+
+def _demo_prefill(arch, reduced, max_len, seed, device, prompt):
+    params, prefill, _ = _serve_runtime(arch, reduced, max_len, seed, device)
+    tokens = torch.as_tensor(np.asarray(prompt, np.int32)[None, :],
+                             device=device)
+    last, cache = prefill(params, tokens)
+    return _greedy(last), cache
+
+
+def _demo_decode(arch, reduced, max_len, seed, device, tok, cache):
+    params, _, decode = _serve_runtime(arch, reduced, max_len, seed, device)
+    token = torch.tensor([[tok]], dtype=torch.int32, device=device)
+    logits, cache = decode(params, cache, token)
+    return _greedy(logits), cache
+
+
+def _demo_respond(*toks):
+    return list(toks)
+
+
+demo_prefill = task(_demo_prefill, cost=1.0, name="prefill", n_outputs=2)
+demo_decode = task(_demo_decode, cost=0.2, name="decode", n_outputs=2)
+demo_respond = task(_demo_respond, cost=0.01, name="respond")
+
+
+def _recipe_tasks(recipe: tuple):
+    """The demo's tasks for the process backend: the recipe functions with
+    ``recipe = (arch, reduced, max_len, seed, device)`` bound at trace
+    time."""
+    def prefill_t(prompt):
+        return demo_prefill(*recipe, prompt)
+
+    def decode_t(tok, cache):
+        return demo_decode(*recipe, tok, cache)
+
+    return prefill_t, decode_t, demo_respond
+
+
 def _demo_tasks(params: Dict, prefill, decode, device: torch.device):
-    """The traced-driver demo's tasks (``demo_prefill/decode/respond`` in
-    the reference), closed over the launcher's one parameter set: the
-    thread backend shares the address space, so nothing is rebuilt."""
+    """The demo's tasks for the thread backend: prefill and decode close
+    over the launcher's one parameter set (the threads share the address
+    space, so nothing is rebuilt); ``respond`` is ``demo_respond``."""
     def _prefill(prompt):
         tokens = torch.as_tensor(np.asarray(prompt, np.int32)[None, :],
                                  device=device)
@@ -82,21 +146,21 @@ def _demo_tasks(params: Dict, prefill, decode, device: torch.device):
         logits, cache = decode(params, cache, token)
         return _greedy(logits), cache
 
-    def _respond(*toks):
-        return list(toks)
-
     return (task(_prefill, cost=1.0, name="prefill", n_outputs=2),
             task(_decode, cost=0.2, name="decode", n_outputs=2),
-            task(_respond, cost=0.01, name="respond"))
+            demo_respond)
 
 
 def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     """Serve ``--requests`` synthetic requests; returns the finished
-    requests and the run's counts and times.
+    requests and the run's counts and times (with ``--show-graph``, the
+    traced request's tokens and its backend's stats).
 
     ``params`` is a parameter tree to serve instead of drawing one from
     ``--seed`` (a tree carried across from the JAX package, or one a caller
-    already holds on the device).
+    already holds on the device); with ``--show-graph --backend process``
+    it raises ``ValueError``, since the workers draw theirs from
+    ``--seed``.
     """
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b", choices=ARCHS)
@@ -130,6 +194,10 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
                          "enc-dec serving is exercised in the dry-run cells")
     TF.check_supported(cfg)
     device = resolve_device(args.device)
+    if args.show_graph and args.backend == "process" and params is not None:
+        raise ValueError("--backend process: the workers draw their "
+                         "parameters from --seed, so a parameter tree passed "
+                         "in serves only on the thread backend")
 
     if params is None:
         params = TF.init_params(cfg, args.seed, device)
@@ -138,12 +206,18 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
 
     # ---- traced one-request driver executed on the chosen backend ----
     traced_tokens, demo_forwards, demo_prefills = None, 0, 0
+    graph_stats: Optional[Dict[str, Any]] = None
     if args.show_graph:
         demo_prompt = tuple(
             synth_requests(1, cfg.vocab_size, max_new=3,
                            seed=args.seed)[0].prompt.tolist())
-        prefill_t, decode_t, respond_t = _demo_tasks(params, prefill,
-                                                     decode, device)
+        if args.backend == "process":
+            prefill_t, decode_t, respond_t = _recipe_tasks(
+                (args.arch, args.reduced, args.max_len, args.seed,
+                 str(device)))
+        else:
+            prefill_t, decode_t, respond_t = _demo_tasks(params, prefill,
+                                                         decode, device)
 
         def req_driver():
             tok, cache = prefill_t(demo_prompt)
@@ -155,7 +229,7 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
 
         g, _ = trace(req_driver)
         print(g.summary())
-        res = execute_traced(g, args)
+        res, graph_stats = execute_traced(g, args)
         traced_tokens = res[g.outputs[0]]
         demo_prefills = sum(1 for n in g if n.name == "prefill")
         demo_forwards = demo_prefills + sum(1 for n in g
@@ -217,7 +291,7 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
             "decode_steps": n_decode_steps,
             "forwards": demo_forwards + n_prefills + n_decode_steps,
             "prefills": demo_prefills + n_prefills,
-            "traced_tokens": traced_tokens,
+            "traced_tokens": traced_tokens, "graph_stats": graph_stats,
             "ttft_p50": float(np.median(ttft)),
             "latency_p50": float(np.median(lat)),
             "decode_tok_s": n_decode_steps / wall, "device": str(device)}

@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.core as jcore  # noqa: E402
 import repro_torch.core as pcore  # noqa: E402
+from repro_torch.config import ClusterConfig  # noqa: E402
 from benchmarks.matmul_scaling import matrix_driver as jax_matrix_driver  # noqa: E402
 from repro_torch.workloads import (COST_GEN, COST_MUL,  # noqa: E402
                                    matrix_driver as pt_matrix_driver)
@@ -188,10 +189,17 @@ def test_combine_ops_take_a_tensor_with_a_number_or_array(op, other, want):
 
 
 def test_unported_backends_raise_not_implemented():
+    """The process backend runs (bit for bit the sequential oracle); only
+    the gateway, ``connect=`` on the thread backend, is still unported."""
     g, _ = pcore.trace(make_paper_main(pcore, torch.arange, []))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        pcore.run_graph(g, 2, backend="process")
-    with pytest.raises(NotImplementedError, match="items 3 and 4"):
+    seq = pcore.execute_sequential(g)
+    got = pcore.run_graph(g, 2, backend="process",
+                          config=ClusterConfig(progress_timeout=15.0))
+    assert got.keys() == seq.keys()
+    for tid, want in seq.items():
+        assert (torch.equal(got[tid], want) if isinstance(want, torch.Tensor)
+                else got[tid] == want)
+    with pytest.raises(NotImplementedError, match="§1 item 4"):
         pcore.run_graph(g, 2, connect="localhost:1")
     with pytest.raises(ValueError, match="process backend"):
         pcore.make_executor("thread", 2, transport="shm")

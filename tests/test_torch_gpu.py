@@ -206,6 +206,66 @@ def test_threaded_equals_sequential_on_the_card(cuda):
             assert a == b
 
 
+def test_process_backend_equals_sequential_on_the_card(cuda):
+    """The Fig. 2 DAG on cluster workers, which spawn because this process
+    has initialised CUDA and each launch the matmul kernel (simt route,
+    vector loads), is bit for bit the sequential run on the card."""
+    from repro_torch.config import ClusterConfig
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.workloads import run_matrix_dag
+    g, seq, _ = run_matrix_dag(4, 512, 1)
+    for fuse in ("off", "auto"):
+        before = mm.matmul.launches
+        _, got, rep = run_matrix_dag(4, 512, 2, backend="process",
+                                     config=ClusterConfig(
+                                         fuse=fuse, progress_timeout=120.0))
+        assert rep["start_method"] == "spawn"
+        assert mm.matmul.launches == before
+        assert rep["stats"]["tasks_run"]["mul"] == 4
+        assert rep["stats"]["kernel_launches"] == {
+            "matmul": 4, "matmul/simt": 4, "matmul/vector": 4}
+        assert got.keys() == seq.keys()
+        for tid, a in seq.items():
+            b = got[tid]
+            if isinstance(a, torch.Tensor):
+                assert b.is_cuda
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            else:
+                assert a == b
+        assert rep["stats"]["recomputed"] == 0
+
+
+def test_cuda_tensors_cross_the_data_plane_on_their_device(cuda):
+    from repro_torch.cluster import serde
+    t = torch.randn(300, 257, device=cuda).to(torch.bfloat16)
+    enc = serde.encode({"t": t}, transport="shm", threshold=1024)
+    try:
+        got = serde.decode(enc)["t"]
+    finally:
+        serde.release(enc)
+    assert got.device == t.device and got.dtype == t.dtype
+    assert torch.equal(got.view(torch.int16), t.view(torch.int16))
+    assert enc.direct_nbytes() == t.numel() * 2
+
+
+def _touch_cuda():
+    return torch.ones(1, device="cuda")
+
+
+def test_a_forked_worker_that_touches_cuda_fails_its_task(cuda):
+    """Once the driver has used CUDA a forked child cannot: the task fails
+    with torch's message instead of hanging the driver."""
+    from repro_torch.config import ClusterConfig
+    from repro_torch.core import TaskFailed, TaskGraph, TaskKind, run_graph
+    torch.ones(1, device=cuda)
+    g = TaskGraph()
+    g.mark_output(g.add_node("touch", _touch_cuda, (), {}, TaskKind.PURE,
+                             deps=()))
+    with pytest.raises(TaskFailed, match="forked subprocess"):
+        run_graph(g, 1, backend="process", config=ClusterConfig(
+            start_method="fork", progress_timeout=60.0))
+
+
 # ------------------------------------------------------------- ssm scan
 
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}

@@ -36,8 +36,44 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1) \
         if " " in proc.stdout.strip() else (proc.stdout.strip(), "")
-    assert int(count) >= 37          # every module of the slices was imported
+    assert int(count) >= 57          # every module of the slices was imported
     assert bad == "", f"port imports pulled in {bad}"
+
+
+_SPAWN_SCRIPT = r"""
+import multiprocessing as mp
+import sys
+
+
+def child(q):
+    import repro_torch.cluster.worker  # noqa: F401
+    q.put(sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith("jax.")
+                 or m == "repro" or m.startswith("repro.")))
+
+
+if __name__ == "__main__":
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=child, args=(q,))
+    p.start()
+    bad = q.get(timeout=120)
+    p.join(timeout=60)
+    print(p.exitcode, ",".join(bad))
+"""
+
+
+def test_a_spawned_cluster_worker_loads_no_jax_and_no_repro(tmp_path):
+    """What a spawned worker of the port's cluster runtime imports: the
+    worker module and its dependencies, never JAX or the JAX package."""
+    script = tmp_path / "spawn_worker.py"
+    script.write_text(_SPAWN_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, env=env, cwd=str(ROOT), timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    code, _, bad = proc.stdout.strip().partition(" ")
+    assert code == "0" and bad == "", proc.stdout
 
 
 _BAD_IMPORT = re.compile(
@@ -48,7 +84,7 @@ _BAD_IMPORT = re.compile(
 def test_port_sources_name_no_jax_or_repro_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "kernel_ab.py"]
-    assert len(files) >= 38          # the 37 modules and chip_smoke.py
+    assert len(files) >= 58          # the 57 modules and chip_smoke.py
     offenders = {str(f.relative_to(ROOT)): _BAD_IMPORT.findall(f.read_text())
                  for f in files}
     assert {f: m for f, m in offenders.items() if m} == {}

@@ -243,3 +243,52 @@ def test_build_failure_names_the_source_and_leaves_no_library(
         _build._compile(out_dir)
     assert not (out_dir / "libkernels.so").exists()
     assert not list(out_dir.glob("*.o"))
+
+
+_LOCKED_BUILD = r"""
+import sys, time
+from pathlib import Path
+from repro_torch.kernels import _build
+root, me = Path(sys.argv[1]), sys.argv[2]
+_build.BUILD_ROOT = root / "build"
+
+
+def fake_compile(out_dir):
+    with open(root / "builds", "a") as f:
+        f.write(me + "\n")
+    time.sleep(1.0)              # long enough for the other to arrive
+    (out_dir / "libkernels.so").write_text(me)
+
+
+_build._compile = fake_compile
+(root / f"ready.{me}").touch()
+while not (root / "go").exists():
+    time.sleep(0.01)
+print(_build.ensure_built().read_text())
+"""
+
+
+def test_two_processes_share_one_build(tmp_path):
+    """A fresh checkout's spawned workers reach ``ensure_built`` together:
+    the build directory's file lock lets one build, and the other finds
+    its library (``_compile`` is stubbed, so no ``nvcc`` is needed)."""
+    import os
+    import subprocess
+    import sys
+    import time
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", _LOCKED_BUILD,
+                               str(tmp_path), name], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for name in ("a", "b")]
+    deadline = time.monotonic() + 60
+    while not all((tmp_path / f"ready.{n}").exists() for n in "ab"):
+        assert time.monotonic() < deadline, "the builders did not start"
+        time.sleep(0.01)
+    (tmp_path / "go").touch()
+    outs = [p.communicate(timeout=60)[0].strip() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    builds = (tmp_path / "builds").read_text().split()
+    assert len(builds) == 1 and outs == builds * 2

@@ -95,12 +95,36 @@ def test_unported_arch_raises_naming_roadmap_item_7(arch):
 
 
 @pytest.mark.parametrize("extra", [["--backend", "process"],
-                                   ["--transport", "tcp"],
+                                   ["--backend", "process",
+                                    "--transport", "tcp"],
                                    ["--fuse", "auto"]])
 def test_cluster_runtime_raises_naming_roadmap_item_3(extra):
-    with pytest.raises(NotImplementedError, match="§1 item 3"):
+    """The cluster runtime's flags now run (ROADMAP §1 item 3 is done):
+    the traced request, on worker processes that draw their own parameters
+    from the seed, gives a prefix of request 0's tokens."""
+    out = serve.main(["--arch", "falcon-mamba-7b", "--reduced", "--device",
+                      "cpu", "--requests", "2", "--slots", "1",
+                      "--max-new", "4", "--graph-workers", "2",
+                      "--show-graph", *extra])
+    req0 = min(out["finished"], key=lambda r: r.rid)
+    assert len(out["traced_tokens"]) == 3
+    assert out["traced_tokens"] == req0.out[:3]
+    if "process" in extra:
+        # the workers ran the 3 forwards, on the CPU with no kernel launch
+        stats = out["graph_stats"]
+        assert {k: stats["tasks_run"][k] for k in (
+            "prefill", "decode", "respond")} == {"prefill": 1, "decode": 2,
+                                                 "respond": 1}
+        assert stats["kernel_launches"] == {}
+
+
+def test_process_backend_refuses_a_parameter_tree_it_cannot_rebuild():
+    cfg = serve.get_config("falcon-mamba-7b").reduced()
+    params = serve.TF.init_params(cfg, 0, "cpu")
+    with pytest.raises(ValueError, match="thread backend"):
         serve.main(["--arch", "falcon-mamba-7b", "--reduced", "--device",
-                    "cpu", "--show-graph", *extra])
+                    "cpu", "--show-graph", "--backend", "process"],
+                   params=params)
 
 
 def test_gateway_raises_naming_roadmap_item_4():
