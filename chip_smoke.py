@@ -36,6 +36,16 @@ Each phase prints one line; any failure raises and exits non-zero:
    final collection), and the workers' summed seconds in super-tasks.
    Its ``mul`` launches (tasks run plus recomputed) count in the matmul
    entry's ``launches``;
+4c. main path through the gateway — an in-process ``GatewayService`` over
+   a resident pool of 4 spawned workers, and tenants that connect over
+   localhost TCP: a cold job with every output, two tenants' jobs at once
+   with ``outputs_only``, a tenant whose store quota is below one job's
+   declared bytes (a typed ``QuotaExceeded``, nothing admitted), and two
+   tenants across a SIGKILL of worker 1.  Every job equals phase 4's
+   sequential run bit for bit; its line gives the wall as the client saw
+   it, the gateway's submit-to-dispatch and submit-to-gather seconds, the
+   result frame's bytes and seconds, the pool's start-up, and the job's own
+   kernel launches and tasks run, which must agree (simt, vector loads);
 5. ssm_scan — the selective-scan kernel against its plain version at the
    long-prefill shape (1x2048x8192, N = 16), a decode step (S = 1, with
    ``h0``) and a ragged shape (3x1000x1000, with ``h0``), in float32 and
@@ -50,6 +60,10 @@ Each phase prints one line; any failure raises and exits non-zero:
    spawned workers, each drawing the reduced model from the seed and
    launching the scan kernel there; the traced tokens a prefix of request
    0's;
+6c. serve through the gateway — a 1-worker spawned gateway, and the
+   launcher at full width with ``--gateway``: the traced request runs in
+   the pool's worker (192 scan launches there), its tokens those of phase
+   6's thread backend; the pool is stopped before the next model;
 7. long prefill — one 2048-token prompt through the prefill step and 8
    greedy decode steps, once with the scan kernel and once with its plain
    version on the same tokens: last-position logits within ``LOGIT_TOL``;
@@ -66,6 +80,7 @@ Each phase prints one line; any failure raises and exits non-zero:
    tokens a prefix of request 0's, 28 flash launches per prefill, all on
    the wgmma route, and none per decode step;
 9b. phase 6b for qwen2-7b (the flash kernel in the workers' prefill);
+9c. phase 6c for qwen2-7b (28 flash launches in the worker, all wgmma);
 10. long prefill — phase 7 for qwen2-7b, with the flash kernel and with its
    plain version: 28 launches in the kernel run, all on the wgmma route,
    none in the plain one.
@@ -84,8 +99,10 @@ import json
 import math
 import os
 import re
+import secrets
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -140,6 +157,9 @@ FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
 # worker processes (see phase_serve_process)
 PROCESS_SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
                       "--show-graph", "--backend", "process"]
+# phases 6c and 9c: the same traffic, the traced request on a gateway's pool
+GATEWAY_SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
+                      "--show-graph"]
 LONG_PROMPT, LONG_DECODE = 2048, 8
 LONG_MAX_LEN = LONG_PROMPT + LONG_DECODE + 1     # the long run's KV cache
 # Kernel and plain version agree to the last bits of float32, but the model
@@ -490,6 +510,201 @@ def phase_process_path(torch, graph, seq) -> int:
     return total
 
 
+def _wait_all(futs: dict, submitted: dict, timeout: float) -> dict:
+    """Waits for every future; returns each one's seconds from its submit
+    to its result in this process (the client's wall)."""
+    walls = {}
+
+    def wait(key):
+        futs[key].exception(timeout)
+        walls[key] = time.perf_counter() - submitted[key]
+
+    threads = [threading.Thread(target=wait, args=(k,)) for k in futs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return walls
+
+
+def phase_gateway_path(torch, graph, seq) -> int:
+    """Phase 4c: phase 4's DAG through the multi-tenant gateway, whose
+    resident pool spawns 4 workers once for all its jobs; returns the
+    matmul launches of its jobs as their workers reported them.  Every job
+    fails the phase unless it equals the sequential run bit for bit (all
+    values, or with ``outputs_only`` the ``reduce``), its own matmul
+    launches equal its own ``mul`` tasks run, all on the simt route with
+    vector loads, and this process launched none.
+
+    Two jobs are in flight at once in runs 2 and 4, so unless ``/dev/shm``
+    has room for twice the values of both, the pool names
+    ``transport="sock"`` and says so (see phase 4b)."""
+    from repro_torch.cluster import serde
+    from repro_torch.config import ClusterConfig
+    from repro_torch.gateway import (GatewayService, QuotaExceeded,
+                                     TenantQuota, connect)
+    values = sum(n.out_bytes for n in graph)
+    shm_total, shm_free = shm_bytes()
+    room = serde.shm_available() and shm_free >= 2 * 2 * values
+    transport = "auto" if room else "sock"
+    n_mul = sum(1 for n in graph if n.name == "mul")
+    reduce_tid = graph.outputs[0]
+    token = secrets.token_hex(16)
+    driver = _counters()["matmul"]
+    _reset(driver)
+    config = ClusterConfig(n_workers=N_WORKERS, start_method="spawn",
+                           fuse="auto", transport=transport, token=token,
+                           progress_timeout=PROCESS_TIMEOUT)
+    # the thin tenant's store quota is one byte short of one job's values
+    gw = GatewayService(config, quotas={
+        "thin": TenantQuota(max_store_bytes=values - 1)})
+    t_start = time.perf_counter()
+    gw.start()
+    total = n_jobs = 0
+    clients = {}
+
+    def client(tenant):
+        if tenant not in clients:
+            clients[tenant] = connect(gw.address, token=token, tenant=tenant)
+        return clients[tenant]
+
+    def run(what, tenants, during=None):
+        """Submits the DAG for each tenant at once (``tenants`` maps each
+        to its ``outputs_only``), waits for all, checks and prints each
+        job; returns the futures and their submit times."""
+        nonlocal total, n_jobs
+        futs, submitted = {}, {}
+        t0 = time.perf_counter()
+        for tenant, outputs_only in tenants.items():
+            submitted[tenant] = time.perf_counter()
+            futs[tenant] = client(tenant).submit(
+                graph, outputs_only=outputs_only, label=f"{what}-{tenant}")
+        if during is not None:
+            during(futs)
+        walls = _wait_all(futs, submitted, 4 * PROCESS_TIMEOUT)
+        together = time.perf_counter() - t0
+        for tenant, fut in futs.items():
+            got = fut.result(0)
+            outputs_only = tenants[tenant]
+            job = f"{what} job of tenant {tenant!r}"
+            want = {reduce_tid} if outputs_only else set(seq)
+            if set(got) != want:
+                fail(f"{job}: returned {len(got)} values, expected "
+                     f"{len(want)}")
+            for tid in want:
+                if not _same(torch, got[tid], seq[tid]):
+                    fail(f"{job}: {graph.nodes[tid].name}#{tid} differs "
+                         f"from the sequential run")
+            stats = fut.stats
+            ran = stats["tasks_run"].get("mul", 0)
+            if ran < n_mul or (stats["recomputed"] == 0 and ran != n_mul):
+                fail(f"{job}: ran {ran} mul tasks, {stats['recomputed']} "
+                     f"super-tasks recomputed, for {n_mul} mul nodes")
+            in_workers = stats["kernel_launches"]
+            if in_workers != {"matmul": ran, "matmul/simt": ran,
+                              "matmul/vector": ran}:
+                fail(f"{job}: its workers launched {in_workers}, expected "
+                     f"{ran} matmuls on the simt route with vector loads")
+            total += ran
+            n_jobs += 1
+            line("gateway_path", {
+                "run": what, "tenant": tenant,
+                "outputs_only": outputs_only, "workers": N_WORKERS,
+                "client_wall_s": walls[tenant], "run_wall_s": together,
+                # from the job's gather to its results in the client: the
+                # frame's encode, its trip over localhost TCP, its decode
+                "gather_to_client_s": walls[tenant]
+                - stats["submit_to_gather_s"],
+                **{k: stats[k] for k in (
+                    "job_id", "n_clusters", "submit_to_first_dispatch_s",
+                    "submit_to_gather_s", "result_bytes", "result_encode_s",
+                    "result_decode_s", "recomputed", "tasks_run",
+                    "kernel_launches")},
+                "values_returned": len(got),
+                "equals_sequential": True, "reduce": got[reduce_tid]})
+            del got
+        return futs, submitted
+
+    try:
+        # 1. cold: the pool's start-up is paid inside this job.  The
+        # driver queues the first super-tasks on the workers' pipes before
+        # they have booted, so the first dispatch comes at once; the first
+        # completed super-task (as in phase 4b) is what shows the start-up
+        futs, submitted = run("cold", {"cold": False})
+        first_dispatch = (submitted["cold"] - t_start
+                          + futs["cold"].stats["submit_to_first_dispatch_s"])
+        del futs
+        # 2. warm: two tenants at once, only the reduce comes back
+        run("warm", {"a": True, "b": True})
+        # 3. quota: a typed rejection, and nothing admitted
+        admitted = gw.executor.stats["jobs_admitted"]
+        err = client("thin").submit(graph).exception(PROCESS_TIMEOUT)
+        if not (isinstance(err, QuotaExceeded)
+                and err.resource == "store_bytes"
+                and err.limit == values - 1):
+            fail(f"quota: tenant 'thin' got {err!r}, expected QuotaExceeded "
+                 f"on store_bytes with limit {values - 1}")
+        thin = gw.stats()["thin"]
+        if gw.executor.stats["jobs_admitted"] != admitted or \
+                thin["submitted"] or thin["inflight_jobs"] or \
+                thin["rejected"] != 1:
+            fail(f"quota: a rejected job was admitted ({thin})")
+        line("gateway_quota", {"tenant": "thin", "resource": err.resource,
+                               "limit": err.limit,
+                               "requested": err.requested,
+                               "message": str(err)})
+
+        # 4. a worker SIGKILLed while the victim's clusters run
+        def kill_when_running(futs):
+            base = gw.executor.stats["dispatched"]
+            deadline = time.perf_counter() + PROCESS_TIMEOUT
+            while gw.executor.stats["dispatched"] < base + N_WORKERS + 2:
+                if time.perf_counter() > deadline or futs["victim"].done():
+                    fail("SIGKILL run: the victim's clusters never ran")
+                time.sleep(0.01)
+            gw.executor.kill_worker(1)
+
+        # the victim takes every value back, recomputed ones included
+        failures = gw.executor.stats["failures"]
+        run("sigkill", {"victim": False, "bystander": True},
+            during=kill_when_running)
+        pool = gw.stats()
+        if gw.executor.stats["failures"] != failures + 1:
+            fail(f"SIGKILL run: {gw.executor.stats['failures'] - failures} "
+                 f"worker deaths, expected 1")
+        if any(pool[t]["failed"] for t in pool if t != "pool"):
+            fail(f"a tenant's job failed: {pool}")
+        if driver.launches:
+            fail(f"gateway path: this process launched {driver.launches} "
+                 f"matmuls")
+        line("gateway_pool", {
+            "workers": N_WORKERS, "start_method": gw.executor.start_method,
+            "first_dispatch_s": first_dispatch,
+            # from start() to the first completed super-task: 4 spawned
+            # interpreters, torch, CUDA contexts, the library, one gen pair
+            "first_done_s": gw.executor.stats["first_done_s"],
+            "transport_requested": transport,
+            "transport_used": gw.executor.transport_used,
+            "transport_note": None if room else
+            f"/dev/shm cannot hold twice the values of two jobs "
+            f"({2 * values} bytes), so the pool names transport='sock'",
+            "dev_shm_bytes": shm_total, "dev_shm_free_bytes": shm_free,
+            "jobs": n_jobs, "matmul_launches": total,
+            **{k: gw.executor.stats[k] for k in (
+                "jobs_admitted", "jobs_completed", "jobs_failed",
+                "failures", "recomputed", "dispatched", "bytes_direct",
+                "bytes_driver")},
+            "tenants": {t: {k: v[k] for k in (
+                "completed", "failed", "rejected")}
+                for t, v in pool.items() if t != "pool"}})
+    finally:
+        for c in clients.values():
+            c.close()
+        gw.stop()
+    torch.cuda.empty_cache()
+    return total
+
+
 def scan_bound(Bsz: int, S: int, D: int, N: int, itemsize: int,
                with_h0: bool):
     """Least time the card could take for one scan: x, dt, B, C (and h0)
@@ -754,7 +969,7 @@ def phase_serve(torch, cfg, params) -> int:
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "traced_tokens": out["traced_tokens"],
         "tokens": {r.rid: r.out for r in finished}})
-    return launches[kernel]
+    return launches[kernel], out["traced_tokens"]
 
 
 def phase_serve_process(torch, arch: str, reduced: bool) -> int:
@@ -827,6 +1042,91 @@ def phase_serve_process(torch, arch: str, reduced: bool) -> int:
         "graph_last_done_s": stats["last_done_s"],
         "driver_peak_device_bytes": torch.cuda.max_memory_allocated(),
         "traced_tokens": traced,
+        "tokens": {r.rid: r.out for r in finished}})
+    del out
+    return launches[kernel] + in_workers[kernel]
+
+
+def phase_serve_gateway(torch, arch: str, thread_tokens: list) -> int:
+    """Phases 6c and 9c: the serve launcher at full width with its traced
+    request sent to a 1-worker gateway (``--gateway``), whose spawned
+    worker draws its own parameter set from the seed.  One model a pool:
+    the worker keeps what it drew until the pool stops, and two models'
+    parameters there (29 + 30.5 GB) beside this process's own set would not
+    fit the card.  The traced tokens must be a prefix of request 0's and
+    equal the thread backend's (``thread_tokens``, phase 6 or 9); the job's
+    worker must report the path kernel ``n_layers`` times a forward (scan)
+    or a prefill (flash, all on wgmma), and this process the main loop's.
+    Returns the path kernel's launches in both."""
+    from repro_torch.config import ClusterConfig
+    from repro_torch.configs import get_config
+    from repro_torch.gateway import GatewayService
+    from repro_torch.launch import serve
+    cfg = get_config(arch)
+    kernel = _path_kernel(cfg)
+    counters = _counters()
+    token = secrets.token_hex(16)
+    what = f"{arch} --gateway"
+    for fn in counters.values():
+        _reset(fn)
+    torch.cuda.reset_peak_memory_stats()
+    gw = GatewayService(ClusterConfig(
+        n_workers=1, start_method="spawn", token=token,
+        progress_timeout=PROCESS_TIMEOUT))
+    t0 = time.perf_counter()
+    gw.start()
+    try:
+        argv = (["--arch", arch] + GATEWAY_SERVE_ARGS
+                + ["--gateway", gw.address, "--gateway-token", token,
+                   "--tenant", "serve"])
+        out = serve.main(argv)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        pool = gw.stats()
+        start_method = gw.executor.start_method
+    finally:
+        gw.stop()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    finished = sorted(out["finished"], key=lambda r: r.rid)
+    traced = out["traced_tokens"]
+    if len(finished) != 4:
+        fail(f"{what}: served {len(finished)} requests")
+    if traced != finished[0].out[:3] or traced != thread_tokens:
+        fail(f"{what}: traced tokens {traced}, request 0's {finished[0].out}"
+             f", the thread backend's {thread_tokens}")
+    per = (out["forwards"] - 3 if kernel == "ssm_scan"
+           else out["prefills"] - 1)
+    want = {name: 0 for name in counters}
+    want[kernel] = cfg.n_layers * per
+    if launches != want:
+        fail(f"{what}: kernel launches in this process {launches}, "
+             f"expected {want}")
+    stats = out["graph_stats"]
+    ran = {k: stats["tasks_run"].get(k, 0) for k in ("prefill", "decode")}
+    if ran != {"prefill": 1, "decode": 2} or stats["tenant"] != "serve":
+        fail(f"{what}: the job ran {ran} as {stats['tenant']!r}, expected 1 "
+             f"prefill and 2 decodes as 'serve'")
+    in_workers = stats["kernel_launches"]
+    n = cfg.n_layers * (3 if kernel == "ssm_scan" else 1)
+    if {k: v for k, v in in_workers.items() if "/" not in k} != {kernel: n}:
+        fail(f"{what}: the worker launched {in_workers}, expected {n} "
+             f"{kernel} launches")
+    route = PATH_ROUTE.get(kernel)
+    if route and in_workers.get(f"{kernel}/{route}") != n:
+        fail(f"{what}: the worker's {kernel} launches by route "
+             f"{in_workers}, expected all {n} on {route}")
+    if pool["serve"]["failed"] or pool["serve"]["completed"] != 1:
+        fail(f"{what}: tenant accounting {pool['serve']}")
+    line("serve_gateway", {
+        "arch": arch, "argv": [a if a != token else "<token>" for a in argv],
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "pool_workers": 1,
+        "start_method": start_method, "wall_s": wall,
+        "job_wall_s": stats["submit_to_gather_s"],
+        "submit_to_first_dispatch_s": stats["submit_to_first_dispatch_s"],
+        "result_bytes": stats["result_bytes"],
+        "driver_launches": launches, "worker_launches": in_workers,
+        "worker_tasks_run": stats["tasks_run"],
+        "driver_peak_device_bytes": peak, "traced_tokens": traced,
         "tokens": {r.rid: r.out for r in finished}})
     del out
     return launches[kernel] + in_workers[kernel]
@@ -953,11 +1253,11 @@ def phase_profile(torch, cfg, params) -> None:
 def phase_model(torch, arch: str, n_params: int, profile: bool):
     """Draw ``arch`` on the card, serve it, run the long prefill (and, with
     ``profile``, profile it), free its parameters, then serve it on the
-    process backend, reduced and at full width; returns the path kernel's
-    launches in each of those runs."""
+    process backend, reduced and at full width, and through a gateway;
+    returns the path kernel's launches in each of those runs."""
     import gc
     cfg, params = phase_params(torch, arch, n_params)
-    launches = phase_serve(torch, cfg, params)
+    launches, thread_tokens = phase_serve(torch, cfg, params)
     long = phase_long_prefill(torch, cfg, params)
     if profile:
         phase_profile(torch, cfg, params)
@@ -970,7 +1270,10 @@ def phase_model(torch, arch: str, n_params: int, profile: bool):
                for reduced in (True, False)]
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, long[f"{_path_kernel(cfg)}_launches"], *process
+    gateway = phase_serve_gateway(torch, arch, thread_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, long[f"{_path_kernel(cfg)}_launches"], *process, gateway
 
 
 def main() -> int:
@@ -992,6 +1295,7 @@ def main() -> int:
     checks = phase_kernels(torch)
     launches, graph, seq = phase_main_path(torch, checks)
     launches += phase_process_path(torch, graph, seq)
+    launches += phase_gateway_path(torch, graph, seq)
     del seq
     torch.cuda.empty_cache()
     scan_checks = phase_scan_kernels(torch)

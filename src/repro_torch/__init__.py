@@ -12,15 +12,19 @@ nothing of ``repro``.  Top-level convenience surface::
     cfg = repro_torch.ClusterConfig(n_workers=4, fuse="auto")
     repro_torch.run_graph(g, config=cfg, backend="process")
 
+    with repro_torch.connect("gw-host:7777", token=tok) as client:
+        fut = client.submit(g)            # multi-tenant gateway session
+        print(fut.result())
+
 Everything is imported lazily: ``import repro_torch`` must stay cheap (no
 torch import, no CUDA initialisation) because launchers and worker threads
-pay it on startup.  The gateway client (``repro.connect``) is ROADMAP §1
-item 4.
+pay it on startup.
 """
 from typing import Any
 
 __all__ = ["ClusterConfig", "TaskGraph", "task", "io_task", "trace",
-           "run_graph", "make_executor", "execute_sequential"]
+           "run_graph", "make_executor", "execute_sequential", "connect",
+           "Client", "GatewayError", "QuotaExceeded"]
 
 _LAZY = {
     "ClusterConfig": ("repro_torch.config", "ClusterConfig"),
@@ -31,6 +35,10 @@ _LAZY = {
     "run_graph": ("repro_torch.core.executor", "run_graph"),
     "make_executor": ("repro_torch.core.executor", "make_executor"),
     "execute_sequential": ("repro_torch.core.executor", "execute_sequential"),
+    "connect": ("repro_torch.gateway.client", "connect"),
+    "Client": ("repro_torch.gateway.client", "Client"),
+    "GatewayError": ("repro_torch.gateway.errors", "GatewayError"),
+    "QuotaExceeded": ("repro_torch.gateway.errors", "QuotaExceeded"),
 }
 
 

@@ -12,7 +12,12 @@ Port of ``repro/cluster/executor.py``.  What the port adds:
   with their ``done`` messages, by kernel and by route
   (``repro_torch/cluster/worker.py``); and ``stats["tasks_run"]``: by task
   name, the members of every super-task whose ``done`` the driver read,
-  each time it ran.  So the two can be held against each other.
+  each time it ran.  So the two can be held against each other.  In the
+  resident run (the gateway's pool) each ``done`` is also attributed to the
+  job whose id range holds its super-task: a job's future carries its own
+  ``kernel_launches``, ``tasks_run`` and ``recomputed`` in its ``stats``
+  (a cancelled super-task's launches ride on its worker's next ``done``,
+  which may be another job's).
 * A config that leaves ``start_method`` unset gets
   :func:`default_start_method`: ``"spawn"`` once this process has
   initialised CUDA, else ``"fork"``.  An explicit ``"fork"`` is honoured,
@@ -252,6 +257,12 @@ class _Job:
     submitted: float = 0.0          # perf_counter at submit_job()
     first_dispatch: Optional[float] = None
     terminal: bool = False          # finished, failed, or cancelled
+    # this job's share of the run-wide counters: the launches and member
+    # tasks its super-tasks' ``done`` messages reported, and its recomputed
+    # super-tasks
+    kernel_launches: Dict[str, int] = field(default_factory=dict)
+    tasks_run: Dict[str, int] = field(default_factory=dict)
+    recomputed: int = 0
 
 
 class ClusterExecutor:
@@ -1711,6 +1722,10 @@ class ClusterExecutor:
             available = store.available(set(alive_ids()))
             cplan = recovery_plan_clusters(plan, needed, available)
             stats["recomputed"] += len(cplan)
+            for c in cplan:
+                j = job_of(c)
+                if j is not None:
+                    j.recomputed += 1
             self.recovery_events.append({
                 "worker": cause, "lost": set(lost), "needed": set(needed),
                 "available": set(available), "plan": set(cplan),
@@ -2134,12 +2149,19 @@ class ClusterExecutor:
         def handle_msg(w: _Worker, msg: tuple) -> None:
             verb = msg[0]
             if verb == "done":
+                j = job_of(msg[2])
+                mine = j is not None and not j.terminal
                 for k, n in msg[6].items():
                     launched[k] = launched.get(k, 0) + n
+                    if mine:
+                        j.kernel_launches[k] = j.kernel_launches.get(k, 0) + n
                 for m in plan.members.get(msg[2], ()):
                     node = graph.nodes.get(m)
                     if node is not None:
                         ran[node.name] = ran.get(node.name, 0) + 1
+                        if mine:
+                            j.tasks_run[node.name] = \
+                                j.tasks_run.get(node.name, 0) + 1
                 on_done(w, msg[2], msg[3], msg[4], msg[5])
             elif verb == "value":
                 on_value(w, msg[2], msg[3], msg[4])
@@ -2324,8 +2346,11 @@ class ClusterExecutor:
             stats["tasks_fused"] += jp.n_fused
             stats["jobs_admitted"] += 1
             jobs[job.job_id] = job
-            job_spans.append((job.base, job.end, job))
-            span_starts.append(job.base)
+            # two submitters can queue their jobs in the other order than
+            # they took their id ranges: keep the span index sorted
+            i = bisect.bisect_left(span_starts, job.base)
+            job_spans.insert(i, (job.base, job.end, job))
+            span_starts.insert(i, job.base)
             graph_blob[0] = None    # graph-less dialers need the union
             for w in workers.values():
                 if w.alive:
@@ -2405,6 +2430,9 @@ class ClusterExecutor:
                        "n_clusters": len(job.cids),
                        "submit_to_first_dispatch_s": first,
                        "submit_to_gather_s": latency,
+                       "kernel_launches": dict(job.kernel_launches),
+                       "tasks_run": dict(job.tasks_run),
+                       "recomputed": job.recomputed,
                        # adaptive observability: the run-wide calibrated
                        # rates this job executed under (re-fusion itself
                        # is disabled for resident runs)

@@ -1,8 +1,7 @@
 """Executors that really run a TaskGraph.
 
-Port of ``repro/core/executor.py``.  The gateway client (``connect=`` on
-the thread backend) is not ported yet and raises ``NotImplementedError``
-naming ROADMAP §1 item 4.
+Port of ``repro/core/executor.py``.  ``run_graph(connect=)`` on the thread
+backend submits to the port's gateway (:mod:`repro_torch.gateway`).
 
 * :class:`Executor` — the protocol every runtime backend satisfies:
   ``run(graph, inputs) -> {tid: value}`` plus ``stats``/``wall_time``
@@ -280,12 +279,15 @@ def run_graph(graph: TaskGraph, n_workers: int = 1,
     """Run ``graph`` on the selected backend.
 
     ``n_workers=1`` on the thread backend runs the sequential oracle.
-    With ``backend="process"``, ``connect="host:port"`` is the address the
-    driver *binds* for dialing workers (``python -m
-    repro_torch.launch.remote``); on the thread backend it would submit
-    to a resident gateway, which is not ported yet (ROADMAP §1 item 4) and
-    raises ``NotImplementedError``.  ``config`` is a
-    :class:`repro_torch.ClusterConfig` for the process backend.
+    ``connect="host:port"`` (with the default backend) submits the graph
+    to a resident multi-tenant gateway at that address instead of running
+    locally: the graph is traced here, runs on the gateway's shared pool
+    through one client session (:mod:`repro_torch.gateway`), and the
+    report's backend is ``"gateway"``.  With ``backend="process"`` it
+    keeps its other meaning: the address the driver *binds* for dialing
+    workers (``python -m repro_torch.launch.remote``).  ``config`` is a
+    :class:`repro_torch.ClusterConfig` for the process backend; sent to a
+    gateway, only its ``outputs_only`` travels.
 
     ``with_report=True`` returns ``(results, report)`` where ``report``
     carries the backend, worker count, wall time, the backend's stats
@@ -299,9 +301,16 @@ def run_graph(graph: TaskGraph, n_workers: int = 1,
     ``start_method`` and the lineage ``recovery_events``.
     """
     if connect is not None and backend != "process":
-        raise NotImplementedError(
-            "connect= on the thread backend (the multi-tenant gateway) is "
-            "not ported yet: ROADMAP §1 item 4")
+        # gateway session: trace locally, execute on the shared pool
+        from ..gateway.client import connect as _gw_connect
+        with _gw_connect(connect, token=token) as client:
+            fut = client.submit(graph, inputs, config=config)
+            results = fut.result()
+        if with_report:
+            return results, {"backend": "gateway", "n_workers": n_workers,
+                             "wall_time": fut.wall_time,
+                             "stats": dict(fut.stats or {})}
+        return results
     if token is not None:
         kw["token"] = token
     if n_workers == 1 and backend == "thread":

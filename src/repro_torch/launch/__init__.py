@@ -3,6 +3,7 @@
 Ported so far: ``serve.py`` (continuous-batching serving of the Mamba1 and
 dense transformer families), ``backend.py`` (the thread and process
 backends of ``--show-graph``), ``remote.py`` (``repro-worker``: workers that
-dial a driver) and ``driver.py`` (``repro-driver``: a checkpointed driver
-that can be resumed).
+dial a driver), ``driver.py`` (``repro-driver``: a checkpointed driver
+that can be resumed) and ``gateway.py`` (a resident multi-tenant pool that
+clients submit graphs to).
 """

@@ -21,6 +21,14 @@ KV or SSM cache crosses between workers as host bytes.  A caller's own
 parameter tree (``main(params=...)``) cannot be rebuilt from a seed, so it
 serves only on the thread backend.
 
+With ``--gateway HOST:PORT`` the traced request goes instead, built from the
+same recipe functions, to a resident gateway (``python -m
+repro_torch.launch.gateway``) as tenant ``--tenant``; the request loop still
+serves locally.  The recipe functions are taken from the module imported as
+``repro_torch.launch.serve``, never from ``__main__`` (which they would
+pickle as when this file runs with ``python -m``), so the gateway's workers
+can import them.
+
 It runs on the card unless ``--device`` names another device; with no card
 and no ``--device`` it raises.  This slice serves the dense transformer
 family (qwen2-7b, qwen3-14b, granite-20b, yi-9b; every prefill runs the
@@ -33,6 +41,7 @@ CPU example (reduced config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --reduced --device cpu --requests 6 --slots 2 --max-new 8
   ... --show-graph --backend process --graph-workers 2   (worker processes)
+  ... --show-graph --gateway HOST:PORT --gateway-token T  (a gateway's pool)
 """
 from __future__ import annotations
 
@@ -154,13 +163,14 @@ def _demo_tasks(params: Dict, prefill, decode, device: torch.device):
 def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     """Serve ``--requests`` synthetic requests; returns the finished
     requests and the run's counts and times (with ``--show-graph``, the
-    traced request's tokens and its backend's stats).
+    traced request's tokens and its backend's stats, or with ``--gateway``
+    the job's stats: its workers' kernel launches and tasks run).
 
     ``params`` is a parameter tree to serve instead of drawing one from
     ``--seed`` (a tree carried across from the JAX package, or one a caller
-    already holds on the device); with ``--show-graph --backend process``
-    it raises ``ValueError``, since the workers draw theirs from
-    ``--seed``.
+    already holds on the device); with ``--show-graph`` and ``--backend
+    process`` or ``--gateway`` it raises ``ValueError``, since the workers
+    draw theirs from ``--seed``.
     """
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b", choices=ARCHS)
@@ -177,14 +187,17 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
                     help="trace one request (prefill + decode chain) into "
                          "a task DAG, print it, and execute on --backend")
     ap.add_argument("--gateway", default=None, metavar="HOST:PORT",
-                    help="submit the traced request to a resident gateway "
-                         "(not ported)")
+                    help="with --show-graph: submit the traced request "
+                         "DAG to a resident gateway as one tenant of its "
+                         "shared pool, instead of executing on --backend")
+    ap.add_argument("--gateway-token", default=None,
+                    help="gateway dial secret")
+    ap.add_argument("--tenant", default="serve",
+                    help="gateway tenant identity (quota/fair-share/"
+                         "accounting bucket)")
     add_backend_args(ap)
     args = ap.parse_args(argv)
     validate_backend_args(args)
-    if args.gateway is not None:
-        raise NotImplementedError("--gateway: the multi-tenant gateway is "
-                                  "not ported yet: ROADMAP §1 item 4")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -194,10 +207,11 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
                          "enc-dec serving is exercised in the dry-run cells")
     TF.check_supported(cfg)
     device = resolve_device(args.device)
-    if args.show_graph and args.backend == "process" and params is not None:
-        raise ValueError("--backend process: the workers draw their "
-                         "parameters from --seed, so a parameter tree passed "
-                         "in serves only on the thread backend")
+    remote = args.gateway is not None or args.backend == "process"
+    if args.show_graph and remote and params is not None:
+        raise ValueError("--backend process and --gateway: the workers draw "
+                         "their parameters from --seed, so a parameter tree "
+                         "passed in serves only on the thread backend")
 
     if params is None:
         params = TF.init_params(cfg, args.seed, device)
@@ -211,8 +225,13 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
         demo_prompt = tuple(
             synth_requests(1, cfg.vocab_size, max_new=3,
                            seed=args.seed)[0].prompt.tolist())
-        if args.backend == "process":
-            prefill_t, decode_t, respond_t = _recipe_tasks(
+        if remote:
+            # run as ``python -m`` this module is ``__main__``: trace
+            # against the canonically imported one, whose functions the
+            # workers can import
+            import importlib
+            canon = importlib.import_module("repro_torch.launch.serve")
+            prefill_t, decode_t, respond_t = canon._recipe_tasks(
                 (args.arch, args.reduced, args.max_len, args.seed,
                  str(device)))
         else:
@@ -229,7 +248,20 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
 
         g, _ = trace(req_driver)
         print(g.summary())
-        res, graph_stats = execute_traced(g, args)
+        if args.gateway is not None:
+            # tenant mode: the request DAG runs on a SHARED resident pool
+            # next to other tenants' jobs, bit-identical to local
+            from ..gateway import connect as gateway_connect
+            with gateway_connect(args.gateway, token=args.gateway_token,
+                                 tenant=args.tenant) as gc:
+                fut = gc.submit(g, label="serve-request")
+                res = fut.result()
+            graph_stats = fut.stats
+            print(f"[gateway {args.gateway}] executed {len(g.nodes)} "
+                  f"tasks as tenant {args.tenant} in "
+                  f"{fut.wall_time:.3f}s (stats {graph_stats})", flush=True)
+        else:
+            res, graph_stats = execute_traced(g, args)
         traced_tokens = res[g.outputs[0]]
         demo_prefills = sum(1 for n in g if n.name == "prefill")
         demo_forwards = demo_prefills + sum(1 for n in g

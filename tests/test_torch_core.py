@@ -189,17 +189,30 @@ def test_combine_ops_take_a_tensor_with_a_number_or_array(op, other, want):
 
 
 def test_unported_backends_raise_not_implemented():
-    """The process backend runs (bit for bit the sequential oracle); only
-    the gateway, ``connect=`` on the thread backend, is still unported."""
+    """Every backend is ported now: the process backend, and the gateway
+    (``connect=`` on the thread backend, ROADMAP §1 item 4), each give the
+    sequential oracle's values bit for bit; a cluster-only option on the
+    thread backend is still a named error."""
+    from repro_torch.gateway import GatewayService
+
+    def check(got, seq):
+        assert got.keys() == seq.keys()
+        for tid, want in seq.items():
+            assert (torch.equal(got[tid], want)
+                    if isinstance(want, torch.Tensor) else got[tid] == want)
+
     g, _ = pcore.trace(make_paper_main(pcore, torch.arange, []))
-    seq = pcore.execute_sequential(g)
-    got = pcore.run_graph(g, 2, backend="process",
-                          config=ClusterConfig(progress_timeout=15.0))
-    assert got.keys() == seq.keys()
-    for tid, want in seq.items():
-        assert (torch.equal(got[tid], want) if isinstance(want, torch.Tensor)
-                else got[tid] == want)
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        pcore.run_graph(g, 2, connect="localhost:1")
+    check(pcore.run_graph(g, 2, backend="process",
+                          config=ClusterConfig(progress_timeout=15.0)),
+          pcore.execute_sequential(g))
+    # the gateway's pool unpickles the graph: module-level task bodies
+    fig2, _ = pcore.trace(pt_matrix_driver, 2, 8, device="cpu")
+    with GatewayService(ClusterConfig(n_workers=2, token="t",
+                                      progress_timeout=15.0)) as gw:
+        got, report = pcore.run_graph(fig2, 2, connect=gw.address,
+                                      token="t", with_report=True)
+    check(got, pcore.execute_sequential(fig2))
+    assert report["backend"] == "gateway"
+    assert report["stats"]["tasks_run"] == {"gen": 4, "mul": 2, "reduce": 1}
     with pytest.raises(ValueError, match="process backend"):
         pcore.make_executor("thread", 2, transport="shm")

@@ -235,6 +235,38 @@ def test_process_backend_equals_sequential_on_the_card(cuda):
         assert rep["stats"]["recomputed"] == 0
 
 
+def test_gateway_runs_the_fig2_dag_on_the_card(cuda):
+    """A 2-worker spawned gateway runs a small Fig. 2 DAG on the card bit
+    for bit the sequential run; the job's workers report one matmul launch
+    (simt route, vector loads) per ``mul``, and this process makes none."""
+    from repro_torch.config import ClusterConfig
+    from repro_torch.core import trace
+    from repro_torch.gateway import GatewayService, connect
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.workloads import matrix_driver, run_matrix_dag
+    _, seq, _ = run_matrix_dag(4, 512, 1)
+    g, _ = trace(matrix_driver, 4, 512, device=cuda)
+    before = mm.matmul.launches
+    with GatewayService(ClusterConfig(n_workers=2, token="t", fuse="auto",
+                                      progress_timeout=120.0)) as gw:
+        assert gw.executor.start_method == "spawn"
+        with connect(gw.address, token="t", tenant="gpu") as c:
+            fut = c.submit(g)
+            got = fut.result(300)
+    assert mm.matmul.launches == before
+    assert fut.stats["tasks_run"]["mul"] == 4
+    assert fut.stats["kernel_launches"] == {
+        "matmul": 4, "matmul/simt": 4, "matmul/vector": 4}
+    assert got.keys() == seq.keys()
+    for tid, a in seq.items():
+        b = got[tid]
+        if isinstance(a, torch.Tensor):
+            assert b.is_cuda
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert a == b
+
+
 def test_cuda_tensors_cross_the_data_plane_on_their_device(cuda):
     from repro_torch.cluster import serde
     t = torch.randn(300, 257, device=cuda).to(torch.bfloat16)

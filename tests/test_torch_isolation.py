@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``repro_torch``, and neither
 ``chip_smoke.py`` nor ``kernel_ab.py``, imports JAX or the JAX package
-``repro``."""
+``repro`` (by an import statement or by ``importlib.import_module``), and
+neither a spawned cluster worker nor a gateway client that sends it a
+traced serve request loads them."""
 import os
 import re
 import subprocess
@@ -36,7 +38,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1) \
         if " " in proc.stdout.strip() else (proc.stdout.strip(), "")
-    assert int(count) >= 57          # every module of the slices was imported
+    assert int(count) >= 62          # every module of the slices was imported
     assert bad == "", f"port imports pulled in {bad}"
 
 
@@ -77,14 +79,14 @@ def test_a_spawned_cluster_worker_loads_no_jax_and_no_repro(tmp_path):
 
 
 _BAD_IMPORT = re.compile(
-    r"^\s*(?:import\s+(?:jax|repro)\b(?!_)|from\s+(?:jax|repro)\b(?!_))",
-    re.MULTILINE)
+    r"^\s*(?:import\s+(?:jax|repro)\b(?!_)|from\s+(?:jax|repro)\b(?!_))"
+    r"|import_module\(\s*[\"'](?:jax|repro)\b(?!_)", re.MULTILINE)
 
 
 def test_port_sources_name_no_jax_or_repro_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "kernel_ab.py"]
-    assert len(files) >= 58          # the 57 modules and chip_smoke.py
+    assert len(files) >= 63          # the 62 modules and chip_smoke.py
     offenders = {str(f.relative_to(ROOT)): _BAD_IMPORT.findall(f.read_text())
                  for f in files}
     assert {f: m for f, m in offenders.items() if m} == {}
@@ -93,8 +95,43 @@ def test_port_sources_name_no_jax_or_repro_import():
 def test_import_pattern_catches_what_it_should():
     for src in ("import jax", "import jax.numpy as jnp", "from jax import x",
                 "    from repro.core import task", "import repro",
-                "from repro import kernels"):
+                "from repro import kernels",
+                'importlib.import_module("repro.launch.serve")',
+                "import_module('jax')"):
         assert _BAD_IMPORT.search(src), src
     for src in ("import repro_torch", "from repro_torch.core import task",
-                "from .core import task", "# see repro.core.graph"):
+                "from .core import task", "# see repro.core.graph",
+                'importlib.import_module("repro_torch.launch.serve")'):
         assert not _BAD_IMPORT.search(src), src
+
+
+_GATEWAY_SERVE_SCRIPT = r"""
+import sys
+from repro_torch.config import ClusterConfig
+from repro_torch.gateway import GatewayService
+from repro_torch.launch import serve
+
+with GatewayService(ClusterConfig(n_workers=1, token="t",
+                                  progress_timeout=30.0)) as gw:
+    out = serve.main(["--arch", "falcon-mamba-7b", "--reduced", "--device",
+                      "cpu", "--requests", "1", "--slots", "1",
+                      "--max-new", "3", "--show-graph", "--gateway",
+                      gw.address, "--gateway-token", "t"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("TOKENS", out["traced_tokens"], "BAD", ",".join(bad))
+"""
+
+
+def test_a_gateway_serve_request_loads_no_jax_and_no_repro():
+    """``serve --gateway`` re-imports its recipe functions by module name
+    before it traces: a process that runs the gateway, the client and the
+    request loads neither JAX nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _GATEWAY_SERVE_SCRIPT],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    tokens, _, bad = proc.stdout.strip().splitlines()[-1].partition(" BAD")
+    assert tokens.startswith("TOKENS [") and bad.strip() == "", bad

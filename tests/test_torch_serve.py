@@ -128,9 +128,23 @@ def test_process_backend_refuses_a_parameter_tree_it_cannot_rebuild():
 
 
 def test_gateway_raises_naming_roadmap_item_4():
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        serve.main(["--arch", "falcon-mamba-7b", "--reduced", "--device",
-                    "cpu", "--gateway", "localhost:1"])
+    """The gateway is ported (ROADMAP §1 item 4 is done): ``--gateway``
+    sends the traced request to a resident pool, whose worker draws the
+    model from the seed, and gives a prefix of request 0's tokens."""
+    from repro_torch.config import ClusterConfig
+    from repro_torch.gateway import GatewayService
+    with GatewayService(ClusterConfig(n_workers=1, token="t",
+                                      progress_timeout=15.0)) as gw:
+        out = serve.main(["--arch", "falcon-mamba-7b", "--reduced",
+                          "--device", "cpu", "--requests", "2", "--slots",
+                          "1", "--max-new", "4", "--show-graph",
+                          "--gateway", gw.address, "--gateway-token", "t",
+                          "--tenant", "serve"])
+    req0 = min(out["finished"], key=lambda r: r.rid)
+    assert len(out["traced_tokens"]) == 3
+    assert out["traced_tokens"] == req0.out[:3]
+    assert out["graph_stats"]["tenant"] == "serve"
+    assert out["graph_stats"]["tasks_run"]["decode"] == 2
 
 
 def test_without_a_card_serving_raises_unless_the_cpu_is_named():
