@@ -67,34 +67,49 @@ Each phase prints one line; any failure raises and exits non-zero:
 7. long prefill — one 2048-token prompt through the prefill step and 8
    greedy decode steps, once with the scan kernel and once with its plain
    version on the same tokens: last-position logits within ``LOGIT_TOL``;
-8. flash_attention — the flash-attention kernel against its plain version
-   at qwen2-7b's long prefill (q 1x28x2048x128, k, v 1x4x2048x128,
-   causal), a served prefill (S = 12), a ragged shape (2x8x1000x64, 2 kv
-   heads), a cross-shaped one (Sq 300, Sk 777, not causal) and one with
-   D = 72, in float32 and bfloat16, with CUDA-event times of the kernel, the
-   plain version and ``scaled_dot_product_attention`` beside the card's
-   bound, and the route of each check;
+8. flash_attention — the flash-attention kernels against their plain
+   version at qwen2-7b's long prefill (q 1x28x2048x128, k, v 1x4x2048x128,
+   causal), a served prefill (S = 12), the reduced qwen2-7b prefill of
+   phase 9b's workers (q 1x4x12x32, 2 kv heads), a ragged shape
+   (2x8x1000x64, 2 kv heads), a cross-shaped one (Sq 300, Sk 777, not
+   causal) and one with D = 72: float32 (the simt route), bf16 (wgmma) and
+   bf16 through the simt route (q, k, v one element past a 16-byte
+   boundary), each launched twice (the same bits), with CUDA-event times of
+   the kernel, the plain version and ``scaled_dot_product_attention`` beside
+   the card's bound, and the route of each check;
 9. serve — falcon-mamba-7b's parameters freed, qwen2-7b at full width
    (28 layers, 7,615,616,512 float32 parameters drawn on the card from a
    seed) served by the same launcher and argv: 28 decode steps, the traced
    tokens a prefix of request 0's, 28 flash launches per prefill, all on
-   the wgmma route, and none per decode step;
-9b. phase 6b for qwen2-7b (the flash kernel in the workers' prefill);
+   the route that ``kernels/flash_attention.py::route`` gives the path's
+   compute dtype and head dim (wgmma in bf16), and none per decode step;
+9b. phase 6b for qwen2-7b (the flash kernel in the workers' prefill; the
+   reduced config computes in float32, so those launches are simt);
 9c. phase 6c for qwen2-7b (28 flash launches in the worker, all wgmma);
 10. long prefill — phase 7 for qwen2-7b, with the flash kernel and with its
    plain version: 28 launches in the kernel run, all on the wgmma route,
-   none in the plain one.
+   none in the plain one; then the same on the same parameters at
+   ``compute_dtype="float32"``, the full-width path of the simt route: 28
+   launches, all simt.  Each long-prefill line gives the prefill's seconds,
+   decode ms/step, peak device memory, and the path kernel's own device time
+   within the prefill (CUDA events around each launch).
 
 With ``--profile`` it also profiles one decode step and two prefills of
 each served model (device time by kernel, device busy share, and the
 device time of the port's own kernels).
 
-Then one JSON line of the kernels, and last
+Then one JSON line of the kernels (``flash_attention``, headed by its
+wgmma kernel, counts the wrapper's launches on both routes;
+``flash_attention_simt`` is the CUDA-core kernel and its launches), and
+last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a card, or outside a checkout, it prints no result and exits 1.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -104,6 +119,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -146,10 +162,12 @@ SCAN_SHAPES = [(1, 2048, 8192, 16, False), (1, 1, 8192, 16, True),
 # tests/test_kernels.py's ssm tolerances (rtol = atol)
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # (B, H, KH, Sq, Sk, D, causal): qwen2-7b's long prefill and a served
-# prefill, a ragged shape, a cross-shaped one and one whose D is a multiple
-# of 8 but not of 16
+# prefill, the reduced qwen2-7b's prefill (phase 9b's workers, float32), a
+# ragged shape, a cross-shaped one and one whose D is a multiple of 8 but
+# not of 16
 FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (1, 28, 4, 12, 12, 128, True),
+                (1, 4, 2, 12, 12, 32, True),
                 (2, 8, 2, 1000, 1000, 64, True),
                 (1, 8, 2, 300, 777, 128, False),
                 (1, 4, 2, 200, 333, 72, True)]
@@ -241,6 +259,40 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def timed_launches(torch, module, name: str):
+    """Within the block, every call that ``kernels/ops.py`` makes of the
+    kernel wrapper ``module.<name>`` is bracketed by CUDA events on the
+    current stream; yields the list of (start, end) pairs.  Only ops.py's
+    reference to the module is swapped: the wrapper itself, and the launch
+    counts it keeps on its own function object, are untouched."""
+    from repro_torch.kernels import ops
+    alias = next(a for a, val in vars(ops).items() if val is module)
+    inner = getattr(module, name)
+    events = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    setattr(ops, alias, types.SimpleNamespace(**{name: timed}))
+    try:
+        yield events
+    finally:
+        setattr(ops, alias, module)
+
+
+def events_ms(torch, events) -> float:
+    """Device milliseconds between each pair of events, summed."""
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events)
 
 
 def bound(M: int, N: int, K: int, dtype: str, itemsize: int):
@@ -795,6 +847,15 @@ def flash_bound(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary, which
+    the wgmma route cannot take: a bf16 call with it runs the simt kernel."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_flash_kernels(torch) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
@@ -804,24 +865,32 @@ def phase_flash_kernels(torch) -> list:
         q = torch.randn(B, H, Sq, D, generator=gen, device="cuda")
         k = torch.randn(B, KH, Sk, D, generator=gen, device="cuda")
         v = torch.randn(B, KH, Sk, D, generator=gen, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
+        # float32 (simt), bf16 (wgmma at these head dims) and bf16 through
+        # the simt kernel (misaligned copies)
+        for dtype, aligned in ((torch.float32, True), (torch.bfloat16, True),
+                               (torch.bfloat16, False)):
             dname = str(dtype).removeprefix("torch.")
             args = [t.to(dtype) for t in (q, k, v)]
-            path = fa.route(dtype, D)
+            if not aligned:
+                args = [_misaligned(torch, t) for t in args]
+            path = fa.route(dtype, D, aligned=aligned)
+            what = (f"flash_attention {dname} {(B, H, KH, Sq, Sk, D)} "
+                    f"causal={causal} ({path})")
             before = fa.flash_attention.route_launches[path]
             got = fa.flash_attention(*args, causal=causal)
             want = ref.attention(*args, causal=causal)
+            again = fa.flash_attention(*args, causal=causal)
             torch.cuda.synchronize()
-            if fa.flash_attention.route_launches[path] != before + 1:
-                fail(f"flash_attention {dname} {(B, H, KH, Sq, Sk, D)}: no "
-                     f"launch on the {path} route")
+            if fa.flash_attention.route_launches[path] != before + 2:
+                fail(f"{what}: no launch on the {path} route")
             tol = TOL[dname]
             err = (got.float() - want.float()).abs().max().item()
             if got.dtype != dtype or not torch.allclose(
                     got.float(), want.float(), rtol=tol, atol=tol):
-                fail(f"flash_attention {dname} {(B, H, KH, Sq, Sk, D)} "
-                     f"causal={causal} ({path}): kernel disagrees with the "
-                     f"plain version, max |err| {err}")
+                fail(f"{what}: kernel disagrees with the plain version, "
+                     f"max |err| {err}")
+            if not torch.equal(got.view(torch.uint8), again.view(torch.uint8)):
+                fail(f"{what}: two launches gave different bits")
 
             def library():
                 return F.scaled_dot_product_attention(
@@ -833,9 +902,9 @@ def phase_flash_kernels(torch) -> list:
                                      dtype.itemsize)
             checks.append({
                 "shape": [B, H, KH, Sq, Sk, D], "causal": causal,
-                "dtype": dname, "route": path, "max_abs_err": err,
-                "tol": tol,
-                "library_max_abs_err": lib_err,
+                "dtype": dname, "route": path, "aligned": aligned,
+                "max_abs_err": err, "tol": tol,
+                "same_bits": True, "library_max_abs_err": lib_err,
                 "ms": cuda_ms(torch, lambda: fa.flash_attention(
                     *args, causal=causal)),
                 "plain_ms": cuda_ms(torch, lambda: ref.attention(
@@ -844,11 +913,11 @@ def phase_flash_kernels(torch) -> list:
                 "bound_ms": b_ms, "bound_by": b_by})
             c = checks[-1]
             print(f"flash_attention {dname} {B}x{H}x{Sq}x{D} kv {KH}x{Sk} "
-                  f"causal={causal} ({path}): err {err:.3g} (tol {tol}) | kernel "
-                  f"{c['ms']:.4f} ms | plain {c['plain_ms']:.4f} ms | sdpa "
-                  f"{c['library_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by})",
-                  flush=True)
-            del args, got, want
+                  f"causal={causal} ({path}{', misaligned' if not aligned else ''}"
+                  f"): err {err:.3g} (tol {tol}) | kernel {c['ms']:.4f} ms | plain "
+                  f"{c['plain_ms']:.4f} ms | sdpa {c['library_ms']:.4f} ms | "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+            del args, got, want, again
     line("flash_attention_vs_plain", checks)
     return checks
 
@@ -907,20 +976,40 @@ def _reset(fn) -> None:
 PORT_KERNEL = re.compile(r"\b(matmul|matmul_wgmma|ssm_scan|flash_attention|"
                          r"flash_wgmma)_kernel\b")
 
-# the route that every launch of a path's kernel must take: qwen2-7b's bf16
-# attention at D = 128 runs on the tensor cores
-PATH_ROUTE = {"flash_attention": "wgmma"}
+def expected_route(cfg):
+    """The route every launch of a model path's kernel must take, or None
+    for a kernel of one route (the scan): for flash attention, what
+    ``kernels/flash_attention.py::route`` gives for the path's compute dtype
+    and head dim with aligned tensors (qwen2-7b: ``wgmma`` in bf16, ``simt``
+    in float32)."""
+    if _path_kernel(cfg) != "flash_attention":
+        return None
+    from repro_torch.kernels import flash_attention as fa
+    return fa.route(cfg.cdtype, cfg.head_dim)
 
 
-def _check_routes(fn, what: str) -> dict:
+def _check_routes(fn, cfg, what: str) -> dict:
     """A path kernel's launches by route; fails if one left its route."""
     routes = getattr(fn, "route_launches", None)
-    want = PATH_ROUTE.get(fn.__name__)
+    want = expected_route(cfg)
     if want and routes != {r: (fn.launches if r == want else 0)
                            for r in routes}:
         fail(f"{what}: {fn.__name__} launches by route {routes}, expected "
              f"all {fn.launches} on {want}")
     return routes
+
+
+def _launch_routes(fn, in_workers=None) -> collections.Counter:
+    """A path kernel's launches since its last ``_reset``, by route, plus
+    those in a workers' report (``kernel_launches``) when one is given; a
+    kernel of one route (the scan, on the CUDA cores) counts as ``simt``."""
+    name, routes = fn.__name__, getattr(fn, "route_launches", None)
+    counts = collections.Counter(routes if routes is not None
+                                 else {"simt": fn.launches})
+    if in_workers is not None:
+        for r in (routes or {"simt": 0}):
+            counts[r] += in_workers.get(f"{name}/{r}" if routes else name, 0)
+    return counts
 
 
 def _path_kernel(cfg) -> str:
@@ -939,7 +1028,7 @@ def phase_serve(torch, cfg, params) -> int:
         _reset(fn)
     out = serve.main(argv, params=params)
     launches = {name: fn.launches for name, fn in counters.items()}
-    routes = _check_routes(counters[kernel], f"{cfg.name} serve")
+    routes = _check_routes(counters[kernel], cfg, f"{cfg.name} serve")
     finished = sorted(out["finished"], key=lambda r: r.rid)
     if len(finished) != 4 or out["decode_steps"] != SERVE_DECODE_STEPS:
         fail(f"served {len(finished)} requests in {out['decode_steps']} "
@@ -969,7 +1058,7 @@ def phase_serve(torch, cfg, params) -> int:
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "traced_tokens": out["traced_tokens"],
         "tokens": {r.rid: r.out for r in finished}})
-    return launches[kernel], out["traced_tokens"]
+    return _launch_routes(counters[kernel]), out["traced_tokens"]
 
 
 def phase_serve_process(torch, arch: str, reduced: bool) -> int:
@@ -1029,8 +1118,8 @@ def phase_serve_process(torch, arch: str, reduced: bool) -> int:
     if {k: v for k, v in in_workers.items() if "/" not in k} != {kernel: n}:
         fail(f"{what}: the workers launched {in_workers}, expected {n} "
              f"{kernel} launches")
-    route = PATH_ROUTE.get(kernel)
-    if route and not reduced and in_workers.get(f"{kernel}/{route}") != n:
+    route = expected_route(cfg)
+    if route and in_workers.get(f"{kernel}/{route}") != n:
         fail(f"{what}: the workers' {kernel} launches by route "
              f"{in_workers}, expected all {n} on {route}")
     line("serve_process", {
@@ -1044,7 +1133,7 @@ def phase_serve_process(torch, arch: str, reduced: bool) -> int:
         "traced_tokens": traced,
         "tokens": {r.rid: r.out for r in finished}})
     del out
-    return launches[kernel] + in_workers[kernel]
+    return _launch_routes(counters[kernel], in_workers)
 
 
 def phase_serve_gateway(torch, arch: str, thread_tokens: list) -> int:
@@ -1111,7 +1200,7 @@ def phase_serve_gateway(torch, arch: str, thread_tokens: list) -> int:
     if {k: v for k, v in in_workers.items() if "/" not in k} != {kernel: n}:
         fail(f"{what}: the worker launched {in_workers}, expected {n} "
              f"{kernel} launches")
-    route = PATH_ROUTE.get(kernel)
+    route = expected_route(cfg)
     if route and in_workers.get(f"{kernel}/{route}") != n:
         fail(f"{what}: the worker's {kernel} launches by route "
              f"{in_workers}, expected all {n} on {route}")
@@ -1129,27 +1218,36 @@ def phase_serve_gateway(torch, arch: str, thread_tokens: list) -> int:
         "driver_peak_device_bytes": peak, "traced_tokens": traced,
         "tokens": {r.rid: r.out for r in finished}})
     del out
-    return launches[kernel] + in_workers[kernel]
+    return _launch_routes(counters[kernel], in_workers)
 
 
 def phase_long_prefill(torch, cfg, params) -> dict:
+    """One LONG_PROMPT prefill and LONG_DECODE greedy steps in ``cfg``'s
+    compute dtype, with the path kernel and with its plain version; the
+    kernel run's prefill also times the kernel's own launches (CUDA events
+    around each)."""
     from repro_torch.models import transformer as TF
     counter = _counters()[_path_kernel(cfg)]
+    module = sys.modules[counter.__module__]
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(1, cfg.vocab_size, (1, LONG_PROMPT),
                            generator=gen, device="cuda", dtype=torch.int32)
 
     def run(impl, feed=None):
         """Prefill, then LONG_DECODE greedy steps fed the run's own tokens
-        or ``feed``'s; returns tokens, last-position logits, seconds."""
+        or ``feed``'s; returns tokens, last-position logits, seconds, and
+        the path kernel's device ms within the prefill."""
         prefill = TF.make_prefill_step(cfg, LONG_MAX_LEN, impl=impl)
         decode = TF.make_decode_step(cfg, impl=impl)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        last, cache = prefill(params, prompt)
-        logits = [last[0].clone()]
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
+        with (timed_launches(torch, module, counter.__name__)
+              if impl == "kernel" else contextlib.nullcontext([])) as events:
+            t0 = time.perf_counter()
+            last, cache = prefill(params, prompt)
+            logits = [last[0].clone()]
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        kernel_ms = events_ms(torch, events)
         for i in range(LONG_DECODE):
             tok = feed[i] if feed else int(torch.argmax(logits[-1]))
             step, cache = decode(params, cache, torch.tensor(
@@ -1159,15 +1257,16 @@ def phase_long_prefill(torch, cfg, params) -> dict:
         decode_s = time.perf_counter() - t0 - prefill_s
         logits = torch.stack(logits)
         toks = [int(t) for t in torch.argmax(logits, dim=-1)]
-        return toks, logits, prefill_s, decode_s
+        return toks, logits, prefill_s, decode_s, kernel_ms
 
     torch.cuda.reset_peak_memory_stats()
     _reset(counter)
-    toks_k, logits_k, pre_k, dec_k = run("kernel")
+    toks_k, logits_k, pre_k, dec_k, kernel_ms = run("kernel")
     launches_k = counter.launches
-    routes = _check_routes(counter, f"{cfg.name} long prefill")
+    routes = _check_routes(counter, cfg,
+                           f"{cfg.name} {cfg.compute_dtype} long prefill")
     peak = torch.cuda.max_memory_allocated()
-    toks_r, logits_r, pre_r, dec_r = run("ref", feed=toks_k)
+    toks_r, logits_r, pre_r, dec_r, _ = run("ref", feed=toks_k)
     # the scan runs in every forward, flash attention in the prefill
     want = cfg.n_layers * (1 + LONG_DECODE if counter.__name__ == "ssm_scan"
                            else 1)
@@ -1187,8 +1286,8 @@ def phase_long_prefill(torch, cfg, params) -> dict:
             fail(f"long prefill: greedy token {j} differs ({a} vs {b}) and "
                  f"the plain run's top two logits are "
                  f"{(top2[0] - top2[1]).item()} apart")
-    out = {"arch": cfg.name, "prompt_tokens": LONG_PROMPT,
-           "decode_steps": LONG_DECODE,
+    out = {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+           "prompt_tokens": LONG_PROMPT, "decode_steps": LONG_DECODE,
            "max_abs_logit_diff": diff, "tol": LOGIT_TOL,
            "logit_std": logits_r.std().item(),
            "logit_max_abs": logits_r.abs().max().item(),
@@ -1197,8 +1296,12 @@ def phase_long_prefill(torch, cfg, params) -> dict:
            dec_k / LONG_DECODE * 1e3, "prefill_s_plain": pre_r,
            "decode_ms_per_step_plain": dec_r / LONG_DECODE * 1e3,
            f"{counter.__name__}_launches": launches_k,
-           "launches_by_route": routes, "peak_device_bytes": peak}
+           "launches_by_route": routes,
+           f"{counter.__name__}_prefill_ms": kernel_ms,
+           f"{counter.__name__}_prefill_share": kernel_ms / 1e3 / pre_k,
+           "peak_device_bytes": peak}
     line("long_prefill", out)
+    out["routes"] = _launch_routes(counter)
     return out
 
 
@@ -1251,14 +1354,21 @@ def phase_profile(torch, cfg, params) -> None:
 
 
 def phase_model(torch, arch: str, n_params: int, profile: bool):
-    """Draw ``arch`` on the card, serve it, run the long prefill (and, with
-    ``profile``, profile it), free its parameters, then serve it on the
-    process backend, reduced and at full width, and through a gateway;
-    returns the path kernel's launches in each of those runs."""
+    """Draw ``arch`` on the card, serve it, run the long prefill (for the
+    dense model in its bf16 compute and again in float32 on the same
+    parameters; with ``profile``, profile it), free its parameters, then
+    serve it on the process backend, reduced and at full width, and through
+    a gateway; returns the path kernel's launches in all of those runs, by
+    route."""
     import gc
     cfg, params = phase_params(torch, arch, n_params)
     launches, thread_tokens = phase_serve(torch, cfg, params)
-    long = phase_long_prefill(torch, cfg, params)
+    launches += phase_long_prefill(torch, cfg, params)["routes"]
+    if _path_kernel(cfg) == "flash_attention":
+        # the float32 route at full width: the same parameters computed in
+        # float32 (they are float32 already, so nothing is copied)
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        launches += phase_long_prefill(torch, f32, params)["routes"]
     if profile:
         phase_profile(torch, cfg, params)
     del params
@@ -1266,14 +1376,14 @@ def phase_model(torch, arch: str, n_params: int, profile: bool):
     torch.cuda.empty_cache()
     line("freed", {"arch": arch,
                    "allocated_bytes": torch.cuda.memory_allocated()})
-    process = [phase_serve_process(torch, arch, reduced)
-               for reduced in (True, False)]
+    for reduced in (True, False):
+        launches += phase_serve_process(torch, arch, reduced)
     gc.collect()
     torch.cuda.empty_cache()
-    gateway = phase_serve_gateway(torch, arch, thread_tokens)
+    launches += phase_serve_gateway(torch, arch, thread_tokens)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, long[f"{_path_kernel(cfg)}_launches"], *process, gateway
+    return launches
 
 
 def main() -> int:
@@ -1302,18 +1412,15 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     # the two parameter sets (29 GB and 30.5 GB) are on the card one at a
     # time
-    scan_launches = sum(phase_model(torch, ARCH, N_PARAMS, profile))
+    scan_launches = phase_model(torch, ARCH, N_PARAMS, profile)
     flash_checks = phase_flash_kernels(torch)
-    flash_launches = sum(phase_model(torch, DENSE_ARCH, DENSE_N_PARAMS,
-                                     profile))
+    flash_launches = phase_model(torch, DENSE_ARCH, DENSE_N_PARAMS, profile)
 
-    def entry(kernel, replaces, n, check, all_checks):
-        # the headline check's source: the tensor-core kernel for its wgmma
-        # route, the CUDA-core one otherwise
-        stem = kernel + ("_wgmma" if check.get("route") == "wgmma" else "")
+    def entry(kernel, source, replaces, launches, routes, check, all_checks):
         return {"name": kernel, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{stem}.cu",
-                "replaces": replaces, "launches": n,
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "launches_by_route": dict(routes),
                 "kernel_route": check.get("route", "simt"),
                 **({"kernel_variant": check["variant"]}
                    if "variant" in check else {}),
@@ -1328,17 +1435,30 @@ def main() -> int:
     # the Mamba1 path's most launched shape: one decode step from the cache
     decode_check = next(c for c in scan_checks
                         if c["dtype"] == "float32" and c["shape"][1] == 1)
-    # the dense path's longest launch: the long prefill in its compute type
-    long_check = next(c for c in flash_checks
-                      if c["dtype"] == "bfloat16"
-                      and c["shape"][3] == LONG_PROMPT)
-    print(json.dumps({"kernels": [
-        entry("matmul", "src/repro/kernels/matmul_pallas.py:45", launches,
-              main_check, checks),
-        entry("ssm_scan", "src/repro/kernels/ssm_scan.py:48", scan_launches,
-              decode_check, scan_checks),
-        entry("flash_attention", "src/repro/kernels/flash_attention.py:76",
-              flash_launches, long_check, flash_checks)]}), flush=True)
+    # the dense path's longest launches: the long prefill in bf16 (tensor
+    # cores) and in float32 (CUDA cores)
+    long_checks = {c["route"]: c for c in flash_checks
+                   if c["shape"][3] == LONG_PROMPT and c["aligned"]}
+    # flash_attention: the wrapper's launches on both routes, headed by the
+    # tensor-core kernel of the bf16 long prefill, as in earlier runs;
+    # flash_attention_simt: the CUDA-core kernel and its own launches
+    flash = "src/repro/kernels/flash_attention.py:76"
+    kernels = [
+        entry("matmul", "matmul.cu", "src/repro/kernels/matmul_pallas.py:45",
+              launches, {"simt": launches}, main_check, checks),
+        entry("ssm_scan", "ssm_scan.cu", "src/repro/kernels/ssm_scan.py:48",
+              scan_launches["simt"], scan_launches, decode_check,
+              scan_checks),
+        entry("flash_attention", "flash_attention_wgmma.cu", flash,
+              sum(flash_launches.values()), flash_launches,
+              long_checks["wgmma"], flash_checks),
+        entry("flash_attention_simt", "flash_attention.cu", flash,
+              flash_launches["simt"], {"simt": flash_launches["simt"]},
+              long_checks["simt"], flash_checks)]
+    if not all(k["launches"] for k in kernels):
+        fail(f"a kernel of the main path never launched: "
+             f"{[(k['name'], k['launches']) for k in kernels]}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

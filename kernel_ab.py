@@ -3,7 +3,7 @@
 of two or more checkouts on one card, in turns, and compare their outputs bit
 for bit.
 
-    python3 kernel_ab.py parent=build/ab/parent change=. [--prefill]
+    python3 kernel_ab.py parent=build/ab/parent change=. [--prefill [mamba] [dense]]
 
 Each ``NAME=DIR`` names the root of a checkout (its ``src/repro_torch``
 builds its own kernels under ``DIR/build``).  The checkouts run in the order
@@ -16,9 +16,15 @@ run, on the same seeded inputs:
   and 1000x1528x776 float32, 1000x1531x777 bf16;
 - ssm_scan: ``chip_smoke.SCAN_SHAPES`` in float32 and bf16, with the model's
   dt and A;
-- flash_attention: bf16 at qwen2-7b's long prefill (``FLASH_SHAPES[0]``);
-- with ``--prefill``: falcon-mamba-7b at full width (parameters drawn on the
-  card from seed 0) and its 2048-token prefill, three times.
+- flash_attention: every ``chip_smoke.FLASH_SHAPES`` row in float32 (the
+  simt route) and in bf16 through the simt route (q, k, v one element past
+  a 16-byte boundary), and qwen2-7b's long prefill in bf16 on the wgmma
+  route;
+- with ``--prefill``: 2048-token prefills at full width (parameters drawn on
+  the card from seed 0), three times each: ``mamba`` (falcon-mamba-7b, what
+  a bare ``--prefill`` runs) and ``dense`` (qwen2-7b at compute_dtype
+  float32, with the flash kernel's own device time from CUDA events around
+  its 28 launches).
 
 Kernel times are CUDA-event means over ``chip_smoke.REPS`` launches after a
 warm-up; each output's largest error against the plain version
@@ -38,6 +44,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# --prefill NAME -> (arch, compute dtype or None for the config's own)
+PREFILLS = {"mamba": ("falcon-mamba-7b", None), "dense": ("qwen2-7b", "float32")}
 MATMUL_SHAPES = [(4096, 4096, 4096, "float32"), (1000, 1531, 777, "float32"),
                  (1000, 1528, 776, "float32"), (1000, 1531, 777, "bfloat16")]
 
@@ -46,7 +54,7 @@ import hashlib, json, sys, time
 import torch
 root, smoke_dir, matmul_shapes, prefill = (sys.argv[1], sys.argv[2],
                                            json.loads(sys.argv[3]),
-                                           sys.argv[4] == "1")
+                                           json.loads(sys.argv[4]))
 sys.path.insert(0, root + "/src")
 sys.path.insert(0, smoke_dir)
 import chip_smoke as cs
@@ -107,25 +115,43 @@ for Bsz, S, D, N, with_h0 in cs.SCAN_SHAPES:
                 *args, return_state=True)),
             "sha256_y": digest(y), "sha256_h": digest(h)})
 
-# the bf16 flash-attention kernel at qwen2-7b's long prefill, a check that
-# the other kernels did not move
+# flash attention at every chip_smoke.FLASH_SHAPES row: float32 (the simt
+# route), bf16 through the simt route (q, k, v one element past a 16-byte
+# boundary, which the wgmma route cannot take) and, at the long prefill,
+# bf16 on the wgmma route (a check that it did not move)
 from repro_torch.kernels import flash_attention as fa
-B, H, KH, Sq, Sk, Dh, causal = cs.FLASH_SHAPES[0]
-q = torch.randn(B, H, Sq, Dh, generator=gen, device=dev).bfloat16()
-k = torch.randn(B, KH, Sk, Dh, generator=gen, device=dev).bfloat16()
-v = torch.randn(B, KH, Sk, Dh, generator=gen, device=dev).bfloat16()
-o = fa.flash_attention(q, k, v, causal=causal)
-out["flash_attention"] = [{
-    "shape": [B, H, KH, Sq, Sk, Dh], "dtype": "bfloat16",
-    "ms": cs.cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
-                                                       causal=causal)),
-    "sha256": digest(o)}]
 
-if prefill:
-    from repro_torch.configs import get_config
+out["flash_attention"] = []
+for B, H, KH, Sq, Sk, Dh, causal in cs.FLASH_SHAPES:
+    q = torch.randn(B, H, Sq, Dh, generator=gen, device=dev)
+    k = torch.randn(B, KH, Sk, Dh, generator=gen, device=dev)
+    v = torch.randn(B, KH, Sk, Dh, generator=gen, device=dev)
+    cases = [("float32", "simt", (q, k, v)),
+             ("bfloat16", "simt", tuple(cs._misaligned(torch, t.bfloat16())
+                                        for t in (q, k, v)))]
+    if Sq == cs.LONG_PROMPT:
+        cases.append(("bfloat16", "wgmma",
+                      tuple(t.bfloat16() for t in (q, k, v))))
+    for dname, path, args in cases:
+        before = fa.flash_attention.route_launches[path]
+        o = fa.flash_attention(*args, causal=causal)
+        want = ref.attention(*args, causal=causal)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.route_launches[path] == before + 1, path
+        out["flash_attention"].append({
+            "shape": [B, H, KH, Sq, Sk, Dh], "causal": causal,
+            "dtype": dname, "route": path,
+            "max_abs_err": (o.float() - want.float()).abs().max().item(),
+            "ms": cs.cuda_ms(torch, lambda: fa.flash_attention(
+                *args, causal=causal)),
+            "sha256": digest(o)})
+        del o, want
+
+def time_prefill(cfg, params):
+    """Three 2048-token prefills: host seconds each (ending in a
+    synchronize), the logits' digest, and the flash kernel's own device ms
+    in the last (CUDA events around each of its launches)."""
     from repro_torch.models import transformer as TF
-    cfg = get_config(cs.ARCH)
-    params = TF.init_params(cfg, 0, "cuda")
     prompt = torch.randint(1, cfg.vocab_size, (1, cs.LONG_PROMPT),
                            generator=torch.Generator(device="cuda").manual_seed(1),
                            device="cuda", dtype=torch.int32)
@@ -137,8 +163,29 @@ if prefill:
         last, _ = step(params, prompt)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    out["prefill"] = {"arch": cfg.name, "prompt_tokens": cs.LONG_PROMPT,
-                      "seconds": secs, "sha256_logits": digest(last)}
+    res = {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+           "prompt_tokens": cs.LONG_PROMPT, "seconds": secs,
+           "sha256_logits": digest(last)}
+    if cs._path_kernel(cfg) == "flash_attention":
+        with cs.timed_launches(torch, fa, "flash_attention") as events:
+            step(params, prompt)
+        res["flash_ms"] = cs.events_ms(torch, events)
+        res["flash_launches"] = len(events)
+    return res
+
+if prefill:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    out["prefill"] = []
+    for arch, dtype in prefill:
+        cfg = get_config(arch)
+        if dtype:
+            cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        params = TF.init_params(cfg, 0, "cuda")
+        out["prefill"].append(time_prefill(cfg, params))
+        del params
+        torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out))
 '''
 
@@ -148,8 +195,11 @@ def main() -> int:
     ap.add_argument("trees", nargs="+", metavar="NAME=DIR")
     ap.add_argument("--order", help="comma-separated names (default: "
                     "first, second, second, first)")
-    ap.add_argument("--prefill", action="store_true",
-                    help="also time falcon-mamba-7b's 2048-token prefill")
+    ap.add_argument("--prefill", nargs="*", choices=sorted(PREFILLS),
+                    help="also time 2048-token prefills at full width: "
+                    "`mamba` (falcon-mamba-7b, the default) and `dense` "
+                    "(qwen2-7b at compute_dtype float32: the simt flash "
+                    "route, with the flash kernel's own time)")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds for each run")
     ap.add_argument("--out", type=Path,
@@ -170,13 +220,15 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     shapes = json.dumps([list(s) for s in MATMUL_SHAPES])
+    prefills = ([] if args.prefill is None else
+                [PREFILLS[p] for p in (args.prefill or ["mamba"])])
     runs = []
     for name in order:
         root = str((ROOT / trees[name]).resolve())
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-c", CHILD, root, str(ROOT), shapes,
-             "1" if args.prefill else "0"],
+             json.dumps(prefills)],
             capture_output=True, text=True, timeout=args.timeout)
         result = next((json.loads(ln[7:]) for ln in proc.stdout.splitlines()
                        if ln.startswith("RESULT ")), None)
@@ -192,7 +244,8 @@ def main() -> int:
         """Per case: each run's time, and whether all runs' bits agree."""
         out = []
         for i, case in enumerate(runs[0][key]):
-            row = {k: case[k] for k in ("shape", "dtype", "h0") if k in case}
+            row = {k: case[k] for k in ("shape", "dtype", "h0", "causal", "route")
+                   if k in case}
             for k in case:
                 if k == "ms" or k.startswith("max_"):
                     row[k] = {}
@@ -207,13 +260,17 @@ def main() -> int:
     summary = {"nvidia_smi": smi, "order": order,
                "matmul": rows("matmul"), "ssm_scan": rows("ssm_scan"),
                "flash_attention": rows("flash_attention")}
-    if args.prefill:
-        summary["prefill_s"] = {}
+    for i, (arch, dtype) in enumerate(prefills):
+        entry = {"arch": arch, "compute_dtype": dtype, "seconds": {},
+                 "flash_ms": {}, "logits_bits_equal": len(
+                     {r["prefill"][i]["sha256_logits"] for r in runs}) == 1}
         for r in runs:
-            summary["prefill_s"].setdefault(r["name"], []).append(
-                r["prefill"]["seconds"])
-        summary["prefill_logits_bits_equal"] = len(
-            {r["prefill"]["sha256_logits"] for r in runs}) == 1
+            got = r["prefill"][i]
+            entry["seconds"].setdefault(r["name"], []).append(got["seconds"])
+            if "flash_ms" in got:
+                entry["flash_ms"].setdefault(r["name"], []).append(
+                    got["flash_ms"])
+        summary.setdefault("prefill", []).append(entry)
     print("summary: " + json.dumps(summary), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"summary": summary, "runs": runs},

@@ -1,5 +1,8 @@
-// Flash attention (forward) for Hopper (sm_90a): the attention of every
-// layer of every prefill on the port's dense LM path.
+// Flash attention (forward) for Hopper (sm_90a) on the CUDA cores: the
+// float32 route of the port's flash attention (qwen2-7b's prefill at
+// compute_dtype float32), and bf16 calls that the tensor-core kernel
+// (flash_attention_wgmma.cu) cannot take (D % 8 != 0, or q, k, v not on
+// 16-byte boundaries).
 //
 // Replaces the TPU kernel `flash_attention` of
 // src/repro/kernels/flash_attention.py (pallas_call at :94, body
@@ -15,94 +18,218 @@
 //
 // Translation.  The TPU kernel walks the kv tiles on a sequential grid axis
 // and keeps m, l and acc in VMEM scratch between grid steps.  GPU blocks run
-// in no order, so one block owns one (query tile, head, batch) and loops
-// over the kv tiles itself; m, l and acc stay in the block's registers for
-// the whole loop and nothing crosses blocks (no atomics, no split-K).
-// 256 threads form a 16 x 16 grid: thread (ty, tx) owns query rows
-// 4ty..4ty+3 of the 64-row tile, score columns 4tx..4tx+3 of each 64-key
-// tile, and output columns 4tx..4tx+3 (and 64+4tx.. when D > 64).  The 16
-// threads of one ty are one half-warp, so a row's max and sum over a tile
-// are __shfl_xor_sync butterflies over 16 lanes, which leave the same bits
-// in every lane.  Q (transposed), K (transposed) and V tiles and the tile's
-// probabilities (transposed) are staged in shared memory as float32, so
-// each step of both products is two or three 16-byte loads and 16 or 32
-// FMAs.  At D = 128 that is 119,808 B of dynamic shared memory, above the
-// 48 KB default, so the launch raises the kernel's limit first.  Key tiles
-// wholly above the diagonal are skipped, as the TPU kernel's `pl.when`
-// skips them, and the heaviest query tiles are launched first.
+// in no order, so one block owns one (64-row query tile, head, batch) and
+// loops over 32-key tiles itself, m, l and acc in registers throughout; the
+// heaviest causal query tiles launch first.  One launch a call, no atomics,
+// so two launches give the same bits.  The keys are not split across blocks:
+// every path of the port fills the card (qwen2-7b's long prefill has 896
+// blocks) or has a single key tile (the served 4-12 token prompts), so a
+// split would serve no traffic.
+//
+// What bounds it.  qwen2-7b's long prefill, q (1,28,2048,128), k, v
+// (1,4,2048,128) causal: 2,098,176 visible (i, j) pairs per head, 4 * 128
+// operations each for the two products, 30.1 GFLOP a launch: 0.449 ms at
+// the H100 SXM's published 67 TFLOP/s of float32 on the CUDA cores.  Its
+// bytes, q, k, v read once and the output written once, 67.1 MB in
+// float32, take 0.020 ms at 3.35 TB/s.  So it is bound by operations, and
+// the design keeps the FMA pipe issuing:
+//   - Occupancy.  128 threads (4 warps) a block; warp w owns query rows
+//     16w..16w+15 of the tile, so a row's statistics never leave its warp.
+//     Shared memory at D <= 128 (DP = 128): Q 64 x 132 floats (33,792 B),
+//     a ring of 2 stages of K and V, 32 x 132 floats each (67,584 B), and
+//     each warp's probabilities, 32 keys x 16 rows (8,192 B): 109,568 B, so
+//     two blocks fit an SM's 228 KB (the first version: 119,808 B, one
+//     block of 8 warps).  At D <= 64 (DP = 64) it is 60,416 B, three
+//     blocks.  Each instantiation asks once per device for the largest
+//     shared-memory carveout (prepare()); a static_assert on Layout holds
+//     two blocks' shared memory, with the 1 KB the card reserves for each,
+//     under the SM's 228 KB, and __launch_bounds__(128, 2) holds the
+//     registers to what two blocks may take.
+//   - Copies.  K and V tiles arrive by cp.async into the ring: the copies
+//     of tile t + 1 are issued right after tile t has landed and are in
+//     flight while tile t is multiplied, with one __syncthreads() a tile.
+//     float32 rows with D % 4 == 0 and 16-byte aligned q, k, v move as
+//     16-byte copies (the `vector` loads), any other float32 as 4-byte
+//     copies, a warp's 32 copies on 32 consecutive elements of one row;
+//     bf16 (2 bytes, under cp.async's smallest copy) is read into registers
+//     before tile t is multiplied and widened into the ring after it.  Tile
+//     rows keep their global layout at a pitch of DP + 4 floats, and the
+//     copy map is shifts and masks of compile-time powers of two (no
+//     division by D).  Columns past D and keys past Sk are zero-filled.
+//     Q arrives once, as 4-byte copies that rotate each 4-float chunk to
+//     (d+1, d+2, d+3, d): a 16-byte read puts q[d] in the 4th register of
+//     a quad and k[d] in the 1st, so the two factors of each FMA sit in
+//     registers of opposite parity (register banks).
+//   - Micro-tiles.  In S = Q K^T a lane owns 4 rows (rg + 4i, rg = lane & 3)
+//     x 4 keys (kg + 8j, kg = lane >> 2) and steps through D four at a
+//     time: 4 16-byte reads of Q, 4 of K, 64 FMAs.  In O += P V it owns the
+//     same 4 rows x DP / 8 columns (4 kg + 32 jj + {0..3}): per key one
+//     16-byte read of P (stored per warp as [key][4 rg + i]) and DP / 32 of
+//     V, 4 DP / 2 FMAs (the first version: 16 FMAs for 2 reads, 32 for 3).
+//     At the pitch of DP + 4 floats every warp-wide read touches at most 8
+//     distinct 16-byte words in distinct banks, so each is one wavefront.
+//     Both loops run to compile-time bounds (BK, DP), unrolled 8 chunks
+//     (S) and 16 keys (P V) deep.
+//   - Masking only where needed.  A tile is masked for a warp only if it
+//     crosses the diagonal of the warp's 16 rows or reaches past Sk; a warp
+//     skips a tile wholly above its rows (its probabilities would all be
+//     0, which leaves m, l and acc bit for bit as they are), and the block
+//     stops at the last key its rows can see.
+//   - exp2f (no fast math) with log2(e) folded into the scale.  A row's max
+//     over a tile is a 3-step __shfl_xor_sync butterfly over the 8 lanes
+//     that share its rows; each lane keeps its own share of l, summed once
+//     at the end in a fixed order.
+// Build (nvcc 12, -O3, sm_90a, `-Xptxas -v` as chip_smoke.py's build line
+// prints it): registers of float32 vector / scalar / bf16 at DP = 128:
+// 203 / 255 / 255; at DP = 64: 157 / 211 / 195; no spills.
+// With two blocks of 128 threads an SM the register file allows 256 each.
+//
+// What the design does not reach (PERF.md §6): the 0.898 ms that is
+// half the bound at the long shape.  Builds of this kernel with the
+// shared-memory reads and the softmax taken out (diagnostics whose output
+// is wrong, not kept) were not much faster, so the FMA issue rate itself
+// bounds it; in its SASS many FFMAs read two operands from one register
+// bank (register number mod 2).  Designs that were slower:
+// 8 x 4 score and 8 x 8 output micro-tiles over 64-key tiles (two warps a
+// row half exchanging row maxima, single K and V slots to fit two blocks),
+// and this design with single K and V slots at three blocks an SM: both
+// give up the 2-stage ring's overlap.
 //
 // Masking.  A masked key (causal, or past Sk in a ragged tile) takes part
-// in neither the max nor the sum: its probability is set to exactly 0
-// (masking with -1e30 would give exp(0) = 1 while m is still -1e30).  A row
-// with no visible key (Sk = 0) has l = 0 and is written as 0, as the TPU
-// kernel's `l == 0 -> 1` gives.  Rows past Sq are not written.  Every
-// output element is summed in one fixed order, so two launches give the
-// same bits.  expf runs without fast math.
-//
-// Bound (published H100 SXM peaks).  qwen2-7b's long prefill, q
-// (1,28,2048,128), k, v (1,4,2048,128) causal: 2,098,176 visible (i, j)
-// pairs per head, 4 * 128 operations each for the two products, about
-// 30.1 GFLOP per launch: 0.030 ms at bf16's 989 TFLOP/s, 0.45 ms at the
-// CUDA cores' 67 TFLOP/s float32.  Its bytes, q, k, v read once and the
-// output written once, are 33.6 MB in bf16: 0.010 ms at 3.35 TB/s.  So it
-// is bound by operations.  This kernel is meant to be right first: it
-// multiplies on the CUDA cores in float32, with one block of 8 warps per
-// SM (its shared memory) and no overlap of a tile's loads with the previous
-// tile's products.  Tensor cores (wgmma on bf16 tiles), TMA loads into a
-// ring of stages and warp specialisation are left for a later change.
+// in neither the max nor the sum: its score is set to -inf, so its
+// probability is exactly 0, and a row that has seen no visible key yet
+// keeps m = -inf and rescales nothing (m_use below).  A row with no visible
+// key (Sk = 0) has l = 0 and is written as 0, as the TPU kernel's
+// `l == 0 -> 1` gives.  Rows past Sq are not written.  Every output
+// element is summed in one fixed order, so two launches give the same bits.
+// float32 stays IEEE float32 FMA on the CUDA cores, never TF32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "simt.cuh"
 
+#include <atomic>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;         // query rows of one block
-constexpr int BK = 64;         // keys of one tile
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int LDT = BQ + 4;    // row stride of the transposed tiles (floats)
+using simt::cp_async16;
+using simt::cp_async4;
+using simt::cp_async_commit;
+using simt::cp_async_wait;
+using simt::from_f32;
+using simt::to_f32;
+
+constexpr int BQ = 64;          // query rows of one block
+constexpr int BK = 32;          // keys of one tile
+constexpr int WARPS = 4;        // 16 query rows each
+constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_D = 128;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// how a tile moves from global to shared memory
+enum class Load { kVector, kScalar, kRegs };
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+// Shared-memory layout for head dims up to DP (64 or 128).
+template <int DP_>
+struct Layout {
+  static constexpr int DP = DP_;
+  static constexpr int PITCH = DP + 4;            // floats a tile row
+  static constexpr int Q_FLOATS = BQ * PITCH;
+  static constexpr int KV_FLOATS = BK * PITCH;    // one K or V tile
+  static constexpr int STAGE_FLOATS = 2 * KV_FLOATS;
+  static constexpr int P_FLOATS = BK * 16;        // one warp's [key][row]
+  static constexpr int SMEM_BYTES =
+      4 * (Q_FLOATS + 2 * STAGE_FLOATS + WARPS * P_FLOATS);
+  static constexpr int NJ = DP / 32;              // output column groups
+  static_assert(DP == 64 || DP == 128, "the maps below are written for these");
+  static_assert((PITCH * 4) % 16 == 0, "16-byte rows");
+  static_assert(2 * (SMEM_BYTES + 1024) <= 228 * 1024,
+                "two blocks an SM at every head dim");
+};
 
-// Bytes of dynamic shared memory for head dim D with NJ column groups.
-__host__ __device__ constexpr size_t smem_bytes(int D, int NJ) {
-  return sizeof(float) *
-         (static_cast<size_t>(2 * D * LDT) + BK * 64 * NJ + BK * LDT);
-}
+// One thread's copies of a ROWS x DP tile whose rows are D apart in global
+// memory: copy i of thread tid covers element (or 4-vector) tid + THREADS*i
+// of the row-major tile, so a warp's copies are consecutive in one row.
+template <typename T, Load L, int DP, int ROWS, bool ROT = false>
+struct Rows {
+  static constexpr int PITCH = DP + 4;
+  static constexpr int WIDTH = L == Load::kVector ? 4 : 1;   // elements
+  static constexpr int PER_ROW = DP / WIDTH;
+  static constexpr int N = ROWS * PER_ROW / THREADS;         // per thread
+  static_assert(N * THREADS == ROWS * PER_ROW, "whole copies per thread");
 
-// NJ: output column groups of 64 (1 when D <= 64, else 2).
-template <typename T, int NJ>
-__global__ void __launch_bounds__(THREADS)
+  __device__ static int row(int i) {
+    return (threadIdx.x + THREADS * i) / PER_ROW;   // powers of two: shifts
+  }
+  __device__ static int col(int i) {
+    return WIDTH * ((threadIdx.x + THREADS * i) % PER_ROW);
+  }
+  // where column c of a row lands in shared memory
+  __device__ static int dst(int r, int c) {
+    return r * PITCH + (ROT ? (c & ~3) | ((c + 3) & 3) : c);
+  }
+
+  // float32: queue the tile's copies; rows >= valid and columns >= D are
+  // zero-filled and read nothing
+  __device__ static void issue(float* dst, const T* src, int valid, int D) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = row(i), c = col(i);
+      const bool ok = r < valid && c < D;
+      const T* s = ok ? src + static_cast<size_t>(r) * D + c : src;
+      if constexpr (L == Load::kVector) {
+        static_assert(!ROT, "a 16-byte copy cannot rotate");
+        cp_async16(dst + r * PITCH + c, s, ok);
+      } else {
+        cp_async4(dst + Rows::dst(r, c), s, ok);
+      }
+    }
+  }
+
+  // bf16: read into registers (zeros where not valid), ...
+  __device__ static void load(T (&reg)[N], const T* src, int valid, int D) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = row(i), c = col(i);
+      reg[i] = (r < valid && c < D) ? src[static_cast<size_t>(r) * D + c]
+                                    : from_f32<T>(0.0f);
+    }
+  }
+  // ... and widen into shared memory
+  __device__ static void store(float* dst, const T (&reg)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[Rows::dst(row(i), col(i))] = to_f32(reg[i]);
+  }
+  // bf16, where there is nothing to overlap: both at once
+  __device__ static void copy(float* dst, const T* src, int valid, int D) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = row(i), c = col(i);
+      dst[Rows::dst(r, c)] =
+          (r < valid && c < D) ? to_f32(src[static_cast<size_t>(r) * D + c])
+                               : 0.0f;
+    }
+  }
+};
+
+template <typename T, Load L, int DP>
+__global__ void __launch_bounds__(THREADS, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int H, int KH, int Sq, int Sk, int D, int causal,
-                           float scale) {
-  constexpr int VLD = 64 * NJ;  // row stride of the V tile
+                           float scale_log2) {
+  using LY = Layout<DP>;
+  constexpr int PITCH = LY::PITCH, NJ = LY::NJ;
+  using QRows = Rows<T, L == Load::kRegs ? L : Load::kScalar, DP, BQ, true>;
+  using KVRows = Rows<T, L, DP, BK>;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                 // [D][LDT]: Q tile, transposed
-  float* kt = qt + D * LDT;         // [D][LDT]: K tile, transposed
-  float* vs = kt + D * LDT;         // [BK][VLD]: V tile
-  float* pt = vs + BK * VLD;        // [BK][LDT]: probabilities, transposed
+  float* qs = smem;                                   // [BQ][PITCH]
+  float* ring = qs + LY::Q_FLOATS;                    // 2 x (K, V)
+  float* ps = ring + 2 * LY::STAGE_FLOATS;            // per warp [BK][16]
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane & 3, kg = lane >> 2;
   // the last query tiles see the most keys under a causal mask: run them
   // first
   const int r0 = (gridDim.x - 1 - blockIdx.x) * BQ;
@@ -112,13 +239,15 @@ __global__ void __launch_bounds__(THREADS)
   const T* qp = q + ((b * H + h) * Sq + r0) * D;
   const T* kp = k + (b * KH + g) * static_cast<size_t>(Sk) * D;
   const T* vp = v + (b * KH + g) * static_cast<size_t>(Sk) * D;
-
   const int rows = min(BQ, Sq - r0);
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e % D;
-    qt[d * LDT + r] = r < rows ? to_f32(qp[static_cast<size_t>(r) * D + d])
-                               : 0.0f;
-  }
+
+  // keys past the tile's last row are masked for all of its rows
+  const int kv_end = causal ? min(Sk, r0 + rows) : Sk;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  // this warp's rows: rw0 + rg + 4i
+  const int rw0 = r0 + 16 * warp;
+  float* pw = ps + warp * LY::P_FLOATS;
 
   float m[4], l[4], acc[4][4 * NJ];
 #pragma unroll
@@ -129,135 +258,245 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < 4 * NJ; ++j) acc[i][j] = 0.0f;
   }
 
-  // keys past the tile's last row are masked for all of its rows
-  const int kv_end = causal ? min(Sk, r0 + rows) : Sk;
-  for (int c0 = 0; c0 < kv_end; c0 += BK) {
-    const int cols = min(BK, Sk - c0);
-    __syncthreads();  // the previous tile's products are done with kt/vs/pt
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int c = e / D, d = e % D;
-      const size_t off = static_cast<size_t>(c0 + c) * D + d;
-      kt[d * LDT + c] = c < cols ? to_f32(kp[off]) : 0.0f;
+  if (n_tiles > 0) {
+    if constexpr (L == Load::kRegs) {
+      QRows::copy(qs, qp, rows, D);
+      KVRows::copy(ring, kp, Sk, D);
+      KVRows::copy(ring + LY::KV_FLOATS, vp, Sk, D);
+    } else {
+      QRows::issue(qs, qp, rows, D);
+      KVRows::issue(ring, kp, Sk, D);
+      KVRows::issue(ring + LY::KV_FLOATS, vp, Sk, D);
+      cp_async_commit();
     }
-    for (int e = tid; e < BK * VLD; e += THREADS) {
-      const int c = e / VLD, d = e % VLD;
-      const size_t off = static_cast<size_t>(c0 + c) * D + d;
-      vs[c * VLD + d] = (c < cols && d < D) ? to_f32(vp[off]) : 0.0f;
-    }
-    __syncthreads();
+  }
+  // bf16 only: the next tile, held in registers while this one is used
+  T kr[L == Load::kRegs ? KVRows::N : 1], vr[L == Load::kRegs ? KVRows::N : 1];
 
-    // scores of rows 4ty+i against keys 4tx+j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * LDT + 4 * ty);
-      const float4 bv =
-          *reinterpret_cast<const float4*>(kt + d * LDT + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int slot = t & 1;
+    const float* ks = ring + slot * LY::STAGE_FLOATS;
+    const float* vs = ks + LY::KV_FLOATS;
+    float* next = ring + (slot ^ 1) * LY::STAGE_FLOATS;
+    const int c0 = t * BK, c1 = c0 + BK;
+    const size_t off1 = static_cast<size_t>(c1) * D;
+    const bool more = t + 1 < n_tiles;
+    if constexpr (L == Load::kRegs) {
+      // tile t is in shared memory, and every thread is done with tile
+      // t - 1, whose slot takes tile t + 1 after the products below
+      __syncthreads();
+      if (more) {
+        KVRows::load(kr, kp + off1, Sk - c1, D);
+        KVRows::load(vr, vp + off1, Sk - c1, D);
+      }
+    } else {
+      cp_async_wait<0>();
+      // tile t is visible to all, and every thread is done with tile t - 1,
+      // whose slot the copies of tile t + 1 now overwrite
+      __syncthreads();
+      if (more) {
+        KVRows::issue(next, kp + off1, Sk - c1, D);
+        KVRows::issue(next + LY::KV_FLOATS, vp + off1, Sk - c1, D);
+      }
+      cp_async_commit();
+    }
+
+    // a tile wholly above the warp's rows (or a warp wholly past Sq) would
+    // give probabilities of exactly 0: skip it
+    const bool skip = rw0 >= Sq || (causal && c0 > rw0 + 15);
+    if (!skip) {
+      // s[i][j]: row rw0 + rg + 4i against key c0 + kg + 8j
+      float s[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bb[j], s[i][j]);
-    }
-
-    // online softmax over this tile, per row
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      const float* qa = qs + (16 * warp + rg) * PITCH;
+      const float* ka = ks + kg * PITCH;
+#pragma unroll 8
+      for (int d = 0; d < DP; d += 4) {
+        float4 a[4], c[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + 4 * ty + i;
-      float mx = -INFINITY;
+        for (int i = 0; i < 4; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(qa + 4 * i * PITCH + d);
+        }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + 4 * tx + j;
-        const bool visible = c < Sk && (!causal || c <= r);
-        s[i][j] = visible ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
-      }
-      const float m_new = fmaxf(m[i], mx);
-      // no visible key yet: nothing to rescale, and exp(-inf) gives p = 0
-      const float m_use = m_new == -INFINITY ? 0.0f : m_new;
-      const float corr = expf(m[i] - m_use);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_use);  // masked: exp(-inf) = 0 exactly
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off, 16);
-      }
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * NJ; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pt + (4 * tx + j) * LDT + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-    // acc[rows 4ty+i][cols 4tx+j (+64)] += p @ v over the tile's keys
-    for (int c = 0; c < cols; ++c) {
-      const float4 p4 = *reinterpret_cast<const float4*>(pt + c * LDT + 4 * ty);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const float4 v4 =
-            *reinterpret_cast<const float4*>(vs + c * VLD + 64 * jj + 4 * tx);
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+        for (int j = 0; j < 4; ++j) {
+          c[j] = *reinterpret_cast<const float4*>(ka + 8 * j * PITCH + d);
+        }
+        // a[i] holds (q[d+1], q[d+2], q[d+3], q[d]): d in ascending order
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][4 * jj + j] = fmaf(pv[i], vv[j], acc[i][4 * jj + j]);
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i].w, c[j].x, s[i][j]);
+            s[i][j] = fmaf(a[i].x, c[j].y, s[i][j]);
+            s[i][j] = fmaf(a[i].y, c[j].z, s[i][j]);
+            s[i][j] = fmaf(a[i].z, c[j].w, s[i][j]);
+          }
+      }
+
+      // only a tile that crosses the diagonal of the warp's rows or
+      // reaches past Sk is masked
+      const bool mask = (causal && c0 + BK - 1 > rw0) || c1 > Sk;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = rw0 + rg + 4 * i, col = c0 + kg + 8 * j;
+          const bool hidden = mask && (col >= Sk || (causal && col > r));
+          s[i][j] = hidden ? -INFINITY : s[i][j] * scale_log2;
+        }
+
+      // online softmax, per row, in base 2
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        }
+        const float m_new = fmaxf(m[i], mx);
+        // no visible key yet: nothing to rescale, and exp2(-inf) gives 0
+        const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+        const float corr = exp2f(m[i] - m_use);
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = exp2f(s[i][j] - m_use);  // masked: exactly 0
+          sum += s[i][j];
+        }
+        l[i] = l[i] * corr + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < 4 * NJ; ++j) acc[i][j] *= corr;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<float4*>(pw + (kg + 8 * j) * 16 + 4 * rg) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      }
+      __syncwarp();
+
+      // acc[i][4jj + e] += p[row i][key] * v[key][4kg + 32jj + e]
+      const float* pa = pw + 4 * rg;
+      const float* va = vs + 4 * kg;
+#pragma unroll 16
+      for (int key = 0; key < BK; ++key) {
+        const float4 p4 = *reinterpret_cast<const float4*>(pa + key * 16);
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(va + key * PITCH + 32 * jj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][4 * jj] = fmaf(p[i], x.x, acc[i][4 * jj]);
+            acc[i][4 * jj + 1] = fmaf(p[i], x.y, acc[i][4 * jj + 1]);
+            acc[i][4 * jj + 2] = fmaf(p[i], x.z, acc[i][4 * jj + 2]);
+            acc[i][4 * jj + 3] = fmaf(p[i], x.w, acc[i][4 * jj + 3]);
+          }
+        }
+      }
+    }
+
+    if constexpr (L == Load::kRegs) {
+      if (more) {
+        KVRows::store(next, kr);
+        KVRows::store(next + LY::KV_FLOATS, vr);
       }
     }
   }
 
-  T* op = out + ((b * H + h) * Sq + r0) * D;
+  // each lane holds its share of l: sum the 8 lanes of a row (a butterfly
+  // leaves the same bits in every lane)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+    }
+  }
+
+  const size_t row_base = (b * H + h) * Sq + r0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 16 * warp + rg + 4 * i;
     if (r >= rows) continue;
+    const size_t row = row_base + r;
     const float inv = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = 4 * kg + 32 * jj;
+      const float o4[4] = {acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv,
+                           acc[i][4 * jj + 2] * inv,
+                           acc[i][4 * jj + 3] * inv};
+      if constexpr (L == Load::kVector) {
+        // D % 4 == 0 and a 16-byte aligned out: whole vectors
+        if (c < D) {
+          *reinterpret_cast<float4*>(out + row * D + c) =
+              make_float4(o4[0], o4[1], o4[2], o4[3]);
+        }
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = 64 * jj + 4 * tx + j;
-        if (d < D) {
-          op[static_cast<size_t>(r) * D + d] =
-              from_f32<T>(acc[i][4 * jj + j] * inv);
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < D) out[row * D + c + e] = from_f32<T>(o4[e]);
         }
       }
+    }
   }
 }
 
-template <typename T, int NJ>
-cudaError_t launch_nj(const T* q, const T* k, const T* v, T* out, int B,
-                      int H, int KH, int Sq, int Sk, int D, int causal,
-                      cudaStream_t s) {
-  const size_t bytes = smem_bytes(D, NJ);
+// The kernel's attributes: set once per device for the life of the process
+// (a race sets them twice, which is harmless), so a launch adds no host call.
+template <typename T, Load L, int DP>
+cudaError_t prepare(int device) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit =
+      device < 64 ? 1ull << device : 0ull;   // devices past 64: every call
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NJ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      flash_attention_kernel<T, L, DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<DP>::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, NJ><<<grid, THREADS, bytes, s>>>(
-      q, k, v, out, H, KH, Sq, Sk, D, causal,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+  // as much of the SM's 256 KB as shared memory allows, so that two (D >
+  // 64) or three (D <= 64) blocks fit
+  err = cudaFuncSetAttribute(flash_attention_kernel<T, L, DP>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <typename T, Load L, int DP>
+cudaError_t launch_dp(const T* q, const T* k, const T* v, T* out, int B,
+                      int H, int KH, int Sq, int Sk, int D, int causal,
+                      int device, cudaStream_t s) {
+  cudaError_t err = prepare<T, L, DP>(device);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(D)));
+  const dim3 grid((Sq - 1) / BQ + 1, H, B);   // Sq > 0
+  flash_attention_kernel<T, L, DP><<<grid, THREADS, Layout<DP>::SMEM_BYTES,
+                                     s>>>(q, k, v, out, H, KH, Sq, Sk, D,
+                                          causal, scale_log2);
   return cudaGetLastError();
+}
+
+template <typename T, Load L>
+cudaError_t launch_load(const T* q, const T* k, const T* v, T* out, int B,
+                        int H, int KH, int Sq, int Sk, int D, int causal,
+                        int device, cudaStream_t s) {
+  if (D <= 64) {
+    return launch_dp<T, L, 64>(q, k, v, out, B, H, KH, Sq, Sk, D, causal,
+                               device, s);
+  }
+  return launch_dp<T, L, 128>(q, k, v, out, B, H, KH, Sq, Sk, D, causal,
+                              device, s);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
@@ -276,10 +515,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const auto* vp = static_cast<const T*>(v);
   auto* op = static_cast<T*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) {
-    return launch_nj<T, 1>(qp, kp, vp, op, B, H, KH, Sq, Sk, D, causal, s);
+  if constexpr (std::is_same<T, float>::value) {
+    if (D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+        aligned16(out)) {
+      return launch_load<T, Load::kVector>(qp, kp, vp, op, B, H, KH, Sq, Sk,
+                                           D, causal, device, s);
+    }
+    return launch_load<T, Load::kScalar>(qp, kp, vp, op, B, H, KH, Sq, Sk,
+                                         D, causal, device, s);
+  } else {
+    return launch_load<T, Load::kRegs>(qp, kp, vp, op, B, H, KH, Sq, Sk, D,
+                                       causal, device, s);
   }
-  return launch_nj<T, 2>(qp, kp, vp, op, B, H, KH, Sq, Sk, D, causal, s);
 }
 
 }  // namespace

@@ -173,3 +173,52 @@ def test_wrapper_rejects_mismatched_inputs():
         pt_flash.flash_attention(q3, k, v)                  # H % KH != 0
     with pytest.raises(TypeError):
         pt_flash.flash_attention(q, k.double(), v)
+
+
+# The shapes that tests/test_torch_gpu.py holds the simt kernel to on the
+# card (not multiples of its 64-row query or 32-key tiles, Sq != Sk with the
+# top-left mask, D from 1 to 128, GQA groups of 1, 4 and 7, grids under the
+# SM count, and phase 9b's reduced qwen2-7b prefill), here through the
+# wrapper's CPU path against the Pallas kernel (one block per sequence).
+EDGE_SHAPES = [(1, 4, 4, 97, 161, 128, True), (1, 8, 2, 161, 97, 64, True),
+               (2, 7, 1, 130, 250, 72, True), (2, 7, 1, 33, 65, 127, False),
+               (3, 4, 2, 70, 70, 1, True), (1, 4, 2, 70, 70, 32, True),
+               (1, 4, 2, 12, 12, 32, True), (1, 4, 1, 64, 4096, 128, False),
+               (1, 8, 2, 300, 777, 128, False),
+               (1, 2, 1, 1000, 1000, 128, True)]
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_simt_edge_shapes_match_pallas(B, H, KH, Sq, Sk, D, causal, dtype):
+    arrays = _inputs(B, H, KH, Sq, Sk, D, dtype, seed=Sq * Sk + D)
+    jx = [jnp.asarray(a) for a in arrays]
+    pallas = jax_ops.flash_attention(*jx, causal=causal, bq=Sq, bk=Sk,
+                                     interpret=True)
+    got = pt_ops.flash_attention(*_cpu(arrays), causal=causal)
+    assert tuple(got.shape) == (B, H, Sq, D)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **TOL[dtype])
+
+
+# chip_smoke.py's expected route of a dense path's flash launches follows
+# the compute dtype and head dim through route(): qwen2-7b's bf16 prefill
+# on the tensor cores, its float32 prefill on the CUDA cores
+@pytest.mark.parametrize("compute_dtype,want", [("bfloat16", "wgmma"),
+                                                ("float32", "simt")])
+def test_chip_smoke_expected_route_follows_dtype_and_head_dim(compute_dtype,
+                                                              want):
+    import dataclasses
+    import sys
+    from pathlib import Path
+    from repro_torch.configs import get_config
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    cfg = dataclasses.replace(get_config("qwen2-7b"),
+                              compute_dtype=compute_dtype)
+    assert cfg.head_dim == 128
+    assert chip_smoke.expected_route(cfg) == want
+    assert want == pt_flash.route(cfg.cdtype, cfg.head_dim, aligned=True)
+    # the reduced config computes in float32, so 9b's workers run simt
+    assert chip_smoke.expected_route(get_config("qwen2-7b").reduced()) == \
+        "simt"
+    assert chip_smoke.expected_route(get_config("falcon-mamba-7b")) is None

@@ -547,6 +547,52 @@ def test_flash_attention_wrapper_rejects_what_it_cannot_take(cuda):
         fa.flash_attention(q, k.cpu(), v)
 
 
+# The simt kernel (csrc/flash_attention.cu): 64-row query tiles and 32-key
+# tiles in a 2-stage cp.async ring; the last three shapes' grids are under
+# the SM count.  bf16 reaches it with D % 8 != 0 or through q, k, v one
+# element past a 16-byte boundary.
+def _misaligned(t):
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", [
+    (1, 4, 4, 97, 161, 128, True),    # no tile multiple, GQA 1
+    (1, 8, 2, 161, 97, 64, True),     # Sq > Sk, GQA 4
+    (2, 7, 1, 130, 250, 72, True),    # GQA 7
+    (2, 7, 1, 33, 65, 127, False),
+    (3, 4, 2, 70, 70, 1, True),
+    (1, 4, 2, 70, 70, 32, True),
+    (1, 4, 2, 12, 12, 32, True),      # phase 9b's reduced qwen2-7b prefill
+    (1, 2, 1, 5, 0, 64, True),        # Sk = 0: zeros
+    (1, 4, 1, 64, 4096, 128, False),  # 4 blocks
+    (1, 8, 2, 300, 777, 128, False),  # 40 blocks
+    (1, 2, 1, 1000, 1000, 128, True)])  # 32 blocks
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_simt_flash_kernel_edges_and_bits(cuda, B, H, KH, Sq, Sk, D, causal,
+                                          dtype):
+    from repro_torch.kernels import flash_attention as fa, ref
+    q, k, v = _attn_inputs(cuda, B, H, KH, Sq, Sk, D, dtype, seed=Sq * Sk)
+    if dtype == torch.bfloat16 and D % 8 == 0:
+        q, k, v = (_misaligned(t) for t in (q, k, v))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    assert fa.route(dtype, D, aligned=aligned) == "simt"
+    before = fa.flash_attention.route_launches["simt"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.route_launches["simt"] == before + 2
+    assert got.shape == q.shape and got.dtype == dtype
+    want = ref.attention(q, k, v, causal=causal)
+    assert torch.allclose(got.float(), want.float(), rtol=TOL[dtype],
+                          atol=TOL[dtype])
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    if Sk == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_dense_forward_kernel_matches_plain_attention(cuda, compute_dtype):
     from repro_torch.configs import get_config
