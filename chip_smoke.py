@@ -92,15 +92,39 @@ Each phase prints one line; any failure raises and exits non-zero:
    ``compute_dtype="float32"``, the full-width path of the simt route: 28
    launches, all simt.  Each long-prefill line gives the prefill's seconds,
    decode ms/step, peak device memory, and the path kernel's own device time
-   within the prefill (CUDA events around each launch).
+   within the prefill (CUDA events around each launch);
+11. train — qwen2-7b's serving parameters freed: (a) the flash-attention
+   Function's gradient (the kernel's forward, a backward in torch ops)
+   against autograd of the plain version at the training step's attention
+   (q 2x28x2048x128, k, v 2x4x2048x128, causal) and a ragged shape
+   (2x8x1000x64, 2 kv heads), in float32 (simt) and bf16 (wgmma): dq, dk,
+   dv within the forward's tolerance of the largest reference entry, with
+   forward + backward CUDA-event times of the Function, the plain version
+   and SDPA; (b) the training launcher at ``--reduced`` on the card: the
+   resume check of tests/test_launchers.py (the resumed losses equal the
+   uninterrupted run's at rtol 1e-4) and ``--show-graph --backend thread``
+   (the traced step's loss equals the loop's step-0 loss), every flash
+   launch simt (float32 compute); (c) qwen2-7b at full width cut to 8
+   layers (2,954,460,672 float32 parameters from seed 0, bf16 compute,
+   selective remat) on batches of 2 x 2048 tokens: one loss-and-gradient
+   with the kernel and one with the plain attention (loss, global gradient
+   norm and each leaf's cosine within TRAIN_*_TOL), then 4 steps of
+   launch/steps.py's train step with AdamW: finite, falling losses and 16
+   wgmma flash launches a step (the forward and the remat recompute), with
+   the step seconds, tokens/s, peak device memory and the flash forwards'
+   device ms in each step; then the same 4 steps from the same draw with
+   the plain attention, whose losses the kernel's must meet within
+   TRAIN_TRAJ_TOL at every step.
 
 With ``--profile`` it also profiles one decode step and two prefills of
-each served model (device time by kernel, device busy share, and the
-device time of the port's own kernels).
+each served model and one full-width training step (device time by
+kernel, device busy share, and the device time of the port's own
+kernels).
 
 Then one JSON line of the kernels (``flash_attention``, headed by its
-wgmma kernel, counts the wrapper's launches on both routes;
-``flash_attention_simt`` is the CUDA-core kernel and its launches), and
+wgmma kernel, counts the wrapper's launches on both routes, serving and
+training; ``flash_attention_simt`` is the CUDA-core kernel and its
+launches), and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a card, or outside a checkout, it prints no result and exits 1.
@@ -162,12 +186,15 @@ SCAN_SHAPES = [(1, 2048, 8192, 16, False), (1, 1, 8192, 16, True),
 # tests/test_kernels.py's ssm tolerances (rtol = atol)
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # (B, H, KH, Sq, Sk, D, causal): qwen2-7b's long prefill and a served
-# prefill, the reduced qwen2-7b's prefill (phase 9b's workers, float32), a
+# prefill, the reduced qwen2-7b's prefill (phase 9b's workers, float32),
+# the attention of phase 11c's training step and of 11b's reduced one, a
 # ragged shape, a cross-shaped one and one whose D is a multiple of 8 but
 # not of 16
 FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (1, 28, 4, 12, 12, 128, True),
                 (1, 4, 2, 12, 12, 32, True),
+                (2, 28, 4, 2048, 2048, 128, True),
+                (2, 4, 2, 16, 16, 32, True),
                 (2, 8, 2, 1000, 1000, 64, True),
                 (1, 8, 2, 300, 777, 128, False),
                 (1, 4, 2, 200, 333, 72, True)]
@@ -186,6 +213,29 @@ LONG_MAX_LEN = LONG_PROMPT + LONG_DECODE + 1     # the long run's KV cache
 # logits have about unit scale (printed); a broken kernel moves them by
 # whole units, this drift by a small fraction of one.
 LOGIT_TOL = 0.5
+# phase 11a: (B, H, KH, Sq, Sk, D, causal) of the flash gradient checks:
+# the full-width training step's attention and a ragged shape
+TRAIN_GRAD_SHAPES = [(2, 28, 4, 2048, 2048, 128, True),
+                     (2, 8, 2, 1000, 1000, 64, True)]
+GRAD_REPS = 5
+# phase 11b: the training launcher on the card at --reduced
+TRAIN_LAUNCHER_ARGS = ["--arch", "qwen2-7b", "--reduced", "--device", "cuda",
+                       "--batch", "2", "--seq", "16", "--log-every", "100"]
+# phase 11c: qwen2-7b at full width cut to 8 of its 28 layers, whose
+# float32 parameters, gradients and AdamW moments (16 bytes a parameter,
+# 47.3 GB) fit the 80 GB card with the activations of 2 x 2048 tokens
+TRAIN_LAYERS, TRAIN_N_PARAMS = 8, 2_954_460_672
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 4, 3e-4
+# the kernel's and the plain attention's first-step loss and gradients in
+# bf16 compute: they differ by the wgmma route's bf16 rounding of P before
+# P V, carried through 8 layers.  Each limit is 10-20 times what four runs
+# on the H100 read, all alike: loss 1.31e-6 apart (relative), global
+# gradient norm 4.78e-5, least leaf cosine 0.9999917.
+TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_COSINE_MIN = 2e-5, 1e-3, 0.9995
+# the kernel's and the plain attention's losses at each of the TRAIN_STEPS
+# steps from the same draw, relative: about 10 times the H100's reading
+# (at most 9.6e-5, on the last step)
+TRAIN_TRAJ_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -830,19 +880,24 @@ def phase_scan_kernels(torch) -> list:
 
 
 def flash_bound(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
-                causal: bool, dtype: str, itemsize: int):
+                causal: bool, dtype: str, itemsize: int,
+                backward: bool = False):
     """Least time the card could take for one attention: 4 * D operations
     (the two products) per visible (query, key) pair at the input type's
     peak, or q, k, v read once and the output written once at HBM
     bandwidth.  Under the top-left causal mask query i sees min(i + 1, Sk)
-    keys."""
+    keys.  With ``backward``, forward and backward: 10 * D more operations
+    a pair (S recomputed, dV, dP, dQ, dK), and q, k, v, dO read and out,
+    dq, dk, dv written."""
     if causal:
         n = min(Sq, Sk)
         pairs = n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
     else:
         pairs = Sq * Sk
-    ops_ms = 4.0 * D * pairs * B * H / PEAK_FLOPS[dtype] * 1e3
-    nbytes = itemsize * (2 * B * H * Sq * D + 2 * B * KH * Sk * D)
+    ops_ms = (14.0 if backward else 4.0) * D * pairs * B * H \
+        / PEAK_FLOPS[dtype] * 1e3
+    nbytes = itemsize * (4 if backward else 2) * (B * H * Sq * D
+                                                  + B * KH * Sk * D)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -1305,13 +1360,42 @@ def phase_long_prefill(torch, cfg, params) -> dict:
     return out
 
 
-def phase_profile(torch, cfg, params) -> None:
-    """Where a serve path's device time goes (``--profile`` only): one
-    decode step, one served-size prefill and one LONG_PROMPT prefill under
-    ``torch.profiler``, with the device time of each kernel name and the
-    device's busy share of the host-clock wall."""
+def profile_line(torch, tag: str, fn) -> None:
+    """One call of ``fn`` under ``torch.profiler``: prints the device time
+    of each kernel name, the port's own kernels wherever they rank, and the
+    device's busy share of the host-clock wall (to a ``synchronize()``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device's own entries (kernels, copies, sets): their self device
+    # times add up to the time the device was busy
+    kernels = [(e.self_device_time_total, e.count, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(reverse=True)
+    busy_us = sum(k[0] for k in kernels)
+    line(tag, {
+        "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "kernel_launches": sum(k[1] for k in kernels),
+        "top": [{"kernel": k[2][:120], "count": k[1],
+                 "device_ms": k[0] / 1e3} for k in kernels[:12]],
+        "port_kernels": [{"kernel": k[2][:120], "count": k[1],
+                          "device_ms": k[0] / 1e3} for k in kernels
+                         if PORT_KERNEL.search(k[2])]})
+
+
+def phase_profile(torch, cfg, params) -> None:
+    """Where a serve path's device time goes (``--profile`` only): one
+    decode step, one served-size prefill and one LONG_PROMPT prefill, each
+    after a warm-up call, through :func:`profile_line`."""
     from repro_torch.models import transformer as TF
     prefill = TF.make_prefill_step(cfg, SERVE_MAX_LEN)
     prefill_long = TF.make_prefill_step(cfg, LONG_MAX_LEN)
@@ -1326,31 +1410,7 @@ def phase_profile(torch, cfg, params) -> None:
                      (f"prefill_{LONG_PROMPT}",
                       lambda: prefill_long(params, prompt))):
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # the device's own entries (kernels, copies, sets): their self
-        # device times add up to the time the device was busy
-        kernels = [(e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        kernels.sort(reverse=True)
-        busy_us = sum(k[0] for k in kernels)
-        line(f"profile_{cfg.name}_{name}", {
-            "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e6 / wall,
-            "kernel_launches": sum(k[1] for k in kernels),
-            "top": [{"kernel": k[2][:120], "count": k[1],
-                     "device_ms": k[0] / 1e3} for k in kernels[:12]],
-            # the port's own kernels, wherever they rank
-            "port_kernels": [{"kernel": k[2][:120], "count": k[1],
-                              "device_ms": k[0] / 1e3} for k in kernels
-                             if PORT_KERNEL.search(k[2])]})
+        profile_line(torch, f"profile_{cfg.name}_{name}", fn)
 
 
 def phase_model(torch, arch: str, n_params: int, profile: bool):
@@ -1386,6 +1446,348 @@ def phase_model(torch, arch: str, n_params: int, profile: bool):
     return launches
 
 
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over the largest |want|: gradient checks are
+    scaled by the reference gradient's own size."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _grad_inputs(torch, gen, B, H, KH, Sq, Sk, D, dtype):
+    q = torch.randn(B, H, Sq, D, generator=gen, device="cuda")
+    k = torch.randn(B, KH, Sk, D, generator=gen, device="cuda")
+    v = torch.randn(B, KH, Sk, D, generator=gen, device="cuda")
+    dout = torch.randn(B, H, Sq, D, generator=gen, device="cuda")
+    return [t.to(dtype) for t in (q, k, v)], dout.to(dtype)
+
+
+def phase_train_grads(torch) -> list:
+    """Phase 11a: the flash Function's gradient (kernel forward, backward
+    in torch ops) against autograd of the plain version, at each
+    TRAIN_GRAD_SHAPES row in float32 (simt) and bf16 (wgmma): dq, dk, dv
+    within TOL of the largest reference entry, with CUDA-event times of
+    forward + backward for the Function, the plain version and SDPA (a
+    yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    checks = []
+    for B, H, KH, Sq, Sk, D, causal in TRAIN_GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            (q, k, v), dout = _grad_inputs(torch, gen, B, H, KH, Sq, Sk, D,
+                                           dtype)
+            for t in (q, k, v):
+                t.requires_grad_()
+            path = fa.route(dtype, D)
+            what = (f"flash gradient {dname} {(B, H, KH, Sq, Sk, D)} "
+                    f"({path})")
+
+            def fwd_bwd(attn):
+                return torch.autograd.grad(attn(q, k, v), (q, k, v), dout)
+
+            def kernel(*a):
+                return ops.flash_attention(*a, causal=causal)
+
+            def plain(*a):
+                return ref.attention(*a, causal=causal)
+
+            def library(*a):
+                return F.scaled_dot_product_attention(
+                    *a, is_causal=causal, enable_gqa=True)
+
+            before = fa.flash_attention.route_launches[path]
+            got = fwd_bwd(kernel)
+            torch.cuda.synchronize()
+            if fa.flash_attention.route_launches[path] != before + 1:
+                fail(f"{what}: the Function made no {path} launch")
+            want = fwd_bwd(plain)
+            errs = {n: _rel_err(g, w) for n, g, w in zip("qkv", got, want)}
+            if any(g.dtype != dtype for g in got) or \
+                    max(errs.values()) > TOL[dname]:
+                fail(f"{what}: gradients {errs} relative to the plain "
+                     f"version's largest, tolerance {TOL[dname]}")
+            del got, want
+            b_ms, b_by = flash_bound(B, H, KH, Sq, Sk, D, causal, dname,
+                                     dtype.itemsize, backward=True)
+            checks.append({
+                "shape": [B, H, KH, Sq, Sk, D], "causal": causal,
+                "dtype": dname, "route": path,
+                "rel_err": errs, "tol": TOL[dname],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "ms": cuda_ms(torch, lambda: fwd_bwd(kernel), GRAD_REPS),
+                "plain_ms": cuda_ms(torch, lambda: fwd_bwd(plain), GRAD_REPS),
+                "library_ms": cuda_ms(torch, lambda: fwd_bwd(library),
+                                      GRAD_REPS)})
+            c = checks[-1]
+            print(f"{what}: rel err {max(errs.values()):.3g} (tol "
+                  f"{TOL[dname]}) | fwd+bwd {c['ms']:.3f} ms | plain "
+                  f"{c['plain_ms']:.3f} ms | sdpa {c['library_ms']:.3f} ms | "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+            del q, k, v, dout
+    line("train_grads", checks)
+    return checks
+
+
+def phase_train_launcher(torch) -> collections.Counter:
+    """Phase 11b: the training launcher on the card at ``--reduced``:
+    tests/test_launchers.py's resume check (8 steps with a checkpoint every
+    5, an uninterrupted run to 12, a run resumed from step 5), then
+    ``--show-graph --backend thread`` (the traced step's loss equals the
+    loop's step-0 loss).  The reduced config computes in float32, so every
+    flash launch (two a layer a step under selective remat) is simt.
+    Returns the flash launches by route."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    cfg = get_config(DENSE_ARCH).reduced()
+    counter = fa.flash_attention
+    _reset(counter)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ck = os.path.join(tmp, "ck")
+        base = TRAIN_LAUNCHER_ARGS + ["--ckpt-every", "5"]
+        t0 = time.perf_counter()
+        r1 = train.main(base + ["--ckpt-dir", ck, "--steps", "8"])
+        r_full = train.main(base + ["--ckpt-dir", os.path.join(tmp, "ref"),
+                                    "--steps", "12"])
+        r2 = train.main(base + ["--ckpt-dir", ck, "--steps", "12",
+                                "--resume"])
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    import numpy as np
+    if not (np.isfinite(r1["losses"]).all()
+            and np.isfinite(r_full["losses"]).all()):
+        fail(f"non-finite launcher losses {r1['losses']} {r_full['losses']}")
+    if r2["start_step"] != 6 or not np.allclose(
+            r2["losses"], r_full["losses"][6:12], rtol=1e-4, atol=1e-5):
+        fail(f"resumed from {r2['start_step']} with losses {r2['losses']}, "
+             f"the uninterrupted run's {r_full['losses'][6:12]}")
+    g = train.main(TRAIN_LAUNCHER_ARGS + ["--steps", "1", "--show-graph",
+                                          "--backend", "thread"])
+    if g["traced_loss"] is None or not math.isclose(
+            g["traced_loss"], g["losses"][0], rel_tol=1e-4):
+        fail(f"traced step loss {g['traced_loss']} != the loop's step-0 "
+             f"loss {g['losses'][0]}")
+    train._demo_runtime.cache_clear()
+    steps_run = 8 + 12 + 6 + 1 + 1          # the last run: loop + traced
+    want = 2 * cfg.n_layers * steps_run
+    routes = _check_routes(counter, cfg, "reduced train launcher")
+    if counter.launches != want:
+        fail(f"reduced train launcher: {counter.launches} flash launches, "
+             f"expected {want}")
+    line("train_launcher", {
+        "argv": TRAIN_LAUNCHER_ARGS, "layers": cfg.n_layers,
+        "compute_dtype": cfg.compute_dtype, "steps_run": steps_run,
+        "losses_8": r1["losses"], "losses_12": r_full["losses"],
+        "resumed_losses": r2["losses"], "resume_s": resume_s,
+        "traced_loss": g["traced_loss"], "loop_step0_loss": g["losses"][0],
+        "flash_launches": counter.launches, "launches_by_route": routes})
+    return _launch_routes(counter)
+
+
+@contextlib.contextmanager
+def timed_function_forwards(torch, fn_cls):
+    """Within the block, every forward of the autograd Function ``fn_cls``
+    (its kernel launch and output allocation) is bracketed by CUDA events;
+    yields the list of (start, end) pairs."""
+    inner = fn_cls.forward
+    events = []
+
+    def timed(ctx, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(ctx, *args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    fn_cls.forward = staticmethod(timed)
+    try:
+        yield events
+    finally:
+        fn_cls.forward = staticmethod(inner)
+
+
+def phase_train_full(torch, profile: bool = False) -> collections.Counter:
+    """Phase 11c: qwen2-7b at full width and TRAIN_LAYERS layers (bf16
+    compute, selective remat), drawn on the card from seed 0, trained on
+    SyntheticLMDataset(seed=0) batches of TRAIN_BATCH x TRAIN_SEQ.  First
+    one loss-and-gradient with the kernel and one with the plain attention
+    on the same parameters and batch; then TRAIN_STEPS steps of
+    launch/steps.py's train step with make_optimizer's AdamW; with
+    ``profile``, one more step under the profiler; then the same steps from
+    the same draw with the plain attention, whose losses the kernel's
+    steps must meet.  Returns the flash launches of the measured steps by
+    route."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import global_norm
+    from repro_torch.optim.schedules import cosine_schedule
+    from repro_torch.tree import tree_flatten_with_paths
+    full = get_config(DENSE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS,
+                              layer_plan=full.layer_plan[:TRAIN_LAYERS])
+    if (cfg.compute_dtype, cfg.remat) != ("bfloat16", "selective"):
+        fail(f"{cfg.name}: expected bf16 compute and selective remat")
+    counter = fa.flash_attention
+    route = expected_route(cfg)
+    per_step = 2 * cfg.n_layers          # the forward and the recompute
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TF.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n = sum(t.numel() for _, t in tree_flatten_with_paths(params))
+    if n != TRAIN_N_PARAMS or n != TF.count_params(cfg):
+        fail(f"{cfg.name} at {TRAIN_LAYERS} layers: {n} parameters, "
+             f"expected {TRAIN_N_PARAMS}")
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+
+    def batch_at(s):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in ds.batch_at(s).items()}
+
+    # the kernel's and the plain attention's first-step gradients
+    grads, losses = {}, {}
+    for impl in ("kernel", "ref"):
+        _reset(counter)
+        (total, _), g = TF.value_and_grad(TF.make_loss_fn(cfg, impl=impl))(
+            params, batch_at(0))
+        losses[impl] = total.item()
+        grads[impl] = dict(tree_flatten_with_paths(g))
+        want = per_step if impl == "kernel" else 0
+        if counter.launches != want:
+            fail(f"{impl} loss-and-gradient: {counter.launches} flash "
+                 f"launches, expected {want}")
+    norms = {impl: global_norm(g).item() for impl, g in grads.items()}
+    cosines = {}
+    for path, gk in grads["kernel"].items():
+        gr = grads["ref"][path].float()
+        gk = gk.float()
+        cosines[path] = (torch.dot(gk.flatten(), gr.flatten())
+                         / (gk.norm() * gr.norm()).clamp_min(1e-30)).item()
+    del grads, gk, gr
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_diff = abs(losses["kernel"] - losses["ref"]) / abs(losses["ref"])
+    norm_diff = abs(norms["kernel"] - norms["ref"]) / norms["ref"]
+    # the key bias's gradient is 0 in exact arithmetic (q·bk shifts every
+    # key's score alike), so both are rounding noise: not compared
+    compared = {p: c for p, c in cosines.items() if not p.endswith("/bk")}
+    if not (math.isfinite(losses["kernel"]) and loss_diff <= TRAIN_LOSS_TOL
+            and norm_diff <= TRAIN_NORM_TOL
+            and min(compared.values()) >= TRAIN_COSINE_MIN):
+        fail(f"kernel vs plain first step: losses {losses}, grad norms "
+             f"{norms}, cosines {cosines}")
+
+    compare_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # warmup 1, so that 4 steps train at the peak rate and below; with the
+    # launcher's default warmup of 10 the rate is at most 1.2e-4 there
+    opt = steps.make_optimizer(cfg, lr=cosine_schedule(
+        TRAIN_LR, 1, TRAIN_STEPS))
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt)
+    step_losses, step_s, flash_ms = [], [], []
+    _reset(counter)
+    for s in range(TRAIN_STEPS):
+        batch = batch_at(s)
+        torch.cuda.synchronize()
+        with timed_function_forwards(torch, fa.FlashAttention) as events:
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            step_losses.append(metrics["total_loss"].item())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        flash_ms.append(events_ms(torch, events))
+        if len(events) != per_step or counter.launches != per_step * (s + 1):
+            fail(f"train step {s}: {len(events)} flash forwards, "
+                 f"{counter.launches} launches so far, expected {per_step} "
+                 f"a step")
+    routes = dict(_check_routes(counter, cfg, f"{cfg.name} train steps"))
+    if not all(math.isfinite(x) for x in step_losses) or \
+            not step_losses[-1] < step_losses[0]:
+        fail(f"train losses {step_losses}: not finite and falling")
+    median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    steps_peak = torch.cuda.max_memory_allocated()
+    step_launches, launches = counter.launches, _launch_routes(counter)
+    if profile:
+        batch = batch_at(TRAIN_STEPS)
+        profile_line(torch, f"profile_{cfg.name}_train_step",
+                     lambda: step(params, state, batch))
+    del params, state, metrics, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps from the same draw with the plain attention: the
+    # train step's body (launch/steps.py) over make_loss_fn(impl="ref")
+    torch.cuda.reset_peak_memory_stats()
+    params = TF.init_params(cfg, 0, "cuda")
+    opt = steps.make_optimizer(cfg, lr=cosine_schedule(
+        TRAIN_LR, 1, TRAIN_STEPS))
+    state = opt.init(params)
+    plain_grad_fn = TF.value_and_grad(TF.make_loss_fn(cfg, impl="ref"))
+    plain_losses = []
+    _reset(counter)
+    for s in range(TRAIN_STEPS):
+        (total, _), g = plain_grad_fn(params, batch_at(s))
+        state = opt.update(g, state, params)
+        plain_losses.append(total.item())
+        del g
+    if counter.launches:
+        fail(f"plain train steps: {counter.launches} flash launches")
+    plain_peak = torch.cuda.max_memory_allocated()
+    traj_diff = [abs(k - p) / abs(p) for k, p in zip(step_losses,
+                                                      plain_losses)]
+    if not all(math.isfinite(x) for x in plain_losses) or \
+            max(traj_diff) > TRAIN_TRAJ_TOL:
+        fail(f"train losses: kernel {step_losses}, plain {plain_losses}, "
+             f"relative differences {traj_diff} (limit {TRAIN_TRAJ_TOL})")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "n_params": n,
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "compute_dtype": cfg.compute_dtype,
+        "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "lr": TRAIN_LR, "draw_s": draw_s,
+        "first_step": {"loss_kernel": losses["kernel"],
+                       "loss_plain": losses["ref"],
+                       "loss_rel_diff": loss_diff, "loss_tol": TRAIN_LOSS_TOL,
+                       "grad_norm_kernel": norms["kernel"],
+                       "grad_norm_plain": norms["ref"],
+                       "grad_norm_rel_diff": norm_diff,
+                       "grad_norm_tol": TRAIN_NORM_TOL,
+                       "min_cosine": min(compared.values()),
+                       "cosine_min_allowed": TRAIN_COSINE_MIN,
+                       "cosines": cosines},
+        "losses": step_losses, "plain_losses": plain_losses,
+        "losses_rel_diff": traj_diff, "losses_tol": TRAIN_TRAJ_TOL,
+        "step_s": step_s,
+        "median_step_s": median_s,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_s,
+        "flash_launches": step_launches, "launches_by_route": routes,
+        "flash_forward_ms_per_step": flash_ms,
+        # the training steps' peak, the first-step comparison's (two
+        # gradient trees at once) and the plain attention's steps'
+        "peak_device_bytes": steps_peak,
+        "peak_device_bytes_compare": compare_peak,
+        "peak_device_bytes_plain_steps": plain_peak}
+    line("train_full", out)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1415,6 +1817,10 @@ def main() -> int:
     scan_launches = phase_model(torch, ARCH, N_PARAMS, profile)
     flash_checks = phase_flash_kernels(torch)
     flash_launches = phase_model(torch, DENSE_ARCH, DENSE_N_PARAMS, profile)
+    # phase 11, training: qwen2-7b's serving parameters are freed by now
+    phase_train_grads(torch)
+    flash_launches += phase_train_launcher(torch)
+    flash_launches += phase_train_full(torch, profile)
 
     def entry(kernel, source, replaces, launches, routes, check, all_checks):
         return {"name": kernel, "route": "cuda",
@@ -1438,7 +1844,8 @@ def main() -> int:
     # the dense path's longest launches: the long prefill in bf16 (tensor
     # cores) and in float32 (CUDA cores)
     long_checks = {c["route"]: c for c in flash_checks
-                   if c["shape"][3] == LONG_PROMPT and c["aligned"]}
+                   if c["shape"][:4] == [1, 28, 4, LONG_PROMPT]
+                   and c["aligned"]}
     # flash_attention: the wrapper's launches on both routes, headed by the
     # tensor-core kernel of the bf16 long prefill, as in earlier runs;
     # flash_attention_simt: the CUDA-core kernel and its own launches

@@ -17,8 +17,9 @@ Port of ``repro/core/__init__.py``, exporting what is ported so far:
       multi-process repro_torch.cluster.ClusterExecutor runtime)
   recovery_plan, recover                                  (lineage FT)
 
-Placement and the mesh executor come with a later slice (ROADMAP §1
-item 8).
+The placement rule tables are in ``core/placement.py`` (imported where
+needed, not here); the placement refinement and the mesh executor come
+with intra-op SPMD (ROADMAP §1 item 8).
 """
 from .graph import TaskGraph, TaskNode, TaskKind, GraphError
 from .tracing import (task, io_task, trace, placeholder, checkpoint_barrier,

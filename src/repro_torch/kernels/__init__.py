@@ -12,6 +12,24 @@ from typing import Dict
 KERNELS = ("matmul", "ssm_scan", "flash_attention")
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would track an op on ``tensors`` (``None``s
+    skipped): grad mode is on and one of them requires grad."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors, remedy: str) -> None:
+    """Raise if a gradient is asked of kernel ``name``'s wrapper: its
+    output is written by the kernel behind autograd's back, so it would
+    carry no ``grad_fn`` and the gradient would silently stop there."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel's wrapper "
+            f"gives no gradient; {remedy}")
+
+
 def launch_counts() -> Dict[str, int]:
     """This process's kernel launches so far: ``name`` for each wrapper that
     has been imported, and ``name/route`` (``matmul/simt``,

@@ -29,7 +29,7 @@ import threading
 
 import torch
 
-from . import _build, ref
+from . import _build, ref, refuse_grad
 
 _ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
           ("simt", torch.bfloat16): "repro_flash_attention_bf16",
@@ -54,8 +54,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``H % KH == 0``; returns ``(B, H, Sq, D)`` in ``q.dtype``.
 
     On the card q, k and v are float32 or bfloat16, all of one dtype,
-    contiguous, with ``1 <= D <= 128``.  ``Sk == 0`` gives zeros.
+    contiguous, with ``1 <= D <= 128``.  ``Sk == 0`` gives zeros.  It
+    raises when a gradient is asked of it (grad mode on and an input that
+    requires grad), on any device: :class:`FlashAttention` carries one.
     """
+    refuse_grad("flash_attention", q, k, v,
+                remedy="call repro_torch.kernels.ops.flash_attention, whose "
+                       "autograd Function (FlashAttention) gives one")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, H, Sq, D) and k, v one (B, KH, Sk, "
                          f"D) shape, got {tuple(q.shape)}, {tuple(k.shape)} "
@@ -107,3 +112,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, dout: torch.Tensor, *,
+                       causal: bool):
+    """``(dq, dk, dv)`` of ``out = attention(q, k, v)`` for the upstream
+    gradient ``dout``, in explicit torch ops, each in its input's dtype.
+
+    One kv head at a time (its ``G = H / KH`` query heads folded into the
+    rows, so ``dk`` and ``dv`` sum over them in the products), in float32:
+    ``S = scale · Q Kᵀ`` with the top-left causal mask ``kpos <= qpos`` from
+    0, ``P = softmax(S)``, ``dV = Pᵀ dO``, ``dP = dO Vᵀ``,
+    ``dS = P ∘ (dP − rowsum(dO ∘ O))``, ``dQ = scale · dS K``,
+    ``dK = scale · dSᵀ Q``.  In bf16, P is rounded to bf16 where it meets
+    V's gradient, as the wgmma forward rounds it before ``P V``.  A kv
+    head's S, P, dP and dS are float32 ``(B, G·Sq, Sk)``: at qwen2-7b's
+    2 × 2048 tokens, 0.23 GB each instead of the 0.94 GB of all heads.
+    """
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = D ** -0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    visible = None
+    if causal:
+        qpos = torch.arange(G * Sq, device=q.device) % Sq
+        visible = torch.arange(Sk, device=q.device)[None, :] <= qpos[:, None]
+    for j in range(KH):
+        heads = slice(j * G, (j + 1) * G)
+        qj, doj, oj = (t[:, heads].reshape(B, G * Sq, D).float()
+                       for t in (q, dout, out))
+        kj, vj = k[:, j].float(), v[:, j].float()
+        s = torch.matmul(qj, kj.transpose(1, 2)) * scale
+        if visible is not None:
+            s = torch.where(visible, s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        del s
+        p_v = p.to(torch.bfloat16).float() if q.dtype == torch.bfloat16 \
+            else p
+        dv[:, j] = torch.matmul(p_v.transpose(1, 2), doj)
+        del p_v
+        ds = torch.matmul(doj, vj.transpose(1, 2))
+        ds.sub_((doj * oj).sum(dim=-1, keepdim=True)).mul_(p)
+        del p
+        dq[:, heads] = (torch.matmul(ds, kj) * scale).view(B, G, Sq, D)
+        dk[:, j] = torch.matmul(ds.transpose(1, 2), qj) * scale
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: the forward is the kernel (its
+    plain version for CPU tensors) exactly as serving calls it, the
+    backward :func:`attention_backward`.  The JAX package's flash kernel
+    has no backward kernel, so neither has this.  It saves q, k, v and the
+    output; under activation checkpointing the forward runs again in the
+    recompute, so each launch counts there too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, dout.contiguous(),
+                                        causal=ctx.causal)
+        return dq, dk, dv, None

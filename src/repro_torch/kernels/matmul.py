@@ -33,7 +33,7 @@ import threading
 
 import torch
 
-from . import _build, ref
+from . import _build, ref, refuse_grad
 
 _ENTRY = {("simt", "vector", torch.float32): "repro_matmul_f32",
           ("simt", "scalar", torch.float32): "repro_matmul_f32_scalar",
@@ -65,7 +65,11 @@ def variant(dtype: torch.dtype, N: int, K: int, *,
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x @ y`` for row-major 2-D ``x (M, K)`` and ``y (K, N)`` of one dtype
-    (float32 or bfloat16 on the card) on one device."""
+    (float32 or bfloat16 on the card) on one device.  It raises when a
+    gradient is asked of it, on any device: the kernel has no backward."""
+    refuse_grad("matmul", x, y,
+                remedy="call it under torch.no_grad(); the Fig. 2 workload "
+                       "needs no gradient")
     if x.dim() != 2 or y.dim() != 2:
         raise ValueError(f"matmul takes 2-D tensors, got {tuple(x.shape)} "
                          f"and {tuple(y.shape)}")

@@ -13,7 +13,7 @@ import torch
 
 from . import flash_attention as _flash
 from . import matmul as _matmul
-from . import ref
+from . import needs_grad, ref
 from . import ssm_scan as _ssm_scan
 
 
@@ -31,10 +31,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of ``q (B, H, Sq, D)`` over ``k, v (B, KH, Sk, D)``; see
     :func:`repro_torch.kernels.flash_attention.flash_attention`.  Mirrors
     ``repro.kernels.ops.flash_attention`` without its TPU block sizes: the
-    kernel takes any ``Sq`` and ``Sk``."""
+    kernel takes any ``Sq`` and ``Sk``.  When autograd tracks the call,
+    ``impl="kernel"`` goes through the autograd Function
+    :class:`~repro_torch.kernels.flash_attention.FlashAttention` (the same
+    kernel forward, a backward in torch ops)."""
     if impl == "ref":
         return ref.attention(q, k, v, causal=causal)
     if impl == "kernel":
+        if needs_grad(q, k, v):
+            return _flash.FlashAttention.apply(q, k, v, causal)
         return _flash.flash_attention(q, k, v, causal=causal)
     raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")
 
@@ -47,9 +52,20 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 
     ``ssm_scan(x, dt, B, C, A)`` mirrors ``repro.kernels.ops.ssm_scan``
     (zero initial state, ``y`` in ``x.dtype``); ``h0`` and ``return_state``
-    carry the state the model needs."""
+    carry the state the model needs.  When autograd tracks the call, the
+    kernel has no gradient to give: on the CPU ``impl="kernel"`` runs the
+    plain version (which the wrapper would run there) under autograd, and
+    on the card it raises ``NotImplementedError`` (ROADMAP §1 item 10)."""
     if impl == "ref":
         return ref.ssm_scan(x, dt, B, C, A, h0, return_state=return_state)
+    if impl == "kernel" and needs_grad(x, dt, B, C, A, h0):
+        if x.device.type == "cpu":
+            return ref.ssm_scan(x, dt, B, C, A, h0,
+                                return_state=return_state)
+        raise NotImplementedError(
+            "Mamba1 training on the card needs a gradient through the "
+            "selective-scan kernel, which comes with ROADMAP §1 item 10; "
+            "impl='ref' differentiates the plain scan")
     if impl == "kernel":
         return _ssm_scan.ssm_scan(x, dt, B, C, A, h0,
                                   return_state=return_state)

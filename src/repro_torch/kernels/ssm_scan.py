@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, ref
+from . import _build, ref, refuse_grad
 
 _ENTRY = {torch.float32: "repro_ssm_scan_f32",
           torch.bfloat16: "repro_ssm_scan_bf16"}
@@ -39,7 +39,14 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     also the float32 final state ``(Bsz, D, N)`` (``h0`` when ``S == 0``).
     On the card ``x, dt, B, C`` are float32 or bfloat16, all of one dtype,
     ``A`` and ``h0`` float32, every tensor contiguous, and ``1 <= N <= 32``.
+    It raises when a gradient is asked of it, on any device: the kernel has
+    no backward yet.
     """
+    refuse_grad("ssm_scan", x, dt, B, C, A, h0,
+                remedy="Mamba1 training on the card, a gradient through the "
+                       "scan, is ROADMAP §1 item 10; on the CPU "
+                       "repro_torch.kernels.ops.ssm_scan differentiates the "
+                       "plain version")
     if x.dim() != 3 or dt.shape != x.shape:
         raise ValueError(f"x and dt must be (Bsz, S, D), got "
                          f"{tuple(x.shape)} and {tuple(dt.shape)}")

@@ -1,6 +1,7 @@
 """The port's launchers (``repro/launch/`` in the reference).
 
-Ported so far: ``serve.py`` (continuous-batching serving of the Mamba1 and
+Ported so far: ``train.py`` and ``steps.py`` (training on one device),
+``serve.py`` (continuous-batching serving of the Mamba1 and
 dense transformer families), ``backend.py`` (the thread and process
 backends of ``--show-graph``), ``remote.py`` (``repro-worker``: workers that
 dial a driver), ``driver.py`` (``repro-driver``: a checkpointed driver

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jax_ops, ref as jax_ref  # noqa: E402
@@ -222,3 +223,64 @@ def test_chip_smoke_expected_route_follows_dtype_and_head_dim(compute_dtype,
     assert chip_smoke.expected_route(get_config("qwen2-7b").reduced()) == \
         "simt"
     assert chip_smoke.expected_route(get_config("falcon-mamba-7b")) is None
+
+
+# The flash Function's gradient against jax.grad of the reference's plain
+# attention: causal and not, MHA, GQA and MQA, Sq != Sk.  float32 at the
+# forward's 2e-5 (of the largest gradient entry); bf16 at 2e-2, where the
+# backward rounds P to bf16 for dV as the wgmma forward rounds it.
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D", [(2, 4, 4, 33, 33, 16),
+                                            (2, 6, 2, 40, 40, 32),
+                                            (1, 4, 1, 17, 29, 8),
+                                            (1, 8, 2, 29, 17, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_function_gradient_matches_jax_grad(B, H, KH, Sq, Sk, D, causal,
+                                                  dtype):
+    q, k, v = _inputs(B, H, KH, Sq, Sk, D, dtype, seed=Sq + Sk + D)
+    dout = np.random.default_rng(D).standard_normal((B, H, Sq, D),
+                                                    dtype=np.float32)
+    if dtype == "bfloat16":
+        dout = dout.astype(jnp.bfloat16)
+
+    def loss(q, k, v):
+        out = jax_ref.attention(q, k, v, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * dout.astype(np.float32))
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                               for a in (q, k, v)))
+    tq, tk, tv = (t.requires_grad_() for t in _cpu((q, k, v)))
+    out = pt_ops.flash_attention(tq, tk, tv, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, (tq, tk, tv), _cpu([dout])[0])
+    tol = TOL[dtype]["rtol"]
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == tq.dtype and tuple(g.shape) == np.shape(w)
+        scale = np.abs(_f32(w)).max()
+        err = np.abs(_f32(g) - _f32(w)).max() / scale
+        assert err <= tol, (name, err)
+
+
+def test_flash_function_matches_autograd_of_the_plain_version():
+    q, k, v = (t.requires_grad_() for t in _cpu(_inputs(2, 4, 2, 21, 21, 8,
+                                                         seed=9)))
+    dout = torch.randn(2, 4, 21, 8, generator=torch.Generator().manual_seed(0))
+    got = torch.autograd.grad(pt_ops.flash_attention(q, k, v), (q, k, v),
+                              dout)
+    want = torch.autograd.grad(pt_ops.flash_attention(q, k, v, impl="ref"),
+                               (q, k, v), dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_wrapper_refuses_a_gradient():
+    """The wrapper raises on grad-requiring inputs before its CPU branch,
+    so the CPU shows what the card does; ops.flash_attention takes the
+    Function then, and the wrapper computes under no_grad."""
+    q, k, v = _cpu(_inputs(1, 4, 2, 8, 8, 16))
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        pt_flash.flash_attention(qg, k, v)
+    with torch.no_grad():
+        assert torch.equal(pt_flash.flash_attention(qg, k, v),
+                           pt_ref.attention(q, k, v))
+    assert pt_ops.flash_attention(qg, k, v).requires_grad

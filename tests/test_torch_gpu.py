@@ -660,3 +660,123 @@ def test_dense_prefill_launches_flash_per_layer_on_wgmma(cuda):
                              "simt": before["simt"]}
     assert fa.flash_attention.route_launches == after_prefill
     assert torch.isfinite(last).all() and torch.isfinite(step).all()
+
+
+# --------------------------------------------------------------------------
+# training: the flash Function's gradient, the wrappers' guard, a step
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D", [(1, 28, 4, 256, 256, 128),
+                                            (2, 8, 2, 100, 100, 64),
+                                            (1, 4, 1, 33, 70, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_gradient_matches_plain_autograd(cuda, B, H, KH, Sq,
+                                                        Sk, D, causal, dtype):
+    """dq, dk, dv through the Function (the kernel's forward on its route,
+    the backward in torch ops) against autograd of the plain version, each
+    within the forward's tolerance of the largest reference entry."""
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        cuda, B, H, KH, Sq, Sk, D, dtype, seed=Sq + Sk))
+    dout = torch.randn(B, H, Sq, D, device=cuda).to(dtype)
+    path = fa.route(dtype, D)
+    before = fa.flash_attention.route_launches[path]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.route_launches[path] == before + 1
+    want = torch.autograd.grad(ref.attention(q, k, v, causal=causal),
+                               (q, k, v), dout)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= TOL[dtype], err
+
+
+def test_kernel_wrappers_refuse_a_gradient_on_the_card(cuda):
+    from repro_torch.kernels import flash_attention as fa, matmul as mm, ops
+    from repro_torch.kernels import ssm_scan as scan
+    x = torch.ones(8, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        mm.matmul(x, x)
+    q = torch.ones(1, 2, 4, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attention(q, q, q)
+    xs = torch.ones(1, 3, 4, device=cuda, requires_grad=True)
+    bc = torch.ones(1, 3, 2, device=cuda)
+    A = -torch.ones(4, 2, device=cuda)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        scan.ssm_scan(xs, xs, bc, bc, A)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ops.ssm_scan(xs, xs, bc, bc, A)
+    with torch.no_grad():
+        assert torch.equal(mm.matmul(x, x), torch.full((8, 8), 8.0,
+                                                       device=cuda))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_reduced_train_step_kernel_matches_ref(cuda, compute_dtype):
+    """The reduced qwen2-7b's loss and gradients on the card with the flash
+    Function and with the plain attention: float32 (simt) within 1e-4 of
+    each leaf's largest entry; bf16 (wgmma) within 1e-2 of the loss and a
+    gradient cosine of 0.99 (the key bias, whose exact gradient is 0, is
+    noise in both and not compared)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import tree_flatten_with_paths
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
+                              compute_dtype=compute_dtype)
+    params = TF.init_params(cfg, 0, cuda)
+    b = SyntheticLMDataset(cfg.vocab_size, 64, 2, seed=0).batch_at(0)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in b.items()}
+    out = {}
+    for impl in ("kernel", "ref"):
+        before = fa.flash_attention.launches
+        (loss, _), grads = TF.value_and_grad(TF.make_loss_fn(
+            cfg, impl=impl))(params, batch)
+        out[impl] = (loss.item(), dict(tree_flatten_with_paths(grads)))
+        assert fa.flash_attention.launches - before == (
+            2 * cfg.n_layers if impl == "kernel" else 0)
+    (lk, gk), (lr, gr) = out["kernel"], out["ref"]
+    if compute_dtype == "float32":
+        assert lk == pytest.approx(lr, rel=1e-5)
+        for path, g in gk.items():
+            err = (g - gr[path]).abs().max() / gr[path].abs().max()
+            assert err <= 1e-4, (path, err)
+    else:
+        assert lk == pytest.approx(lr, rel=1e-2)
+        for path, g in gk.items():
+            if path.endswith("/bk"):
+                continue
+            cos = torch.nn.functional.cosine_similarity(
+                g.flatten(), gr[path].flatten(), dim=0)
+            assert cos >= 0.99, (path, cos)
+
+
+def test_train_launcher_show_graph_on_spawned_workers(cuda):
+    """``python -m repro_torch.launch.train`` on the card with
+    ``--show-graph --backend process``: CUDA is initialised by then, so the
+    worker spawns, rebuilds the reduced runtime from the recipe on the
+    card, and its step loss equals the loop's step-0 loss."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2-7b", "--reduced", "--device", "cuda", "--steps", "1",
+         "--batch", "2", "--seq", "16", "--show-graph", "--backend",
+         "process", "--graph-workers", "1", "--log-every", "1"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(src)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    traced = float(out.split("traced-driver step loss:")[1].split()[0])
+    step0 = float(out.split("step     0 loss")[1].split()[0])
+    assert traced == pytest.approx(step0, rel=1e-4)

@@ -292,3 +292,17 @@ def test_two_processes_share_one_build(tmp_path):
     assert [p.returncode for p in procs] == [0, 0]
     builds = (tmp_path / "builds").read_text().split()
     assert len(builds) == 1 and outs == builds * 2
+
+
+def test_matmul_wrapper_refuses_a_gradient():
+    """The kernel writes its output behind autograd's back, so a product
+    of grad-requiring inputs raises (on the CPU as on the card) instead of
+    returning a result with no gradient; under no_grad it computes."""
+    x = torch.ones(4, 3, requires_grad=True)
+    y = torch.ones(3, 2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        pt_matmul.matmul(x, y)
+    with torch.no_grad():
+        assert torch.equal(pt_matmul.matmul(x, y), torch.full((4, 2), 3.0))
+    assert torch.equal(pt_matmul.matmul(x.detach(), y),
+                       torch.full((4, 2), 3.0))

@@ -127,3 +127,27 @@ def test_wrapper_rejects_mismatched_inputs():
         pt_scan.ssm_scan(x, dt, B, C, A, torch.zeros(1, 16, 3))
     with pytest.raises(TypeError):
         pt_scan.ssm_scan(x, dt.double(), B, C, A)
+
+
+def test_ssm_scan_wrapper_refuses_a_gradient_and_ops_differentiates_on_cpu():
+    """The wrapper raises on grad-requiring inputs (before its CPU branch,
+    so on the CPU too); ops.ssm_scan differentiates the plain scan on the
+    CPU, and its gradient is the plain version's."""
+    rng = np.random.default_rng(11)
+    x, dt = (torch.from_numpy(rng.standard_normal((2, 5, 6),
+                                                  dtype=np.float32))
+             for _ in range(2))
+    B, C = (torch.from_numpy(rng.standard_normal((2, 5, 4),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    A = -torch.rand(6, 4)
+    dt = dt.abs()
+    xg = x.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        pt_scan.ssm_scan(xg, dt, B, C, A)
+    y = pt_ops.ssm_scan(xg, dt, B, C, A)
+    (g,) = torch.autograd.grad(y.sum(), xg)
+    xr = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        pt_ops.ssm_scan(xr, dt, B, C, A, impl="ref").sum(), xr)
+    assert torch.equal(g, want)
