@@ -114,17 +114,36 @@ Each phase prints one line; any failure raises and exits non-zero:
    the step seconds, tokens/s, peak device memory and the flash forwards'
    device ms in each step; then the same 4 steps from the same draw with
    the plain attention, whose losses the kernel's must meet within
-   TRAIN_TRAJ_TOL at every step.
+   TRAIN_TRAJ_TOL at every step; then Mamba1: (d) the scan's backward
+   kernel against the plain gradient (autograd of the plain scan, or
+   ``ref.ssm_scan_backward`` at the training shape) at falcon-mamba-7b's
+   training scan (2x2048x8192, N = 16), the long prefill's (1x2048x8192),
+   a ragged shape (3x1000x1000 with h0 and dh_final), N = 1 and N = 32, S
+   = 1 and the reduced config's (2x16x256): every gradient within 1e-4 of
+   its largest plain entry, two launches the same bits, with CUDA-event
+   times of the backward kernel, the SSMScan Function's forward + backward
+   and the plain backward beside the card's bound; (e) (b) for
+   falcon-mamba-7b: two scan forwards and one backward kernel launch a
+   layer a step; (f) (c) for falcon-mamba-7b at full width cut to 16 of
+   its 64 layers (2,217,676,800 parameters): the first-step limits, 4
+   steps with finite losses and 32 forward + 16 backward scan launches a
+   step (with the scan's forward and backward device ms), and the same 4
+   steps with the plain scan (autograd of the step-by-step loop) within
+   TRAIN_TRAJ_TOL; then the first step in float32 compute within
+   SCAN_F32_*, and a control, the kernel path reading Δ rounded to bf16,
+   which must break the float32 limits and TRAIN_TRAJ_TOL.
 
 With ``--profile`` it also profiles one decode step and two prefills of
-each served model and one full-width training step (device time by
-kernel, device busy share, and the device time of the port's own
+each served model and one full-width training step of each (device time
+by kernel, device busy share, and the device time of the port's own
 kernels).
 
 Then one JSON line of the kernels (``flash_attention``, headed by its
 wgmma kernel, counts the wrapper's launches on both routes, serving and
 training; ``flash_attention_simt`` is the CUDA-core kernel and its
-launches), and
+launches; ``ssm_scan`` counts serving and training forwards, and
+``ssm_scan_backward``, headed by the training shape, the backward kernel's
+launches in 11e and 11f), and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a card, or outside a checkout, it prints no result and exits 1.
@@ -179,10 +198,12 @@ SERVE_DECODE_STEPS = 28          # 4 requests x 7 decode steps each
 SERVE_FORWARDS = 3 + 4 + 28      # traced request + prefills + decode steps
 SERVE_PREFILLS = 1 + 4           # traced request + requests
 # (Bsz, S, D, N, with h0): the long prefill, one decode step and one
-# served prefill (from the cache's zero state) of falcon-mamba-7b, and a
-# ragged shape
+# served prefill (from the cache's zero state) of falcon-mamba-7b, a
+# ragged shape, and the training forwards of phases 11f (2 x 2048 tokens)
+# and 11e (the reduced config: 2 x 16 tokens, d_inner 256)
 SCAN_SHAPES = [(1, 2048, 8192, 16, False), (1, 1, 8192, 16, True),
-               (1, 12, 8192, 16, True), (3, 1000, 1000, 16, True)]
+               (1, 12, 8192, 16, True), (3, 1000, 1000, 16, True),
+               (2, 2048, 8192, 16, False), (2, 16, 256, 16, False)]
 # tests/test_kernels.py's ssm tolerances (rtol = atol)
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # (B, H, KH, Sq, Sk, D, causal): qwen2-7b's long prefill and a served
@@ -230,12 +251,43 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 4, 3e-4
 # bf16 compute: they differ by the wgmma route's bf16 rounding of P before
 # P V, carried through 8 layers.  Each limit is 10-20 times what four runs
 # on the H100 read, all alike: loss 1.31e-6 apart (relative), global
-# gradient norm 4.78e-5, least leaf cosine 0.9999917.
+# gradient norm 4.78e-5, least leaf cosine 0.9999917.  Phase 11f holds the
+# scan kernels to the same limits, where they read loss 5.4e-6, norm
+# 3.6e-5, least cosine 0.99979 (dt_proj); in bf16 compute they cannot tell
+# a scan that reads Δ rounded to bf16 (the control: 2.5e-6, 4.1e-5,
+# 0.99975), so 11f also compares the first step in float32 compute below.
 TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_COSINE_MIN = 2e-5, 1e-3, 0.9995
-# the kernel's and the plain attention's losses at each of the TRAIN_STEPS
+# the kernels' and the plain versions' losses at each of the TRAIN_STEPS
 # steps from the same draw, relative: about 10 times the H100's reading
-# (at most 9.6e-5, on the last step)
+# for qwen2-7b (at most 9.6e-5, on the last step); falcon-mamba-7b reads
+# at most 7.8e-4 (step 2) and the control at most 3.3e-3 (step 3), alike
+# in every run of the same code
 TRAIN_TRAJ_TOL = 1e-3
+# phase 11f's first step in float32 compute, kernel against plain scan:
+# the H100 reads loss 8.3e-8, norm 0, least cosine 0.9999996, so the bf16
+# rounding of each layer's output carries the gap in bf16 compute.  The
+# control reads 2.5e-7, 4.8e-7, 0.9999978 (dt_bias); each limit lies
+# between the two readings, and the control must break all three
+SCAN_F32_LOSS_TOL, SCAN_F32_NORM_TOL, SCAN_F32_COSINE_MIN = \
+    1.5e-7, 2e-7, 0.999999
+# phase 11d: (Bsz, S, D, N, with h0 and dh_final) of the scan gradient
+# checks: falcon-mamba-7b's training step (phase 11f), the long prefill's
+# scan, a ragged shape, N = 1 and N = 32, S = 1, and the reduced config's
+# training scan (phase 11e: 2 x 16 tokens, d_inner 256)
+SCAN_GRAD_SHAPES = [(2, 2048, 8192, 16, False), (1, 2048, 8192, 16, False),
+                    (3, 1000, 1000, 16, True), (2, 300, 1000, 1, True),
+                    (2, 300, 1000, 32, True), (2, 1, 8192, 16, True),
+                    (2, 16, 256, 16, False)]
+SCAN_GRAD_TOL = SCAN_TOL["float32"]   # of each gradient's largest entry
+# above this many (batch row, step, channel) cells the plain gradient is
+# ref.ssm_scan_backward: autograd of the plain loop would keep GBs of
+# per-step tensors
+SCAN_AUTOGRAD_CELLS = 2048 * 8192
+GRAD_NAMES = ("dx", "ddt", "dB", "dC", "dA", "dh0")
+# phase 11f: falcon-mamba-7b at full width cut to 16 of its 64 layers:
+# 35.5 GB of float32 parameters, gradients and AdamW moments (49.0 GB at 24
+# layers, 116.4 GB at 64)
+MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_N_PARAMS = 16, 2_217_676_800
 
 
 def fail(msg: str) -> None:
@@ -289,7 +341,8 @@ def phase_build() -> None:
             entry["smem_bytes"] = int(m.group(1)) if m else 0
     sources = {k["source"] for k in kernels}
     if sources != {"matmul.cu", "matmul_wgmma.cu", "ssm_scan.cu",
-                   "flash_attention.cu", "flash_attention_wgmma.cu"} or \
+                   "ssm_scan_bwd.cu", "flash_attention.cu",
+                   "flash_attention_wgmma.cu"} or \
             any("registers" not in k for k in kernels):
         fail(f"no ptxas report for every kernel:\n{_build.ptxas_report()}")
     line("build", {"seconds": seconds, "cached": cached,
@@ -1028,7 +1081,8 @@ def _reset(fn) -> None:
 
 
 # the port's kernels among a profile's device entries
-PORT_KERNEL = re.compile(r"\b(matmul|matmul_wgmma|ssm_scan|flash_attention|"
+PORT_KERNEL = re.compile(r"\b(matmul|matmul_wgmma|ssm_scan|ssm_scan_bwd|"
+                         r"flash_attention|"
                          r"flash_wgmma)_kernel\b")
 
 def expected_route(cfg):
@@ -1529,26 +1583,151 @@ def phase_train_grads(torch) -> list:
     return checks
 
 
-def phase_train_launcher(torch) -> collections.Counter:
-    """Phase 11b: the training launcher on the card at ``--reduced``:
-    tests/test_launchers.py's resume check (8 steps with a checkpoint every
-    5, an uninterrupted run to 12, a run resumed from step 5), then
-    ``--show-graph --backend thread`` (the traced step's loss equals the
-    loop's step-0 loss).  The reduced config computes in float32, so every
-    flash launch (two a layer a step under selective remat) is simt.
-    Returns the flash launches by route."""
+def scan_grad_bound(Bsz: int, S: int, D: int, N: int, with_states: bool):
+    """Least time the card could take for one scan backward in float32:
+    x, dt, dy, B, C, A (and h0, dh_final) read once and dx, ddt, dB, dC,
+    dA, dh0 written once at HBM bandwidth; or 20 float32 operations per
+    state element and step (the recomputed forward's 7, the exp counted as
+    one, and the backward's 13) at the CUDA cores' float32 peak."""
+    nbytes = 4 * (5 * Bsz * S * D + 4 * Bsz * S * N + 2 * D * N
+                  + (3 if with_states else 1) * Bsz * D * N)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 20.0 * Bsz * S * D * N / PEAK_FLOPS["float32"] * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def _plain_scan_autograd(torch, x, dt, B, C, A, h0, dy, dh):
+    """(dx, ddt, dB, dC, dA, dh0) by autograd of ref.ssm_scan."""
+    from repro_torch.kernels import ref
+    ins = [t.detach().clone().requires_grad_() for t in (x, dt, B, C, A)]
+    state = (h0 if h0 is not None else torch.zeros(
+        x.shape[0], x.shape[2], A.shape[1], device=x.device))
+    state = state.detach().clone().requires_grad_()
+    y, h = ref.ssm_scan(*ins, state, return_state=True)
+    outs, grads = ((y, h), (dy, dh)) if dh is not None else ((y,), (dy,))
+    return torch.autograd.grad(outs, ins + [state], grads)
+
+
+def phase_scan_grads(torch) -> list:
+    """Phase 11d: the scan's backward kernel against the plain gradient at
+    each SCAN_GRAD_SHAPES row, in float32 (the model widens the scan's
+    inputs): autograd of ref.ssm_scan, or ref.ssm_scan_backward above
+    SCAN_AUTOGRAD_CELLS.  Every gradient within SCAN_GRAD_TOL of its
+    largest plain entry and two launches the same bits; CUDA-event times
+    (mean of REPS after a warm-up) of the backward kernel's wrapper (the
+    launch and the torch sums of its per-block partials), of the SSMScan
+    Function's forward + backward and of the plain backward
+    (ref.ssm_scan_backward), beside the card's bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, ssm_scan as scan
+    from repro_torch.models.layers import ParamSpec, init_param
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = torch.device("cuda")
+    checks = []
+    for Bsz, S, D, N, with_states in SCAN_GRAD_SHAPES:
+        # dt and A as the model makes them (see phase_scan_kernels)
+        dt_bias = init_param(ParamSpec("smoke/dt_bias", (D,), "mamba_dt"),
+                             0, torch.float32, dev)
+        A = -torch.exp(init_param(ParamSpec("smoke/A_log", (D, N),
+                                            "mamba_A"), 0, torch.float32,
+                                  dev))
+        x = torch.randn(Bsz, S, D, generator=gen, device=dev)
+        dt = F.softplus(torch.randn(Bsz, S, D, generator=gen, device=dev)
+                        + dt_bias)
+        B = torch.randn(Bsz, S, N, generator=gen, device=dev)
+        C = torch.randn(Bsz, S, N, generator=gen, device=dev)
+        dy = torch.randn(Bsz, S, D, generator=gen, device=dev)
+        h0, dh = ((torch.randn(Bsz, D, N, generator=gen, device=dev),
+                   torch.randn(Bsz, D, N, generator=gen, device=dev))
+                  if with_states else (None, None))
+        args = (x, dt, B, C, A, h0, dy, dh)
+        what = f"ssm_scan gradient {(Bsz, S, D, N)} states={with_states}"
+        before = scan.ssm_scan_backward.launches
+        got = scan.ssm_scan_backward(*args)
+        again = scan.ssm_scan_backward(*args)
+        torch.cuda.synchronize()
+        if scan.ssm_scan_backward.launches != before + 2:
+            fail(f"{what}: no backward kernel launch")
+        if not all(_same(torch, g, a) for g, a in zip(got, again)):
+            fail(f"{what}: two launches gave different bits")
+        del again
+        autograd = Bsz * S * D <= SCAN_AUTOGRAD_CELLS
+        want = (_plain_scan_autograd(torch, *args) if autograd
+                else ref.ssm_scan_backward(*args))
+        errs = {n: _rel_err(g, w) for n, g, w in zip(GRAD_NAMES, got, want)}
+        abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if any(g.dtype != torch.float32 or g.shape != w.shape
+               for g, w in zip(got, want)) or \
+                max(errs.values()) > SCAN_GRAD_TOL:
+            fail(f"{what}: gradients {errs} relative to the plain "
+                 f"version's largest, tolerance {SCAN_GRAD_TOL}")
+        del got, want
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, dt, B, C, A)]
+        state = None if h0 is None else h0.detach().clone().requires_grad_()
+
+        def function():
+            y, h = scan.SSMScan.apply(*leaves, state)
+            outs, grads = ((y, h), (dy, dh)) if dh is not None \
+                else ((y,), (dy,))
+            return torch.autograd.grad(
+                outs, leaves + ([state] if state is not None else []), grads)
+        b_ms, b_by = scan_grad_bound(Bsz, S, D, N, with_states)
+        checks.append({
+            "shape": [Bsz, S, D, N], "states": with_states,
+            "dtype": "float32",
+            "plain": "autograd" if autograd else "ref.ssm_scan_backward",
+            "rel_err": errs, "max_abs_err": abs_err, "tol": SCAN_GRAD_TOL,
+            "same_bits": True,
+            "ms": cuda_ms(torch, lambda: scan.ssm_scan_backward(*args)),
+            "function_ms": cuda_ms(torch, function),
+            "plain_ms": cuda_ms(torch, lambda: ref.ssm_scan_backward(*args)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        c = checks[-1]
+        print(f"{what}: rel err {max(errs.values()):.3g} (tol "
+              f"{SCAN_GRAD_TOL}; plain {c['plain']}) | backward kernel "
+              f"{c['ms']:.4f} ms | Function fwd+bwd {c['function_ms']:.4f} "
+              f"ms | plain backward {c['plain_ms']:.3f} ms | bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del args, leaves, state, x, dt, B, C, dy, h0, dh
+    line("scan_grads", checks)
+    return checks
+
+
+def _train_kernels(cfg) -> dict:
+    """A model path's training kernels: each wrapper and its launches a
+    layer a step under selective remat.  Flash attention's forward runs
+    twice (the forward and the recompute); so does the scan's, and its
+    backward kernel once."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as scan
+    if _path_kernel(cfg) == "flash_attention":
+        return {fa.flash_attention: 2}
+    return {scan.ssm_scan: 2, scan.ssm_scan_backward: 1}
+
+
+def phase_train_launcher(torch, arch: str = DENSE_ARCH) -> dict:
+    """Phase 11b (qwen2-7b) and 11e (falcon-mamba-7b): the training
+    launcher on the card at ``--reduced``: tests/test_launchers.py's resume
+    check (8 steps with a checkpoint every 5, an uninterrupted run to 12, a
+    run resumed from step 5), then ``--show-graph --backend thread`` (the
+    traced step's loss equals the loop's step-0 loss).  The reduced configs
+    compute in float32, so every flash launch is simt.  Every path kernel
+    launches its ``_train_kernels`` count a layer a step.  Returns each
+    path kernel's launches by route, by wrapper name."""
     import shutil
     import tempfile
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train
-    cfg = get_config(DENSE_ARCH).reduced()
-    counter = fa.flash_attention
-    _reset(counter)
+    cfg = get_config(arch).reduced()
+    argv = ["--arch", arch] + TRAIN_LAUNCHER_ARGS[2:]
+    kernels = _train_kernels(cfg)
+    for fn in kernels:
+        _reset(fn)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         ck = os.path.join(tmp, "ck")
-        base = TRAIN_LAUNCHER_ARGS + ["--ckpt-every", "5"]
+        base = argv + ["--ckpt-every", "5"]
         t0 = time.perf_counter()
         r1 = train.main(base + ["--ckpt-dir", ck, "--steps", "8"])
         r_full = train.main(base + ["--ckpt-dir", os.path.join(tmp, "ref"),
@@ -1566,35 +1745,41 @@ def phase_train_launcher(torch) -> collections.Counter:
             r2["losses"], r_full["losses"][6:12], rtol=1e-4, atol=1e-5):
         fail(f"resumed from {r2['start_step']} with losses {r2['losses']}, "
              f"the uninterrupted run's {r_full['losses'][6:12]}")
-    g = train.main(TRAIN_LAUNCHER_ARGS + ["--steps", "1", "--show-graph",
-                                          "--backend", "thread"])
+    g = train.main(argv + ["--steps", "1", "--show-graph", "--backend",
+                           "thread"])
     if g["traced_loss"] is None or not math.isclose(
             g["traced_loss"], g["losses"][0], rel_tol=1e-4):
         fail(f"traced step loss {g['traced_loss']} != the loop's step-0 "
              f"loss {g['losses'][0]}")
     train._demo_runtime.cache_clear()
     steps_run = 8 + 12 + 6 + 1 + 1          # the last run: loop + traced
-    want = 2 * cfg.n_layers * steps_run
-    routes = _check_routes(counter, cfg, "reduced train launcher")
-    if counter.launches != want:
-        fail(f"reduced train launcher: {counter.launches} flash launches, "
-             f"expected {want}")
+    path = next(iter(kernels))
+    routes = _check_routes(path, cfg, "reduced train launcher")
+    for fn, per_layer in kernels.items():
+        want = per_layer * cfg.n_layers * steps_run
+        if fn.launches != want:
+            fail(f"reduced train launcher: {fn.launches} {fn.__name__} "
+                 f"launches, expected {want}")
     line("train_launcher", {
-        "argv": TRAIN_LAUNCHER_ARGS, "layers": cfg.n_layers,
+        "argv": argv, "layers": cfg.n_layers,
         "compute_dtype": cfg.compute_dtype, "steps_run": steps_run,
         "losses_8": r1["losses"], "losses_12": r_full["losses"],
         "resumed_losses": r2["losses"], "resume_s": resume_s,
         "traced_loss": g["traced_loss"], "loop_step0_loss": g["losses"][0],
-        "flash_launches": counter.launches, "launches_by_route": routes})
-    return _launch_routes(counter)
+        **({"flash_launches": path.launches}
+           if _path_kernel(cfg) == "flash_attention" else {}),
+        "launches": {fn.__name__: fn.launches for fn in kernels},
+        "launches_by_route": routes})
+    return {fn.__name__: _launch_routes(fn) for fn in kernels}
 
 
 @contextlib.contextmanager
-def timed_function_forwards(torch, fn_cls):
-    """Within the block, every forward of the autograd Function ``fn_cls``
-    (its kernel launch and output allocation) is bracketed by CUDA events;
-    yields the list of (start, end) pairs."""
-    inner = fn_cls.forward
+def timed_function_calls(torch, fn_cls, method: str = "forward"):
+    """Within the block, every call of the autograd Function ``fn_cls``'s
+    ``method`` (``forward``: its kernel launch and output allocation;
+    ``backward``) is bracketed by CUDA events; yields the list of (start,
+    end) pairs."""
+    inner = getattr(fn_cls, method)
     events = []
 
     def timed(ctx, *args):
@@ -1606,88 +1791,183 @@ def timed_function_forwards(torch, fn_cls):
         events.append((start, end))
         return out
 
-    fn_cls.forward = staticmethod(timed)
+    setattr(fn_cls, method, staticmethod(timed))
     try:
         yield events
     finally:
-        fn_cls.forward = staticmethod(inner)
+        setattr(fn_cls, method, staticmethod(inner))
 
 
-def phase_train_full(torch, profile: bool = False) -> collections.Counter:
-    """Phase 11c: qwen2-7b at full width and TRAIN_LAYERS layers (bf16
+def _first_step_gap(torch, got, want) -> dict:
+    """The gap between two first-step (loss, {leaf path: gradient}) pairs:
+    the losses' and global gradient norms' relative differences and each
+    leaf's cosine.  The key bias's gradient is 0 in exact arithmetic (q·bk
+    shifts every key's score alike), so both are rounding noise: its cosine
+    is reported and not compared."""
+    from repro_torch.optim import global_norm
+    norms = [global_norm(g).item() for _, g in (got, want)]
+    cosines = {}
+    for path, gg in got[1].items():
+        gg, gw = gg.float().flatten(), want[1][path].float().flatten()
+        cosines[path] = (torch.dot(gg, gw) / (gg.norm() * gw.norm())
+                         .clamp_min(1e-30)).item()
+    compared = {p: c for p, c in cosines.items() if not p.endswith("/bk")}
+    least = min(compared, key=compared.get)
+    return {"loss_rel_diff": abs(got[0] - want[0]) / abs(want[0]),
+            "grad_norms": norms,
+            "grad_norm_rel_diff": abs(norms[0] - norms[1]) / norms[1],
+            "min_cosine": compared[least], "min_cosine_leaf": least,
+            "cosines": cosines}
+
+
+def _within_limits(gap: dict, loss_tol: float, norm_tol: float,
+                   cosine_min: float) -> bool:
+    """Whether a first-step gap is within the given limits."""
+    return (gap["loss_rel_diff"] <= loss_tol
+            and gap["grad_norm_rel_diff"] <= norm_tol
+            and gap["min_cosine"] >= cosine_min)
+
+
+def _outside_each_limit(gap: dict, loss_tol: float, norm_tol: float,
+                        cosine_min: float) -> bool:
+    """Whether a first-step gap breaks every one of the given limits."""
+    return (gap["loss_rel_diff"] > loss_tol
+            and gap["grad_norm_rel_diff"] > norm_tol
+            and gap["min_cosine"] < cosine_min)
+
+
+@contextlib.contextmanager
+def _scan_reads_dt_in_bf16(torch):
+    """Within the block the Mamba1 block's scan reads Δ rounded to bf16
+    (the model computes it in float32): a scan of lower input precision,
+    phase 11f's control."""
+    from repro_torch.kernels import ops
+    inner = ops.ssm_scan
+
+    def rounded(x, dt, *args, **kwargs):
+        return inner(x, dt.to(torch.bfloat16).float(), *args, **kwargs)
+
+    ops.ssm_scan = rounded
+    try:
+        yield
+    finally:
+        ops.ssm_scan = inner
+
+
+def _train_cell(arch: str):
+    """Phase 11c's or 11f's model: the config cut in depth, its parameter
+    count, and the autograd Function of its path kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as scan
+    full = get_config(arch)
+    layers, n_params, fn_cls = (
+        (TRAIN_LAYERS, TRAIN_N_PARAMS, fa.FlashAttention) if arch == DENSE_ARCH
+        else (MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_N_PARAMS, scan.SSMScan))
+    cfg = dataclasses.replace(full, n_layers=layers,
+                              layer_plan=full.layer_plan[:layers])
+    return cfg, n_params, fn_cls
+
+
+def phase_train_full(torch, arch: str = DENSE_ARCH,
+                     profile: bool = False) -> dict:
+    """Phase 11c (qwen2-7b at TRAIN_LAYERS layers) and 11f (falcon-mamba-7b
+    at MAMBA_TRAIN_LAYERS): the published width cut in depth (bf16
     compute, selective remat), drawn on the card from seed 0, trained on
     SyntheticLMDataset(seed=0) batches of TRAIN_BATCH x TRAIN_SEQ.  First
-    one loss-and-gradient with the kernel and one with the plain attention
+    one loss-and-gradient with the kernels and one with the plain versions
     on the same parameters and batch; then TRAIN_STEPS steps of
     launch/steps.py's train step with make_optimizer's AdamW; with
     ``profile``, one more step under the profiler; then the same steps from
-    the same draw with the plain attention, whose losses the kernel's
-    steps must meet.  Returns the flash launches of the measured steps by
-    route."""
+    the same draw with the plain versions, whose losses the kernels' steps
+    must meet.  The dense model's losses must also fall over the steps.
+    The Mamba1 cell also reads the first step in float32 compute, kernel
+    and plain (within SCAN_F32_*), and a control, the kernel path reading
+    Δ rounded to bf16: its first step in both computes and its steps from
+    the same draw, which must break the float32 limits and TRAIN_TRAJ_TOL.
+    Returns each path kernel's launches in the measured steps by route, by
+    wrapper name."""
     import gc
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
     from repro_torch.models import transformer as TF
-    from repro_torch.optim import global_norm
     from repro_torch.optim.schedules import cosine_schedule
     from repro_torch.tree import tree_flatten_with_paths
-    full = get_config(DENSE_ARCH)
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS,
-                              layer_plan=full.layer_plan[:TRAIN_LAYERS])
+    cfg, n_params, fn_cls = _train_cell(arch)
+    dense = _path_kernel(cfg) == "flash_attention"
     if (cfg.compute_dtype, cfg.remat) != ("bfloat16", "selective"):
         fail(f"{cfg.name}: expected bf16 compute and selective remat")
-    counter = fa.flash_attention
-    route = expected_route(cfg)
-    per_step = 2 * cfg.n_layers          # the forward and the recompute
+    kernels = _train_kernels(cfg)
+    counter = next(iter(kernels))                # the forward kernel
+    per_step = {fn: k * cfg.n_layers for fn, k in kernels.items()}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = TF.init_params(cfg, 0, "cuda")
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     n = sum(t.numel() for _, t in tree_flatten_with_paths(params))
-    if n != TRAIN_N_PARAMS or n != TF.count_params(cfg):
-        fail(f"{cfg.name} at {TRAIN_LAYERS} layers: {n} parameters, "
-             f"expected {TRAIN_N_PARAMS}")
+    if n != n_params or n != TF.count_params(cfg):
+        fail(f"{cfg.name} at {cfg.n_layers} layers: {n} parameters, "
+             f"expected {n_params}")
     ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
 
     def batch_at(s):
         return {k: torch.as_tensor(v, device="cuda")
                 for k, v in ds.batch_at(s).items()}
 
-    # the kernel's and the plain attention's first-step gradients
-    grads, losses = {}, {}
+    def launched():
+        return {fn.__name__: fn.launches for fn in kernels}
+
+    def first_step(run_cfg, impl="kernel"):
+        t0 = time.perf_counter()
+        (total, _), g = TF.value_and_grad(TF.make_loss_fn(
+            run_cfg, impl=impl))(params, batch_at(0))
+        return (total.item(), dict(tree_flatten_with_paths(g)),
+                time.perf_counter() - t0)
+
+    # the kernels' and the plain versions' first-step gradients
+    grads, losses, first_s = {}, {}, {}
     for impl in ("kernel", "ref"):
-        _reset(counter)
-        (total, _), g = TF.value_and_grad(TF.make_loss_fn(cfg, impl=impl))(
-            params, batch_at(0))
-        losses[impl] = total.item()
-        grads[impl] = dict(tree_flatten_with_paths(g))
-        want = per_step if impl == "kernel" else 0
-        if counter.launches != want:
-            fail(f"{impl} loss-and-gradient: {counter.launches} flash "
-                 f"launches, expected {want}")
-    norms = {impl: global_norm(g).item() for impl, g in grads.items()}
-    cosines = {}
-    for path, gk in grads["kernel"].items():
-        gr = grads["ref"][path].float()
-        gk = gk.float()
-        cosines[path] = (torch.dot(gk.flatten(), gr.flatten())
-                         / (gk.norm() * gr.norm()).clamp_min(1e-30)).item()
-    del grads, gk, gr
+        for fn in kernels:
+            _reset(fn)
+        losses[impl], grads[impl], first_s[impl] = first_step(cfg, impl)
+        want = {fn.__name__: (k if impl == "kernel" else 0)
+                for fn, k in per_step.items()}
+        if launched() != want:
+            fail(f"{impl} loss-and-gradient: launches {launched()}, "
+                 f"expected {want}")
+    plain = (losses["ref"], grads["ref"])
+    gap = _first_step_gap(torch, (losses["kernel"], grads["kernel"]), plain)
+    witness = {}
+    if not dense:
+        # the Mamba1 cell's gap, read three times more: the control (the
+        # kernel path reading Δ rounded to bf16), and the kernel and the
+        # control in float32 compute, where no bf16 rounding of a layer's
+        # output carries a last-bit difference through the depth
+        del grads["kernel"]
+        with _scan_reads_dt_in_bf16(torch):
+            loss, g, seconds = first_step(cfg)
+        witness["control"] = {**_first_step_gap(torch, (loss, g), plain),
+                              "seconds": seconds}
+        del g, grads, plain
+        gc.collect()
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        plain = first_step(cfg32, "ref")
+        for name in ("float32", "float32_control"):
+            with (_scan_reads_dt_in_bf16(torch) if name.endswith("control")
+                  else contextlib.nullcontext()):
+                loss, g, seconds = first_step(cfg32)
+            witness[name] = {**_first_step_gap(torch, (loss, g), plain[:2]),
+                             "seconds": [seconds, plain[2]]}
+            del g
+        del plain
+    else:
+        del grads, plain
     gc.collect()
     torch.cuda.empty_cache()
-    loss_diff = abs(losses["kernel"] - losses["ref"]) / abs(losses["ref"])
-    norm_diff = abs(norms["kernel"] - norms["ref"]) / norms["ref"]
-    # the key bias's gradient is 0 in exact arithmetic (q·bk shifts every
-    # key's score alike), so both are rounding noise: not compared
-    compared = {p: c for p, c in cosines.items() if not p.endswith("/bk")}
-    if not (math.isfinite(losses["kernel"]) and loss_diff <= TRAIN_LOSS_TOL
-            and norm_diff <= TRAIN_NORM_TOL
-            and min(compared.values()) >= TRAIN_COSINE_MIN):
-        fail(f"kernel vs plain first step: losses {losses}, grad norms "
-             f"{norms}, cosines {cosines}")
+    if not (math.isfinite(losses["kernel"]) and _within_limits(
+            gap, TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_COSINE_MIN)):
+        fail(f"kernel vs plain first step: losses {losses}, {gap}")
 
     compare_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1697,29 +1977,39 @@ def phase_train_full(torch, profile: bool = False) -> collections.Counter:
         TRAIN_LR, 1, TRAIN_STEPS))
     state = opt.init(params)
     step = steps.make_train_step(cfg, opt)
-    step_losses, step_s, flash_ms = [], [], []
-    _reset(counter)
+    step_losses, step_s, fwd_ms, bwd_ms = [], [], [], []
+    for fn in kernels:
+        _reset(fn)
     for s in range(TRAIN_STEPS):
         batch = batch_at(s)
         torch.cuda.synchronize()
-        with timed_function_forwards(torch, fa.FlashAttention) as events:
+        with contextlib.ExitStack() as timing:
+            fwd = timing.enter_context(
+                timed_function_calls(torch, fn_cls))
+            bwd = (None if dense else timing.enter_context(
+                timed_function_calls(torch, fn_cls, "backward")))
             t0 = time.perf_counter()
             params, state, metrics = step(params, state, batch)
             step_losses.append(metrics["total_loss"].item())
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-        flash_ms.append(events_ms(torch, events))
-        if len(events) != per_step or counter.launches != per_step * (s + 1):
-            fail(f"train step {s}: {len(events)} flash forwards, "
-                 f"{counter.launches} launches so far, expected {per_step} "
-                 f"a step")
-    routes = dict(_check_routes(counter, cfg, f"{cfg.name} train steps"))
+        fwd_ms.append(events_ms(torch, fwd))
+        if bwd is not None:
+            bwd_ms.append(events_ms(torch, bwd))
+        want = {fn.__name__: k * (s + 1) for fn, k in per_step.items()}
+        if len(fwd) != per_step[counter] or launched() != want:
+            fail(f"train step {s}: {len(fwd)} {fn_cls.__name__} forwards, "
+                 f"launches so far {launched()}, expected {want}")
+    routes = dict(_check_routes(counter, cfg, f"{cfg.name} train steps")
+                  or {"simt": counter.launches})
     if not all(math.isfinite(x) for x in step_losses) or \
-            not step_losses[-1] < step_losses[0]:
-        fail(f"train losses {step_losses}: not finite and falling")
+            (dense and not step_losses[-1] < step_losses[0]):
+        fail(f"train losses {step_losses}: not finite"
+             + (" and falling" if dense else ""))
     median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
     steps_peak = torch.cuda.max_memory_allocated()
-    step_launches, launches = counter.launches, _launch_routes(counter)
+    step_launches = launched()
+    launches = {fn.__name__: _launch_routes(fn) for fn in kernels}
     if profile:
         batch = batch_at(TRAIN_STEPS)
         profile_line(torch, f"profile_{cfg.name}_train_step",
@@ -1728,23 +2018,26 @@ def phase_train_full(torch, profile: bool = False) -> collections.Counter:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the same steps from the same draw with the plain attention: the
-    # train step's body (launch/steps.py) over make_loss_fn(impl="ref")
+    # the same steps from the same draw with the plain versions: the train
+    # step's body (launch/steps.py) over make_loss_fn(impl="ref")
     torch.cuda.reset_peak_memory_stats()
     params = TF.init_params(cfg, 0, "cuda")
     opt = steps.make_optimizer(cfg, lr=cosine_schedule(
         TRAIN_LR, 1, TRAIN_STEPS))
     state = opt.init(params)
     plain_grad_fn = TF.value_and_grad(TF.make_loss_fn(cfg, impl="ref"))
-    plain_losses = []
-    _reset(counter)
+    plain_losses, plain_s = [], []
+    for fn in kernels:
+        _reset(fn)
     for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
         (total, _), g = plain_grad_fn(params, batch_at(s))
         state = opt.update(g, state, params)
         plain_losses.append(total.item())
+        plain_s.append(time.perf_counter() - t0)
         del g
-    if counter.launches:
-        fail(f"plain train steps: {counter.launches} flash launches")
+    if any(launched().values()):
+        fail(f"plain train steps: launches {launched()}")
     plain_peak = torch.cuda.max_memory_allocated()
     traj_diff = [abs(k - p) / abs(p) for k, p in zip(step_losses,
                                                       plain_losses)]
@@ -1755,36 +2048,70 @@ def phase_train_full(torch, profile: bool = False) -> collections.Counter:
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
+    if not dense:
+        # the control's steps: the kernel path reading Δ in bf16, from the
+        # same draw, against the plain steps
+        params = TF.init_params(cfg, 0, "cuda")
+        opt = steps.make_optimizer(cfg, lr=cosine_schedule(
+            TRAIN_LR, 1, TRAIN_STEPS))
+        state = opt.init(params)
+        step = steps.make_train_step(cfg, opt)
+        control_losses = []
+        with _scan_reads_dt_in_bf16(torch):
+            for s in range(TRAIN_STEPS):
+                params, state, metrics = step(params, state, batch_at(s))
+                control_losses.append(metrics["total_loss"].item())
+        witness["control"]["losses"] = control_losses
+        witness["control"]["losses_rel_diff"] = [
+            abs(c - p) / abs(p) for c, p in zip(control_losses,
+                                                 plain_losses)]
+        del params, state, metrics, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    dims = ({"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+             "d_ff": cfg.d_ff} if dense else
+            {"d_inner": cfg.d_inner, "state": cfg.ssm_state})
+    timings = ({"flash_launches": step_launches["flash_attention"],
+                "launches_by_route": routes,
+                "flash_forward_ms_per_step": fwd_ms} if dense else
+               {"launches": step_launches,
+                "scan_forward_ms_per_step": fwd_ms,
+                "scan_backward_ms_per_step": bwd_ms,
+                "first_step_s": first_s, "plain_step_s": plain_s,
+                "witness": witness})
     out = {
         "arch": cfg.name, "layers": cfg.n_layers, "n_params": n,
-        "d_model": cfg.d_model, "heads": cfg.n_heads,
-        "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+        "d_model": cfg.d_model, **dims,
         "vocab": cfg.vocab_size, "compute_dtype": cfg.compute_dtype,
         "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "lr": TRAIN_LR, "draw_s": draw_s,
         "first_step": {"loss_kernel": losses["kernel"],
-                       "loss_plain": losses["ref"],
-                       "loss_rel_diff": loss_diff, "loss_tol": TRAIN_LOSS_TOL,
-                       "grad_norm_kernel": norms["kernel"],
-                       "grad_norm_plain": norms["ref"],
-                       "grad_norm_rel_diff": norm_diff,
+                       "loss_plain": losses["ref"], **gap,
+                       "loss_tol": TRAIN_LOSS_TOL,
                        "grad_norm_tol": TRAIN_NORM_TOL,
-                       "min_cosine": min(compared.values()),
-                       "cosine_min_allowed": TRAIN_COSINE_MIN,
-                       "cosines": cosines},
+                       "cosine_min_allowed": TRAIN_COSINE_MIN},
         "losses": step_losses, "plain_losses": plain_losses,
         "losses_rel_diff": traj_diff, "losses_tol": TRAIN_TRAJ_TOL,
         "step_s": step_s,
         "median_step_s": median_s,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_s,
-        "flash_launches": step_launches, "launches_by_route": routes,
-        "flash_forward_ms_per_step": flash_ms,
+        **timings,
         # the training steps' peak, the first-step comparison's (two
-        # gradient trees at once) and the plain attention's steps'
+        # gradient trees at once) and the plain versions' steps'
         "peak_device_bytes": steps_peak,
         "peak_device_bytes_compare": compare_peak,
         "peak_device_bytes_plain_steps": plain_peak}
     line("train_full", out)
+    if not dense:
+        f32 = (SCAN_F32_LOSS_TOL, SCAN_F32_NORM_TOL, SCAN_F32_COSINE_MIN)
+        if not _within_limits(witness["float32"], *f32):
+            fail(f"kernel vs plain first step in float32 compute: "
+                 f"{witness['float32']}, limits {f32}")
+        if not _outside_each_limit(witness["float32_control"], *f32) or \
+                max(witness["control"]["losses_rel_diff"]) <= TRAIN_TRAJ_TOL:
+            fail(f"the limits do not tell a scan reading Δ in bf16: "
+                 f"{witness['float32_control']}, trajectory "
+                 f"{witness['control']['losses_rel_diff']}")
     return launches
 
 
@@ -1819,8 +2146,16 @@ def main() -> int:
     flash_launches = phase_model(torch, DENSE_ARCH, DENSE_N_PARAMS, profile)
     # phase 11, training: qwen2-7b's serving parameters are freed by now
     phase_train_grads(torch)
-    flash_launches += phase_train_launcher(torch)
-    flash_launches += phase_train_full(torch, profile)
+    flash_launches += phase_train_launcher(torch)["flash_attention"]
+    flash_launches += phase_train_full(torch, profile=profile)[
+        "flash_attention"]
+    # 11d-11f: Mamba1 training, through the scan's backward kernel
+    scan_grad_checks = phase_scan_grads(torch)
+    bwd_launches = collections.Counter()
+    for run in (phase_train_launcher(torch, ARCH),
+                phase_train_full(torch, ARCH, profile)):
+        scan_launches += run["ssm_scan"]
+        bwd_launches += run["ssm_scan_backward"]
 
     def entry(kernel, source, replaces, launches, routes, check, all_checks):
         return {"name": kernel, "route": "cuda",
@@ -1846,6 +2181,9 @@ def main() -> int:
     long_checks = {c["route"]: c for c in flash_checks
                    if c["shape"][:4] == [1, 28, 4, LONG_PROMPT]
                    and c["aligned"]}
+    # the backward kernel's headline: falcon-mamba-7b's training step
+    train_scan_check = next(c for c in scan_grad_checks
+                            if c["shape"][:2] == [TRAIN_BATCH, TRAIN_SEQ])
     # flash_attention: the wrapper's launches on both routes, headed by the
     # tensor-core kernel of the bf16 long prefill, as in earlier runs;
     # flash_attention_simt: the CUDA-core kernel and its own launches
@@ -1856,6 +2194,11 @@ def main() -> int:
         entry("ssm_scan", "ssm_scan.cu", "src/repro/kernels/ssm_scan.py:48",
               scan_launches["simt"], scan_launches, decode_check,
               scan_checks),
+        # the TPU kernel has no backward: the JAX package differentiates
+        # its jnp scan, selective_scan
+        entry("ssm_scan_backward", "ssm_scan_bwd.cu",
+              "src/repro/models/ssm.py:74", bwd_launches["simt"],
+              bwd_launches, train_scan_check, scan_grad_checks),
         entry("flash_attention", "flash_attention_wgmma.cu", flash,
               sum(flash_launches.values()), flash_launches,
               long_checks["wgmma"], flash_checks),

@@ -8,8 +8,10 @@ first use.  Nothing here imports a compiler or touches the card at import.
 import sys
 from typing import Dict
 
-#: the kernel wrappers, by module and function name
-KERNELS = ("matmul", "ssm_scan", "flash_attention")
+#: the kernel wrappers: (module, function name)
+KERNELS = (("matmul", "matmul"), ("ssm_scan", "ssm_scan"),
+           ("ssm_scan", "ssm_scan_backward"),
+           ("flash_attention", "flash_attention"))
 
 
 def needs_grad(*tensors) -> bool:
@@ -32,13 +34,14 @@ def refuse_grad(name: str, *tensors, remedy: str) -> None:
 
 def launch_counts() -> Dict[str, int]:
     """This process's kernel launches so far: ``name`` for each wrapper that
-    has been imported, and ``name/route`` (``matmul/simt``,
-    ``flash_attention/wgmma``, ...) and ``name/variant`` (``matmul/vector``)
-    for its counts by route and load variant.  Imports nothing: a process
-    that never loaded a wrapper launched none of its kernel."""
+    has been imported (``ssm_scan_backward`` for the scan's backward
+    kernel), and ``name/route`` (``matmul/simt``, ``flash_attention/wgmma``,
+    ...) and ``name/variant`` (``matmul/vector``) for its counts by route
+    and load variant.  Imports nothing: a process that never loaded a
+    wrapper launched none of its kernel."""
     counts: Dict[str, int] = {}
-    for name in KERNELS:
-        mod = sys.modules.get(f"{__name__}.{name}")
+    for module, name in KERNELS:
+        mod = sys.modules.get(f"{__name__}.{module}")
         if mod is None:
             continue
         fn = getattr(mod, name)

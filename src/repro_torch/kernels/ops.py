@@ -52,21 +52,17 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 
     ``ssm_scan(x, dt, B, C, A)`` mirrors ``repro.kernels.ops.ssm_scan``
     (zero initial state, ``y`` in ``x.dtype``); ``h0`` and ``return_state``
-    carry the state the model needs.  When autograd tracks the call, the
-    kernel has no gradient to give: on the CPU ``impl="kernel"`` runs the
-    plain version (which the wrapper would run there) under autograd, and
-    on the card it raises ``NotImplementedError`` (ROADMAP §1 item 10)."""
+    carry the state the model needs.  When autograd tracks the call,
+    ``impl="kernel"`` goes through the autograd Function
+    :class:`~repro_torch.kernels.ssm_scan.SSMScan` on every device (the
+    same kernel forward, the backward kernel); ``impl="ref"`` is autograd
+    of the plain scan."""
     if impl == "ref":
         return ref.ssm_scan(x, dt, B, C, A, h0, return_state=return_state)
-    if impl == "kernel" and needs_grad(x, dt, B, C, A, h0):
-        if x.device.type == "cpu":
-            return ref.ssm_scan(x, dt, B, C, A, h0,
-                                return_state=return_state)
-        raise NotImplementedError(
-            "Mamba1 training on the card needs a gradient through the "
-            "selective-scan kernel, which comes with ROADMAP §1 item 10; "
-            "impl='ref' differentiates the plain scan")
     if impl == "kernel":
+        if needs_grad(x, dt, B, C, A, h0):
+            y, h = _ssm_scan.SSMScan.apply(x, dt, B, C, A, h0)
+            return (y, h) if return_state else y
         return _ssm_scan.ssm_scan(x, dt, B, C, A, h0,
                                   return_state=return_state)
     raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")

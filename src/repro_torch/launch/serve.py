@@ -180,6 +180,8 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-parallel ways (only 1 on one device)")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the CUDA card; "
                          "'cpu' runs the kernels' plain versions)")
@@ -198,6 +200,10 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     add_backend_args(ap)
     args = ap.parse_args(argv)
     validate_backend_args(args)
+    if args.tp != 1:
+        raise NotImplementedError(
+            f"--tp {args.tp}: tensor parallelism is intra-op SPMD, which "
+            f"comes with ROADMAP §1 item 8; the port serves on one device")
 
     cfg = get_config(args.arch)
     if args.reduced:

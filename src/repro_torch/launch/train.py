@@ -24,11 +24,12 @@ pickles into spawned workers, which rebuild the runtime from the recipe.
 They are taken from the module imported as ``repro_torch.launch.train``,
 never from ``__main__`` (which they would pickle as when this file runs
 with ``python -m``), as ``launch/serve.py`` takes its own.
-This slice trains the dense transformer family on the card and the CPU,
-and Mamba1 on the CPU (its scan kernel has no backward yet: ROADMAP §1
-item 10); ``--tp`` takes only 1 (intra-op SPMD is item 8).
+This slice trains the dense transformer family and Mamba1 on the card
+and the CPU (Mamba1's gradient goes through the scan's backward kernel on
+the card); ``--tp`` takes only 1 (intra-op SPMD is ROADMAP §1 item 8).
 
-CPU example (reduced qwen2-family config):
+CPU example (reduced qwen2-family config; ``--arch falcon-mamba-7b`` for
+Mamba1, and without ``--device cpu`` on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --reduced --device cpu --steps 8 --batch 2 --seq 16
 """

@@ -73,7 +73,9 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     reference does.  The inputs are widened to float32 and made contiguous
     here (``Bc`` and ``Cc`` are column slices of ``x_proj``'s output): the
     kernel takes contiguous tensors, not strides.  ``impl="ref"`` runs the
-    plain version instead of the kernel.
+    plain version instead of the kernel.  Under autograd the kernel path
+    differentiates through ``SSMScan`` (the scan's backward kernel on the
+    card), the plain one through autograd of the plain scan.
     """
     xs, dt, Bc, Cc = (t.float().contiguous() for t in (xs, dt, Bc, Cc))
     h0 = None if h0 is None else h0.float().contiguous()

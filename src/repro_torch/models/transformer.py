@@ -14,8 +14,8 @@ Training (``forward(train=True)``, ``make_loss_fn``; the train step is
 ``torch.autograd.grad`` over the parameter leaves (:func:`value_and_grad`),
 functional like ``jax.value_and_grad``.  With
 ``impl="kernel"`` the attention's gradient goes through the flash kernel's
-autograd Function; Mamba1 trains on the CPU only (the scan kernel has no
-backward yet, ROADMAP §1 item 10).
+autograd Function, and Mamba1's through the scan's (``SSMScan``: the scan
+kernel forward, the scan's backward kernel).
 
 This slice runs the dense transformer family (qwen2-7b, qwen3-14b,
 granite-20b, yi-9b, llava-next-34b's backbone) and the attention-free

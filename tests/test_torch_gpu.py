@@ -437,6 +437,92 @@ def test_forward_on_the_card_matches_the_cpu(cuda):
     assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
+# (Bsz, S, D, N, with h0 and dh_final): the training step's scan
+# (falcon-mamba-7b at 2 x 2048 tokens), the long prefill's, a ragged one,
+# N = 1 and N = 32, S = 1, S = 0, a chunk and a step (the backward kernel
+# keeps the state every 16 steps), and the reduced config's (2 x 16, d_inner
+# 256)
+SCAN_GRAD_SHAPES = [(2, 2048, 8192, 16, False), (1, 2048, 8192, 16, False),
+                    (3, 1000, 1000, 16, True), (2, 37, 100, 1, True),
+                    (1, 130, 17, 32, True), (2, 1, 64, 16, True),
+                    (2, 0, 64, 16, True), (1, 17, 33, 9, True),
+                    (2, 16, 256, 16, False)]
+
+
+def _scan_grad_args(cuda, Bsz, S, D, N, with_states):
+    x, dt, B, C, A, h0 = _scan_inputs(cuda, Bsz, S, D, N, torch.float32,
+                                      with_states, seed=S + D + N)
+    g = torch.Generator(device=cuda).manual_seed(S * N + 1)
+    dy = torch.randn(Bsz, S, D, generator=g, device=cuda)
+    dh = (torch.randn(Bsz, D, N, generator=g, device=cuda)
+          if with_states else None)
+    return x, dt, B, C, A, h0, dy, dh
+
+
+@pytest.mark.parametrize("Bsz,S,D,N,with_states", SCAN_GRAD_SHAPES)
+def test_ssm_scan_backward_kernel_matches_plain_version(cuda, Bsz, S, D, N,
+                                                        with_states):
+    """The backward kernel against ref.ssm_scan_backward: every gradient
+    within 1e-4 of its largest plain entry (the scan's float32 tolerance;
+    the two differ in the exp, the kernel's ex2.approx, and in summation
+    order), and two launches give the same bits."""
+    from repro_torch.kernels import ref, ssm_scan as scan
+    args = _scan_grad_args(cuda, Bsz, S, D, N, with_states)
+    before = scan.ssm_scan_backward.launches
+    got = scan.ssm_scan_backward(*args)
+    again = scan.ssm_scan_backward(*args)
+    torch.cuda.synchronize()
+    assert scan.ssm_scan_backward.launches == before + 2
+    want = ref.ssm_scan_backward(*args)
+    for name, g, a, w in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), got,
+                             again, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32)), name
+        if w.numel():
+            err = (g - w).abs().max() / w.abs().max().clamp_min(1e-30)
+            assert err <= SCAN_TOL[torch.float32], (name, err)
+    if S == 0:
+        assert torch.equal(got[5], args[7])
+
+
+def test_ssm_scan_function_gradient_matches_plain_autograd(cuda):
+    """SSMScan on the card (the scan kernel, then its backward kernel)
+    against autograd of the plain scan, bf16 inputs included (gradients
+    computed in float32 and cast back)."""
+    from repro_torch.kernels import ops, ref, ssm_scan as scan
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, B, C, A, h0 = _scan_inputs(cuda, 2, 77, 96, 16, dtype, True)
+        dy = torch.randn(2, 77, 96, device=cuda).to(dtype)
+        grads = {}
+        for impl in ("kernel", "ref"):
+            ins = [t.clone().requires_grad_() for t in (x, dt, B, C, A, h0)]
+            y = ops.ssm_scan(*ins, impl=impl)
+            grads[impl] = torch.autograd.grad(y, ins, dy)
+        for g, w in zip(grads["kernel"], grads["ref"]):
+            assert g.dtype == w.dtype
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err <= SCAN_TOL[dtype], err
+
+
+def test_ssm_scan_backward_wrapper_rejects_what_it_cannot_take(cuda):
+    from repro_torch.kernels import ssm_scan as scan
+    x, dt, B, C, A, h0, dy, dh = _scan_grad_args(cuda, 1, 8, 16, 4, True)
+    bf = [t.to(torch.bfloat16) for t in (x, dt, B, C)]
+    with pytest.raises(TypeError):
+        scan.ssm_scan_backward(*bf, A, h0, dy, dh)
+    with pytest.raises(TypeError):
+        scan.ssm_scan_backward(x, dt, B, C, A, h0, dy.double(), dh)
+    with pytest.raises(ValueError):
+        scan.ssm_scan_backward(x, dt, B, C, A, h0, dy.cpu(), dh)
+    with pytest.raises(ValueError):
+        scan.ssm_scan_backward(x, dt, B, C, A, h0,
+                               dy.transpose(1, 2).contiguous()
+                               .transpose(1, 2), dh)
+    big = _scan_grad_args(cuda, 1, 2, 16, 33, False)
+    with pytest.raises(ValueError):
+        scan.ssm_scan_backward(*big)                       # N > 32
+
+
 # ------------------------------------------------------- flash attention
 
 def _attn_inputs(device, B, H, KH, Sq, Sk, D, dtype, seed=0):
@@ -709,39 +795,55 @@ def test_kernel_wrappers_refuse_a_gradient_on_the_card(cuda):
     A = -torch.ones(4, 2, device=cuda)
     with pytest.raises(RuntimeError, match="requires grad"):
         scan.ssm_scan(xs, xs, bc, bc, A)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ops.ssm_scan(xs, xs, bc, bc, A)
+    # ops.ssm_scan differentiates through SSMScan: both kernels launch
+    before = (scan.ssm_scan.launches, scan.ssm_scan_backward.launches)
+    y = ops.ssm_scan(xs, xs, bc, bc, A)
+    assert type(y.grad_fn).__name__ == "SSMScanBackward"
+    (g,) = torch.autograd.grad(y.sum(), xs)
+    torch.cuda.synchronize()
+    assert g.shape == xs.shape and bool(torch.isfinite(g).all())
+    assert (scan.ssm_scan.launches, scan.ssm_scan_backward.launches) == (
+        before[0] + 1, before[1] + 1)
     with torch.no_grad():
         assert torch.equal(mm.matmul(x, x), torch.full((8, 8), 8.0,
                                                        device=cuda))
 
 
+@pytest.mark.parametrize("arch", ["qwen2-7b", "falcon-mamba-7b"])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_reduced_train_step_kernel_matches_ref(cuda, compute_dtype):
-    """The reduced qwen2-7b's loss and gradients on the card with the flash
-    Function and with the plain attention: float32 (simt) within 1e-4 of
-    each leaf's largest entry; bf16 (wgmma) within 1e-2 of the loss and a
-    gradient cosine of 0.99 (the key bias, whose exact gradient is 0, is
-    noise in both and not compared)."""
+def test_reduced_train_step_kernel_matches_ref(cuda, compute_dtype, arch):
+    """The reduced model's loss and gradients on the card with the kernels'
+    Functions and with the plain versions (qwen2-7b: the flash Function;
+    falcon-mamba-7b: SSMScan, the scan kernel forward and its backward
+    kernel): float32 within 1e-4 of each leaf's largest entry; bf16 compute
+    within 1e-2 of the loss and a gradient cosine of 0.99 (the key bias,
+    whose exact gradient is 0, is noise in both and not compared).  Under
+    selective remat each layer's kernel forward runs twice (forward and
+    recompute) and the scan's backward kernel once."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as scan
     from repro_torch.models import transformer as TF
     from repro_torch.tree import tree_flatten_with_paths
-    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               compute_dtype=compute_dtype)
     params = TF.init_params(cfg, 0, cuda)
     b = SyntheticLMDataset(cfg.vocab_size, 64, 2, seed=0).batch_at(0)
     batch = {k: torch.as_tensor(v, device=cuda) for k, v in b.items()}
+    counters = ((fa.flash_attention,) if arch == "qwen2-7b"
+                else (scan.ssm_scan, scan.ssm_scan_backward))
+    per_step = (2 * cfg.n_layers,) if arch == "qwen2-7b" else (
+        2 * cfg.n_layers, cfg.n_layers)
     out = {}
     for impl in ("kernel", "ref"):
-        before = fa.flash_attention.launches
+        before = [c.launches for c in counters]
         (loss, _), grads = TF.value_and_grad(TF.make_loss_fn(
             cfg, impl=impl))(params, batch)
         out[impl] = (loss.item(), dict(tree_flatten_with_paths(grads)))
-        assert fa.flash_attention.launches - before == (
-            2 * cfg.n_layers if impl == "kernel" else 0)
+        assert [c.launches - n for c, n in zip(counters, before)] == (
+            list(per_step) if impl == "kernel" else [0] * len(counters))
     (lk, gk), (lr, gr) = out["kernel"], out["ref"]
     if compute_dtype == "float32":
         assert lk == pytest.approx(lr, rel=1e-5)

@@ -88,6 +88,24 @@ def test_dense_arch_serves_on_the_cpu_without_kernel_launches():
             pt_scan.ssm_scan.launches) == before
 
 
+@pytest.mark.parametrize("tp", ["1", "2"])
+def test_serve_takes_the_references_tp_flag(tp):
+    """The reference's ``--tp`` (``repro/launch/serve.py:114``): ``--tp 1``,
+    its default, serves as before; more ways raise, naming the item that
+    brings intra-op SPMD, as the training launcher does."""
+    argv = ["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
+            "--requests", "1", "--max-new", "2"]
+    if tp == "1":
+        got = serve.main(argv + ["--tp", tp])
+        want = serve.main(argv)
+        assert len(got["finished"]) == 1
+        assert [r.out for r in got["finished"]] == \
+            [r.out for r in want["finished"]]
+    else:
+        with pytest.raises(NotImplementedError, match="item 8"):
+            serve.main(argv + ["--tp", tp])
+
+
 @pytest.mark.parametrize("arch", ["dbrx-132b", "zamba2-7b"])
 def test_unported_arch_raises_naming_roadmap_item_7(arch):
     with pytest.raises(NotImplementedError, match="§1 item 7"):
