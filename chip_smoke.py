@@ -49,7 +49,9 @@ Each phase prints one line; any failure raises and exits non-zero:
 5. ssm_scan — the selective-scan kernel against its plain version at the
    long-prefill shape (1x2048x8192, N = 16), a decode step (S = 1, with
    ``h0``) and a ragged shape (3x1000x1000, with ``h0``), in float32 and
-   bfloat16, with CUDA-event times beside the card's bound;
+   bfloat16, with CUDA-event times beside the card's bound; also the
+   states it keeps for training (the state before every 16 steps) against
+   the plain version's, and its time keeping them;
 6. serve — falcon-mamba-7b at full width (64 layers, 7,272,665,088
    float32 parameters drawn on the card from a seed) served by the port's
    launcher, ``repro_torch.launch.serve.main``, with a traced request on
@@ -120,9 +122,12 @@ Each phase prints one line; any failure raises and exits non-zero:
    training scan (2x2048x8192, N = 16), the long prefill's (1x2048x8192),
    a ragged shape (3x1000x1000 with h0 and dh_final), N = 1 and N = 32, S
    = 1 and the reduced config's (2x16x256): every gradient within 1e-4 of
-   its largest plain entry, two launches the same bits, with CUDA-event
-   times of the backward kernel, the SSMScan Function's forward + backward
-   and the plain backward beside the card's bound; (e) (b) for
+   its largest plain entry, the kernel given the forward kernel's states
+   the bits of the wrapper's standalone route, two launches the same bits,
+   with CUDA-event times of the backward kernel given the states, of the
+   standalone route (forward kernel, then backward kernel), of the SSMScan
+   Function's forward + backward and of the plain backward beside the
+   card's bounds; (e) (b) for
    falcon-mamba-7b: two scan forwards and one backward kernel launch a
    layer a step; (f) (c) for falcon-mamba-7b at full width cut to 16 of
    its 64 layers (2,217,676,800 parameters): the first-step limits, 4
@@ -899,35 +904,47 @@ def phase_scan_kernels(torch) -> list:
             dname = str(dtype).removeprefix("torch.")
             args = [t.to(dtype) for t in (x, dt, B, C)] + [A, h0]
             y, h = scan.ssm_scan(*args, return_state=True)
-            want_y, want_h = ref.ssm_scan(*args, return_state=True)
+            states = scan.ssm_scan(*args, return_states=True)[2]
+            want_y, want_h, want_states = ref.ssm_scan(*args,
+                                                       return_states=True)
             torch.cuda.synchronize()
             tol = SCAN_TOL[dname]
             err_y = (y.float() - want_y.float()).abs().max().item()
             err_h = (h - want_h).abs().max().item()
+            # the states are float32 from inputs widened exactly: the
+            # float32 tolerance in either input type
+            err_s = (states - want_states).abs().max().item()
             ok = (y.dtype == dtype and h.dtype == torch.float32
                   and torch.allclose(y.float(), want_y.float(), rtol=tol,
                                      atol=tol)
-                  and torch.allclose(h, want_h, rtol=tol, atol=tol))
+                  and torch.allclose(h, want_h, rtol=tol, atol=tol)
+                  and torch.allclose(states, want_states,
+                                     rtol=SCAN_TOL["float32"],
+                                     atol=SCAN_TOL["float32"]))
             if not ok:
                 fail(f"ssm_scan {dname} {(Bsz, S, D, N)} h0={with_h0}: "
                      f"kernel disagrees with the plain version, max |err| "
-                     f"y {err_y}, h_final {err_h}")
+                     f"y {err_y}, h_final {err_h}, states {err_s}")
             b_ms, b_by = scan_bound(Bsz, S, D, N, dtype.itemsize, with_h0)
             checks.append({
                 "shape": [Bsz, S, D, N], "h0": with_h0, "dtype": dname,
                 "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
-                "max_abs_err_h": err_h, "tol": tol,
+                "max_abs_err_h": err_h, "max_abs_err_states": err_s,
+                "tol": tol,
                 "ms": cuda_ms(torch, lambda: scan.ssm_scan(
                     *args, return_state=True)),
+                "states_ms": cuda_ms(torch, lambda: scan.ssm_scan(
+                    *args, return_states=True)),
                 "plain_ms": cuda_ms(torch, lambda: ref.ssm_scan(
                     *args, return_state=True), reps=2 if S > 64 else REPS),
                 "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
             print(f"ssm_scan {dname} {Bsz}x{S}x{D} N={N} h0={with_h0}: "
                   f"err {checks[-1]['max_abs_err']:.3g} (tol {tol}) | "
-                  f"kernel {checks[-1]['ms']:.4f} ms | plain "
+                  f"kernel {checks[-1]['ms']:.4f} ms, keeping the states "
+                  f"{checks[-1]['states_ms']:.4f} ms | plain "
                   f"{checks[-1]['plain_ms']:.3f} ms | bound {b_ms:.4f} ms "
                   f"({b_by})", flush=True)
-            del args, y, h, want_y, want_h
+            del args, y, h, states, want_y, want_h, want_states
     line("ssm_scan_vs_plain", checks)
     return checks
 
@@ -1583,14 +1600,17 @@ def phase_train_grads(torch) -> list:
     return checks
 
 
-def scan_grad_bound(Bsz: int, S: int, D: int, N: int, with_states: bool):
+def scan_grad_bound(Bsz: int, S: int, D: int, N: int, with_states: bool,
+                    given_states: bool = False):
     """Least time the card could take for one scan backward in float32:
-    x, dt, dy, B, C, A (and h0, dh_final) read once and dx, ddt, dB, dC,
+    x, dt, dy, B, C, A (and h0, dh_final; with ``given_states`` the
+    forward's states, one every 16 steps) read once and dx, ddt, dB, dC,
     dA, dh0 written once at HBM bandwidth; or 20 float32 operations per
     state element and step (the recomputed forward's 7, the exp counted as
     one, and the backward's 13) at the CUDA cores' float32 peak."""
     nbytes = 4 * (5 * Bsz * S * D + 4 * Bsz * S * N + 2 * D * N
-                  + (3 if with_states else 1) * Bsz * D * N)
+                  + (3 if with_states else 1) * Bsz * D * N
+                  + (Bsz * -(-S // 16) * D * N if given_states else 0))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 20.0 * Bsz * S * D * N / PEAK_FLOPS["float32"] * 1e3
     return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
@@ -1613,11 +1633,14 @@ def phase_scan_grads(torch) -> list:
     each SCAN_GRAD_SHAPES row, in float32 (the model widens the scan's
     inputs): autograd of ref.ssm_scan, or ref.ssm_scan_backward above
     SCAN_AUTOGRAD_CELLS.  Every gradient within SCAN_GRAD_TOL of its
-    largest plain entry and two launches the same bits; CUDA-event times
-    (mean of REPS after a warm-up) of the backward kernel's wrapper (the
-    launch and the torch sums of its per-block partials), of the SSMScan
-    Function's forward + backward and of the plain backward
-    (ref.ssm_scan_backward), beside the card's bound."""
+    largest plain entry; the kernel given the forward kernel's states (as
+    SSMScan gives them) the same bits as the wrapper's standalone route
+    (which launches the forward kernel for them), and two launches the
+    same bits.  CUDA-event times (mean of REPS after a warm-up) of the
+    backward kernel given the states (``ms``: its launch and the sum of its
+    partials), of the standalone route, of the SSMScan Function's forward
+    + backward and of the plain backward given the same states
+    (ref.ssm_scan_backward), beside the card's bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref, ssm_scan as scan
     from repro_torch.models.layers import ParamSpec, init_param
@@ -1643,14 +1666,19 @@ def phase_scan_grads(torch) -> list:
         args = (x, dt, B, C, A, h0, dy, dh)
         what = f"ssm_scan gradient {(Bsz, S, D, N)} states={with_states}"
         before = scan.ssm_scan_backward.launches
-        got = scan.ssm_scan_backward(*args)
-        again = scan.ssm_scan_backward(*args)
+        states = scan.ssm_scan(x, dt, B, C, A, h0, return_states=True)[2]
+        got = scan.ssm_scan_backward(*args, states=states)
+        again = scan.ssm_scan_backward(*args, states=states)
+        alone = scan.ssm_scan_backward(*args)
         torch.cuda.synchronize()
-        if scan.ssm_scan_backward.launches != before + 2:
+        if scan.ssm_scan_backward.launches != before + 3:
             fail(f"{what}: no backward kernel launch")
         if not all(_same(torch, g, a) for g, a in zip(got, again)):
             fail(f"{what}: two launches gave different bits")
-        del again
+        if not all(_same(torch, g, a) for g, a in zip(got, alone)):
+            fail(f"{what}: given the forward's states, the kernel gave "
+                 f"other bits than the standalone route")
+        del again, alone
         autograd = Bsz * S * D <= SCAN_AUTOGRAD_CELLS
         want = (_plain_scan_autograd(torch, *args) if autograd
                 else ref.ssm_scan_backward(*args))
@@ -1672,24 +1700,32 @@ def phase_scan_grads(torch) -> list:
                 else ((y,), (dy,))
             return torch.autograd.grad(
                 outs, leaves + ([state] if state is not None else []), grads)
-        b_ms, b_by = scan_grad_bound(Bsz, S, D, N, with_states)
+        b_ms, b_by = scan_grad_bound(Bsz, S, D, N, with_states, True)
+        alone_ms, alone_by = scan_grad_bound(Bsz, S, D, N, with_states)
         checks.append({
             "shape": [Bsz, S, D, N], "states": with_states,
             "dtype": "float32",
             "plain": "autograd" if autograd else "ref.ssm_scan_backward",
             "rel_err": errs, "max_abs_err": abs_err, "tol": SCAN_GRAD_TOL,
             "same_bits": True,
-            "ms": cuda_ms(torch, lambda: scan.ssm_scan_backward(*args)),
+            "ms": cuda_ms(torch, lambda: scan.ssm_scan_backward(
+                *args, states=states)),
+            "standalone_ms": cuda_ms(
+                torch, lambda: scan.ssm_scan_backward(*args)),
             "function_ms": cuda_ms(torch, function),
-            "plain_ms": cuda_ms(torch, lambda: ref.ssm_scan_backward(*args)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+            "plain_ms": cuda_ms(torch, lambda: ref.ssm_scan_backward(
+                *args, states=states)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "standalone_bound_ms": alone_ms, "standalone_bound_by": alone_by})
         c = checks[-1]
         print(f"{what}: rel err {max(errs.values()):.3g} (tol "
               f"{SCAN_GRAD_TOL}; plain {c['plain']}) | backward kernel "
-              f"{c['ms']:.4f} ms | Function fwd+bwd {c['function_ms']:.4f} "
-              f"ms | plain backward {c['plain_ms']:.3f} ms | bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
-        del args, leaves, state, x, dt, B, C, dy, h0, dh
+              f"given the states {c['ms']:.4f} ms (bound {b_ms:.4f} ms, "
+              f"{b_by}) | standalone {c['standalone_ms']:.4f} ms (bound "
+              f"{alone_ms:.4f} ms, {alone_by}) | Function fwd+bwd "
+              f"{c['function_ms']:.4f} ms | plain backward "
+              f"{c['plain_ms']:.3f} ms", flush=True)
+        del args, leaves, state, states, x, dt, B, C, dy, h0, dh
     line("scan_grads", checks)
     return checks
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's CUDA-core matmul, selective-scan and flash-attention kernels
-of two or more checkouts on one card, in turns, and compare their outputs bit
-for bit.
+"""Time the port's CUDA-core matmul, selective-scan (forward and backward) and
+flash-attention kernels of two or more checkouts on one card, in turns, and
+compare their outputs bit for bit.
 
     python3 kernel_ab.py parent=build/ab/parent change=. [--prefill [mamba] [dense]]
+        [--kernels matmul ssm_scan ssm_scan_backward flash_attention]
 
 Each ``NAME=DIR`` names the root of a checkout (its ``src/repro_torch``
 builds its own kernels under ``DIR/build``).  The checkouts run in the order
@@ -16,6 +17,13 @@ run, on the same seeded inputs:
   and 1000x1528x776 float32, 1000x1531x777 bf16;
 - ssm_scan: ``chip_smoke.SCAN_SHAPES`` in float32 and bf16, with the model's
   dt and A;
+- ssm_scan_backward: every ``chip_smoke.SCAN_GRAD_SHAPES`` row in float32,
+  as ``chip_smoke.phase_scan_grads`` draws it: the wrapper's standalone
+  call (``ms``: in a checkout whose forward kernel keeps states, the forward
+  launch that makes them and the backward kernel), and, where the wrapper
+  takes the forward's ``states``, the backward kernel given them
+  (``ms_given_states``); each gradient's largest error against
+  ``ref.ssm_scan_backward`` relative to its largest entry, and its SHA-256;
 - flash_attention: every ``chip_smoke.FLASH_SHAPES`` row in float32 (the
   simt route) and in bf16 through the simt route (q, k, v one element past
   a 16-byte boundary), and qwen2-7b's long prefill in bf16 on the wgmma
@@ -29,7 +37,8 @@ run, on the same seeded inputs:
 Kernel times are CUDA-event means over ``chip_smoke.REPS`` launches after a
 warm-up; each output's largest error against the plain version
 (``kernels/ref.py``) is recorded, and its SHA-256 tells whether two
-checkouts computed the same bits.  It prints the card's ``nvidia-smi`` name
+checkouts computed the same bits.  ``--kernels`` names the groups to run
+(default: all four).  It prints the card's ``nvidia-smi`` name
 and power limit, one JSON line per run and a summary line, and writes them
 to ``--out`` (default ``build/kernel_ab.json``).  It needs a CUDA card and
 imports nothing of the JAX package.
@@ -46,15 +55,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 # --prefill NAME -> (arch, compute dtype or None for the config's own)
 PREFILLS = {"mamba": ("falcon-mamba-7b", None), "dense": ("qwen2-7b", "float32")}
+GROUPS = ["matmul", "ssm_scan", "ssm_scan_backward", "flash_attention"]
 MATMUL_SHAPES = [(4096, 4096, 4096, "float32"), (1000, 1531, 777, "float32"),
                  (1000, 1528, 776, "float32"), (1000, 1531, 777, "bfloat16")]
 
 CHILD = r'''
 import hashlib, json, sys, time
 import torch
-root, smoke_dir, matmul_shapes, prefill = (sys.argv[1], sys.argv[2],
-                                           json.loads(sys.argv[3]),
-                                           json.loads(sys.argv[4]))
+root, smoke_dir, matmul_shapes, prefill, groups = (
+    sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), json.loads(sys.argv[4]),
+    json.loads(sys.argv[5]))
 sys.path.insert(0, root + "/src")
 sys.path.insert(0, smoke_dir)
 import chip_smoke as cs
@@ -72,7 +82,7 @@ def digest(*ts):
 
 gen = torch.Generator(device="cuda").manual_seed(0)
 out["matmul"] = []
-for M, N, K, dname in matmul_shapes:
+for M, N, K, dname in matmul_shapes if "matmul" in groups else []:
     dtype = getattr(torch, dname)
     x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
     y = torch.randn(K, N, generator=gen, device="cuda").to(dtype)
@@ -89,7 +99,7 @@ from repro_torch.models.layers import ParamSpec, init_param
 dev = torch.device("cuda")
 gen = torch.Generator(device="cuda").manual_seed(0)
 out["ssm_scan"] = []
-for Bsz, S, D, N, with_h0 in cs.SCAN_SHAPES:
+for Bsz, S, D, N, with_h0 in cs.SCAN_SHAPES if "ssm_scan" in groups else []:
     # as chip_smoke.phase_scan_kernels draws them
     dt_bias = init_param(ParamSpec("smoke/dt_bias", (D,), "mamba_dt"), 0,
                          torch.float32, dev)
@@ -115,6 +125,48 @@ for Bsz, S, D, N, with_h0 in cs.SCAN_SHAPES:
                 *args, return_state=True)),
             "sha256_y": digest(y), "sha256_h": digest(h)})
 
+# the backward kernel at every chip_smoke.SCAN_GRAD_SHAPES row, drawn as
+# chip_smoke.phase_scan_grads draws it
+import inspect
+out["ssm_scan_backward"] = []
+takes_states = "states" in inspect.signature(scan.ssm_scan_backward).parameters
+gen = torch.Generator(device="cuda").manual_seed(3)
+for Bsz, S, D, N, with_states in (cs.SCAN_GRAD_SHAPES
+                                  if "ssm_scan_backward" in groups else []):
+    dt_bias = init_param(ParamSpec("smoke/dt_bias", (D,), "mamba_dt"), 0,
+                         torch.float32, dev)
+    A = -torch.exp(init_param(ParamSpec("smoke/A_log", (D, N), "mamba_A"), 0,
+                              torch.float32, dev))
+    x = torch.randn(Bsz, S, D, generator=gen, device=dev)
+    dt = F.softplus(torch.randn(Bsz, S, D, generator=gen, device=dev)
+                    + dt_bias)
+    B = torch.randn(Bsz, S, N, generator=gen, device=dev)
+    C = torch.randn(Bsz, S, N, generator=gen, device=dev)
+    dy = torch.randn(Bsz, S, D, generator=gen, device=dev)
+    h0, dh = ((torch.randn(Bsz, D, N, generator=gen, device=dev),
+               torch.randn(Bsz, D, N, generator=gen, device=dev))
+              if with_states else (None, None))
+    args = (x, dt, B, C, A, h0, dy, dh)
+    got = scan.ssm_scan_backward(*args)
+    want = ref.ssm_scan_backward(*args)
+    torch.cuda.synchronize()
+    row = {"shape": [Bsz, S, D, N], "states": with_states,
+           "dtype": "float32",
+           "max_rel_err": max(
+               ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+               if w.numel() else 0.0 for g, w in zip(got, want)),
+           "ms": cs.cuda_ms(torch, lambda: scan.ssm_scan_backward(*args)),
+           "ms_given_states": None}
+    if takes_states:
+        states = scan.ssm_scan(x, dt, B, C, A, h0, return_states=True)[2]
+        row["ms_given_states"] = cs.cuda_ms(
+            torch, lambda: scan.ssm_scan_backward(*args, states=states))
+        del states
+    for name, g in zip(cs.GRAD_NAMES, got):
+        row["sha256_" + name] = digest(g)
+    out["ssm_scan_backward"].append(row)
+    del args, got, want, x, dt, B, C, dy, h0, dh
+
 # flash attention at every chip_smoke.FLASH_SHAPES row: float32 (the simt
 # route), bf16 through the simt route (q, k, v one element past a 16-byte
 # boundary, which the wgmma route cannot take) and, at the long prefill,
@@ -122,7 +174,8 @@ for Bsz, S, D, N, with_h0 in cs.SCAN_SHAPES:
 from repro_torch.kernels import flash_attention as fa
 
 out["flash_attention"] = []
-for B, H, KH, Sq, Sk, Dh, causal in cs.FLASH_SHAPES:
+for B, H, KH, Sq, Sk, Dh, causal in (cs.FLASH_SHAPES
+                                    if "flash_attention" in groups else []):
     q = torch.randn(B, H, Sq, Dh, generator=gen, device=dev)
     k = torch.randn(B, KH, Sk, Dh, generator=gen, device=dev)
     v = torch.randn(B, KH, Sk, Dh, generator=gen, device=dev)
@@ -200,6 +253,8 @@ def main() -> int:
                     "`mamba` (falcon-mamba-7b, the default) and `dense` "
                     "(qwen2-7b at compute_dtype float32: the simt flash "
                     "route, with the flash kernel's own time)")
+    ap.add_argument("--kernels", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="the kernel groups to run (default: all)")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds for each run")
     ap.add_argument("--out", type=Path,
@@ -228,7 +283,7 @@ def main() -> int:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-c", CHILD, root, str(ROOT), shapes,
-             json.dumps(prefills)],
+             json.dumps(prefills), json.dumps(args.kernels)],
             capture_output=True, text=True, timeout=args.timeout)
         result = next((json.loads(ln[7:]) for ln in proc.stdout.splitlines()
                        if ln.startswith("RESULT ")), None)
@@ -244,10 +299,10 @@ def main() -> int:
         """Per case: each run's time, and whether all runs' bits agree."""
         out = []
         for i, case in enumerate(runs[0][key]):
-            row = {k: case[k] for k in ("shape", "dtype", "h0", "causal", "route")
-                   if k in case}
+            row = {k: case[k] for k in ("shape", "dtype", "h0", "states",
+                                        "causal", "route") if k in case}
             for k in case:
-                if k == "ms" or k.startswith("max_"):
+                if k.startswith("ms") or k.startswith("max_"):
                     row[k] = {}
                     for r in runs:
                         row[k].setdefault(r["name"], []).append(r[key][i][k])
@@ -258,8 +313,7 @@ def main() -> int:
         return out
 
     summary = {"nvidia_smi": smi, "order": order,
-               "matmul": rows("matmul"), "ssm_scan": rows("ssm_scan"),
-               "flash_attention": rows("flash_attention")}
+               **{key: rows(key) for key in GROUPS}}
     for i, (arch, dtype) in enumerate(prefills):
         entry = {"arch": arch, "compute_dtype": dtype, "seconds": {},
                  "flash_ms": {}, "logits_bits_equal": len(

@@ -9,7 +9,10 @@
 // state h float32 (Bsz,D,N) starting from h0 (or zeros), returning y in the
 // input type and the final state.  Unlike the TPU kernel it takes any Bsz,
 // S >= 0 and D (ragged edges are masked), 1 <= N <= 32, h0, and returns
-// h_final.
+// h_final.  For training it can also keep `states` (Bsz, ceil(S / SCH), D,
+// N), the state before every chunk of SCH = 16 steps, from which the
+// backward kernel (ssm_scan_bwd.cu) recomputes h without a forward pass of
+// its own.
 //
 // Translation.  The TPU kernel tiles channels over a parallel grid axis and
 // carries the (bd, N) state in VMEM across a sequential chunk axis.  GPU
@@ -55,6 +58,10 @@
 //     before the time loop).
 //     Each thread's copy offsets are formed once; a chunk adds t0 rows.
 //
+// The states are stored only by the instantiation that keeps them (a
+// template flag), at the start of every second group of GS steps: serving
+// passes no `states` and runs the kernel without the store.
+//
 // Numbers.  The state update uses __fmul_rn/__fadd_rn, so it is not fused
 // into FMAs and rounds as the plain PyTorch version's elementwise ops do
 // (exp(dt*A) * h + (dt*x) * B); only the exp differs from its expf, by a
@@ -79,6 +86,7 @@ using simt::to_f32;
 constexpr int R = 4;      // states of one thread
 constexpr int CPB = 32;   // channels of one block
 constexpr int CH = 32;    // time steps of one staged chunk
+constexpr int SCH = 16;   // steps between two kept states (bwd's CH)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // G: lanes per channel (1, 2, 4 or 8).  One half of the double buffer holds
@@ -100,6 +108,7 @@ struct Shape {
                 "even split");
   static_assert((HALF * 4) % 16 == 0 && (XS * 4) % 16 == 0,
                 "16-byte reads of x, dt, B and C");
+  static_assert(CH % SCH == 0 && SCH % GS == 0, "states at group starts");
 };
 
 // One thread's share of a chunk's staging.  Element i of x and dt is step
@@ -220,13 +229,13 @@ __device__ __forceinline__ float reduce_scatter(float (&q)[G], int g) {
   return q[0];
 }
 
-template <typename T, int G>
+template <typename T, int G, bool kStates>
 __global__ void __launch_bounds__(Shape<G>::THREADS)
     ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                     const T* __restrict__ Bm, const T* __restrict__ Cm,
                     const float* __restrict__ A, const float* __restrict__ h0,
-                    T* __restrict__ y, float* __restrict__ h_final, int S,
-                    int D, int N) {
+                    T* __restrict__ y, float* __restrict__ h_final,
+                    float* __restrict__ states, int S, int D, int N) {
   using Sh = Shape<G>;
   constexpr int GS = Sh::GS;
   __shared__ __align__(16) float smem[2 * Sh::HALF];
@@ -252,6 +261,7 @@ __global__ void __launch_bounds__(Shape<G>::THREADS)
   }
 
   const int chunks = (S + CH - 1) / CH;
+  const size_t state_row = b * ((S + SCH - 1) / SCH);   // (b, 0) of states
   constexpr bool kAsync = std::is_same<T, float>::value;
   typename Stager<T, G>::Regs regs;
   if (chunks > 0) {
@@ -288,6 +298,17 @@ __global__ void __launch_bounds__(Shape<G>::THREADS)
     // groups of GS steps; steps past the chunk's end are zeros in shared
     // memory (dt = 0 leaves h as it is) and store nothing
     for (int t = 0; t < steps; t += GS) {
+      if constexpr (kStates) {
+        if (t % SCH == 0) {     // the state before step t0 + t
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int n = g * R + r;
+            if (d < D && n < N) {
+              states[((state_row + (t0 + t) / SCH) * D + d) * N + n] = h[r];
+            }
+          }
+        }
+      }
       float dtv[GS], xv[GS], part[GS];
 #pragma unroll
       for (int q = 0; q < GS; q += 4) {
@@ -340,17 +361,24 @@ __global__ void __launch_bounds__(Shape<G>::THREADS)
 
 template <typename T, int G>
 void launch_g(const T* x, const T* dt, const T* B, const T* C,
-              const float* A, const float* h0, T* y, float* h_final, int Bsz,
-              int S, int D, int N, cudaStream_t stream) {
+              const float* A, const float* h0, T* y, float* h_final,
+              float* states, int Bsz, int S, int D, int N,
+              cudaStream_t stream) {
   const dim3 grid((D + CPB - 1) / CPB, Bsz);
-  ssm_scan_kernel<T, G><<<grid, Shape<G>::THREADS, 0, stream>>>(
-      x, dt, B, C, A, h0, y, h_final, S, D, N);
+  if (states != nullptr) {
+    ssm_scan_kernel<T, G, true><<<grid, Shape<G>::THREADS, 0, stream>>>(
+        x, dt, B, C, A, h0, y, h_final, states, S, D, N);
+  } else {
+    ssm_scan_kernel<T, G, false><<<grid, Shape<G>::THREADS, 0, stream>>>(
+        x, dt, B, C, A, h0, y, h_final, states, S, D, N);
+  }
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* B, const void* C,
-           const void* A, const void* h0, void* y, void* h_final, int Bsz,
-           int S, int D, int N, int device, void* stream) {
+           const void* A, const void* h0, void* y, void* h_final,
+           void* states, int Bsz, int S, int D, int N, int device,
+           void* stream) {
   if (Bsz < 0 || S < 0 || D < 0 || N < 1 || N > 8 * R) {
     return cudaErrorInvalidValue;
   }
@@ -366,15 +394,16 @@ int launch(const void* x, const void* dt, const void* B, const void* C,
   const auto* h0p = static_cast<const float*>(h0);
   auto* yp = static_cast<T*>(y);
   auto* hp = static_cast<float*>(h_final);
+  auto* sp = static_cast<float*>(states);
   const auto s = static_cast<cudaStream_t>(stream);
   if (N <= R) {
-    launch_g<T, 1>(xp, dtp, bp, cp, ap, h0p, yp, hp, Bsz, S, D, N, s);
+    launch_g<T, 1>(xp, dtp, bp, cp, ap, h0p, yp, hp, sp, Bsz, S, D, N, s);
   } else if (N <= 2 * R) {
-    launch_g<T, 2>(xp, dtp, bp, cp, ap, h0p, yp, hp, Bsz, S, D, N, s);
+    launch_g<T, 2>(xp, dtp, bp, cp, ap, h0p, yp, hp, sp, Bsz, S, D, N, s);
   } else if (N <= 4 * R) {
-    launch_g<T, 4>(xp, dtp, bp, cp, ap, h0p, yp, hp, Bsz, S, D, N, s);
+    launch_g<T, 4>(xp, dtp, bp, cp, ap, h0p, yp, hp, sp, Bsz, S, D, N, s);
   } else {
-    launch_g<T, 8>(xp, dtp, bp, cp, ap, h0p, yp, hp, Bsz, S, D, N, s);
+    launch_g<T, 8>(xp, dtp, bp, cp, ap, h0p, yp, hp, sp, Bsz, S, D, N, s);
   }
   return cudaGetLastError();
 }
@@ -382,23 +411,25 @@ int launch(const void* x, const void* dt, const void* B, const void* C,
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers of
-// contiguous row-major tensors; h0 may be null (zeros).  `stream` is the
-// caller's cudaStream_t.  The call only queues the kernel and returns the
-// launch's cudaError_t.
+// contiguous row-major tensors; h0 may be null (zeros), and so may states
+// (float32, (Bsz, ceil(S / 16), D, N): not kept).  `stream` is the caller's
+// cudaStream_t.  The call only queues the kernel and returns the launch's
+// cudaError_t.
 extern "C" int repro_ssm_scan_f32(const void* x, const void* dt,
                                   const void* B, const void* C, const void* A,
                                   const void* h0, void* y, void* h_final,
-                                  int Bsz, int S, int D, int N, int device,
-                                  void* stream) {
-  return launch<float>(x, dt, B, C, A, h0, y, h_final, Bsz, S, D, N, device,
-                       stream);
+                                  void* states, int Bsz, int S, int D, int N,
+                                  int device, void* stream) {
+  return launch<float>(x, dt, B, C, A, h0, y, h_final, states, Bsz, S, D, N,
+                       device, stream);
 }
 
 extern "C" int repro_ssm_scan_bf16(const void* x, const void* dt,
                                    const void* B, const void* C,
                                    const void* A, const void* h0, void* y,
-                                   void* h_final, int Bsz, int S, int D,
-                                   int N, int device, void* stream) {
-  return launch<__nv_bfloat16>(x, dt, B, C, A, h0, y, h_final, Bsz, S, D, N,
-                               device, stream);
+                                   void* h_final, void* states, int Bsz,
+                                   int S, int D, int N, int device,
+                                   void* stream) {
+  return launch<__nv_bfloat16>(x, dt, B, C, A, h0, y, h_final, states, Bsz,
+                               S, D, N, device, stream);
 }

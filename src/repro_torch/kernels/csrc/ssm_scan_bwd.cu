@@ -14,65 +14,112 @@
 // all float32 (the model widens the scan's inputs to float32).  Its plain
 // version is src/repro_torch/kernels/ref.py::ssm_scan_backward.
 //
-// Work split: the forward kernel's (ssm_scan.cu).  A block holds CPB = 32
-// channels of one batch row, and G = 1, 2, 4 or 8 adjacent lanes hold a
-// channel's N <= 32 states, R = 4 a thread, in registers.  The reverse
-// recurrence needs h_{t-1} at every step, which the forward does not keep
-// (2.1 GB a layer at 2 x 2048 x 8192 x 16), so the kernel runs two passes:
-//   1. forward over the sequence, writing the state before every chunk of
-//      CH = 16 steps to `bounds` (Bsz, chunks, D, N): 134 MB at that shape;
-//   2. the chunks in reverse: stage the chunk's x, dt, dy, B and C into
-//      shared memory, recompute its h from the chunk's first state into
-//      shared memory (each thread keeps its own R states a step), then step
-//      g backward through the chunk.
-// Per step, dx and ddt are sums over a channel's G lanes (shuffles); dB and
-// dC are sums over all D channels, which span blocks: a block sums its
-// warps' channels (shuffles), then its warps in a fixed order, and writes
-// one partial per block (`dB_part`, `dC_part`: (blocks, Bsz, S, N)); dA is
-// summed per batch row (`dA_part`: (Bsz, D, N)).  The caller sums the
-// partials, so no float atomics: two launches give the same bits.
+// Work split.  A thread holds R = 4 states of one channel, G = 1, 2, 4 or
+// 8 adjacent lanes a channel's N <= 32 states, and a block CPB = 64
+// channels (32 at G = 8) of one batch row.  The reverse recurrence needs
+// h_{t-1} at every step; the forward kernel (ssm_scan.cu) keeps `states`,
+// the state before every chunk of CH = 16 steps (134 MB at 2 x 2048 x 8192
+// x 16), and the chunks run in reverse: each recomputes its 16 steps from
+// its state with the forward's exact operations, keeping a_t and h_{t-1}
+// of every step in registers (128 a thread: the chunk's loops are
+// unrolled), then steps g backward through them.
+//
+// The design answers what this kernel's first version (1.85 ms at
+// 2 x 2048 x 8192, 10 % of its bound) measured when each of its costs was
+// taken out on the card (scan_bwd_causes.py first): its synchronous
+// staging 0.47 ms, its 28 shuffles a thread and step 0.32 ms, its own
+// forward pass 0.32 ms, its three exps a state-step 0.07 ms, its partials'
+// stores 0.01 ms and torch sums 0.06 ms.  So:
+//   - no forward pass: the chunks start from the forward kernel's states;
+//   - one exp a state-step: the recompute keeps a_t, the backward reads it;
+//   - the next chunk (in reverse) of x, dt, dy, B, C and its state is
+//     staged with cp.async into the other half of a double buffer while
+//     the current one runs, one __syncthreads() a chunk;
+//   - a reduce-scatter, not a butterfly, as the forward reduces y: each
+//     step a lane's 8 terms of dB_t and dC_t become one sum over the
+//     warp's channels in 3 rounds (7 shuffles; a butterfly takes 24), and
+//     a channel's sum_n g B and sum_n A q one each over its G lanes in 2
+//     rounds (2 shuffles, against 4).  The rounds run from the lowest lane
+//     bit up, which pairs the lanes as the first version's butterfly did:
+//     dx and ddt keep its bits.  Rounds from the highest bit gave them
+//     other last bits, and 4 training steps of falcon-mamba-7b then read
+//     2.7e-3 from the plain scan's losses against TRAIN_TRAJ_TOL's 1e-3
+//     (chip_smoke.py 11f; 5.0e-4 in this order).  At the chunk's end the
+//     block sums its warps in a fixed order and writes one partial per
+//     block, (ceil(D / 64), Bsz, S, N), half the first version's; a
+//     second kernel sums them over the blocks (and dA over the batch) in
+//     a fixed order: no float atomics, so two launches give the same bits.
 //
 // What bounds it.  Each input read once and each output written once is
-// x, dt, dy, dx, ddt (134 MB each at 2 x 2048 x 8192 float32) and little
-// else: about 0.2 ms at 3.35 TB/s.  The work is about 20 float operations
-// and one exp per state and step (the recomputed forward, then the
-// backward), 10.7 GFLOP there, 0.16 ms at the CUDA cores' float32 peak;
-// the kernel also runs the forward a second time (pass 1) and reduces over
-// lanes with shuffles.  This first version is simple: its loads are
-// synchronous (other blocks on the SM hide them), and it is latency-bound.
+// x, dt, dy, dx, ddt (134 MB each at 2 x 2048 x 8192 float32) and the
+// states: 0.24 ms at 3.35 TB/s.  The kernel takes 0.88 ms there
+// (scan_bwd_causes.py redesign, an H100 at 700 W): the history's 209-225
+// registers a thread leave one block of 8 warps a SM (256 blocks: two
+// waves), which issue the unrolled chunk (most of the kernel's 2,168
+// instructions) on roughly half their cycles (instructions run over the
+// time taken).  Taking out the reduce-scatters measured 0.65 ms, all the
+// sums 0.54, the exps 0.87, the stores 0.86.  Chunks of 8 steps (a
+// smaller history) ran 1.00 ms, blocks of 32 channels (two a SM) 0.94;
+// in earlier revisions a_t kept in shared memory to fit 12 warps a SM ran
+// 1.19, and the sums through a per-warp shared-memory exchange 1.0-1.1:
+// the latency that 8 warps leave unhidden, not the issue rate, holds it.
 //
 // Numbers.  The exp and the state update are the forward kernel's:
 // ex2.approx on dt * (A log2 e), and __fmul_rn/__fadd_rn, so the recomputed
-// h equals the forward's bit for bit.  The sums over lanes and warps are
-// taken in a fixed order for a given N and D.
+// h equals the forward's bit for bit.  The sums over lanes, channels,
+// warps and blocks are taken in a fixed order for a given N and D.
 
-#include <cuda_runtime.h>
+#include "simt.cuh"
 
 #include <atomic>
 #include <cstddef>
 
 namespace {
 
+using simt::cp_async4;
+using simt::cp_async_commit;
+using simt::cp_async_wait;
+
 constexpr int R = 4;           // states of one thread
-constexpr int CPB = 32;        // channels of one block
-constexpr int CH = 16;         // time steps of one chunk
-constexpr int CHP = CH + 1;    // a channel's row of a chunk in shared memory
+constexpr int CH = 16;         // time steps of one chunk (ssm_scan.cu's SCH)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Shared memory of one block, in floats; the float4 sections come first.
+// Shared memory of one block, in floats; every section a multiple of 4.
 template <int G>
 struct Bwd {
+  static constexpr int CPB = G == 8 ? 32 : 64;    // channels of one block
   static constexpr int THREADS = CPB * G;
   static constexpr int WARPS = THREADS / 32;
-  static constexpr int NP = G * R;                // states padded to the lanes
-  static constexpr int HIST = CH * THREADS * R;   // h before each step
-  static constexpr int BC = CH * NP;              // the chunk's B or C
-  static constexpr int PART = WARPS * CH * NP;    // each warp's dB or dC
-  static constexpr int ROW = CPB * CHP;           // x, dt, dy, dx or ddt
+  static constexpr int CW = 32 / G;               // channels of one warp
+  static constexpr int NP = G * R;                // states padded to lanes
+  // staging, one half of the double buffer: x, dt and dy as
+  // [channel][step] rows of CHP (16-byte aligned), B and C as [step][NP],
+  // and the chunk's state, R floats a thread
+  static constexpr int CHP = CH + 4;
+  static constexpr int ROW = CPB * CHP;
+  static constexpr int BC = CH * NP;
+  static constexpr int HST = 3 * ROW + 2 * BC;
+  static constexpr int HALF = HST + THREADS * R;
+  // the chunk's two per-channel sums, [CPB][DSP] each, the second at SQ
+  // (16 floats past the first's end, so that the lanes writing one and
+  // the other fall on other banks); each warp's dB and dC, [CH][NP] each,
+  // dC at WQ (16 floats past dB's end, likewise)
+  static constexpr int DSP = CH + 1;
+  static constexpr int SQ = CPB * DSP + 16;
+  static constexpr int SUMS = SQ + CPB * DSP;
+  static constexpr int WQ = CH * NP + 16;
+  static constexpr int WPART = 2 * WQ;
   static constexpr size_t BYTES =
-      sizeof(float) * (HIST + 2 * BC + 2 * PART + 5 * ROW);
-  static_assert(THREADS % 32 == 0 && BC % 4 == 0, "float4 sections");
+      sizeof(float) * (2 * HALF + SUMS + WARPS * WPART);
+  static constexpr int X_ELEMS = CH * CPB / THREADS;  // a thread's copies
+  static constexpr int B_ELEMS = (BC + THREADS - 1) / THREADS;  // x's, B's
+  static_assert(CW * G == 32 && (CH * CPB) % THREADS == 0 &&
+                    (2 * CH * NP) % THREADS == 0,
+                "even split");
+  static_assert(HALF % 4 == 0 && SUMS % 4 == 0 &&
+                    ROW % 4 == 0 && BC % 4 == 0,
+                "16-byte aligned sections");
 };
 
 // 2^v on the SFU (MUFU.EX2), as ssm_scan.cu computes it
@@ -82,39 +129,60 @@ __device__ __forceinline__ float exp2_approx(float v) {
   return r;
 }
 
+// A reduce-scatter over the lanes of a warp that differ in the bits M,
+// 2 M, ..., HI: each holds L values v[0..L); a round keeps the half of
+// them that the lane's bit selects and adds its partner's copy of that
+// half, so each lane ends with the sum of L / 2^rounds of them; once one
+// is left, a round adds the partner's (a butterfly).  The rounds run from
+// the lowest bit up, so each sum pairs its lanes as a butterfly from the
+// lowest bit does (the first version's order, and so dx and ddt's bits).
+template <int M, int HI, int L, int K>
+__device__ __forceinline__ void reduce_lanes(float (&v)[K], int lane) {
+  if constexpr (M <= HI) {
+    if constexpr (L > 1) {
+      constexpr int W = L / 2;
+      const bool up = lane & M;
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const float send = up ? v[k] : v[k + W];
+        const float keep = up ? v[k + W] : v[k];
+        v[k] = keep + __shfl_xor_sync(kFull, send, M);
+      }
+      reduce_lanes<M * 2, HI, W>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(kFull, v[0], M);
+      reduce_lanes<M * 2, HI, 1>(v, lane);
+    }
+  }
+}
+
 template <int G>
-__global__ void __launch_bounds__(Bwd<G>::THREADS)
+__global__ void __launch_bounds__(Bwd<G>::THREADS, 1)
     ssm_scan_bwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ dt,
                         const float* __restrict__ Bm,
                         const float* __restrict__ Cm,
                         const float* __restrict__ A,
-                        const float* __restrict__ h0,
+                        const float* __restrict__ states,
                         const float* __restrict__ dy,
                         const float* __restrict__ dh_final,
                         float* __restrict__ dx, float* __restrict__ ddt,
                         float* __restrict__ dB_part,
                         float* __restrict__ dC_part,
                         float* __restrict__ dA_part, float* __restrict__ dh0,
-                        float* __restrict__ bounds, int S, int D, int N) {
+                        int S, int D, int N) {
   using P = Bwd<G>;
   extern __shared__ __align__(16) float smem[];
-  float* hist = smem;                 // [CH][THREADS][R]
-  float* bs = hist + P::HIST;         // [CH][NP]
-  float* cs = bs + P::BC;
-  float* part_b = cs + P::BC;         // [WARPS][CH][NP]
-  float* part_c = part_b + P::PART;
-  float* xs = part_c + P::PART;       // [CPB][CHP]
-  float* dts = xs + P::ROW;
-  float* dys = dts + P::ROW;
-  float* dxs = dys + P::ROW;
-  float* ddts = dxs + P::ROW;
+  float* stage = smem;                          // [2][HALF]
+  float* sums = stage + 2 * P::HALF;            // [CPB][DSP], at SQ again
+  float* wpart = sums + P::SUMS;                // [WARPS][WPART]
 
-  const int tid = threadIdx.x;
+  const unsigned tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int c = tid / G;              // this thread's channel in the block
   const int g = tid % G;              // and its lane in the channel
-  const int lane = tid & 31, warp = tid >> 5;
-  const int d0 = blockIdx.x * CPB;
+  const int cw = lane / G;            // its channel in the warp
+  const int d0 = blockIdx.x * P::CPB;
   const int d = d0 + c;
   const size_t b = blockIdx.y;
   const int chunks = (S + CH - 1) / CH;
@@ -122,165 +190,222 @@ __global__ void __launch_bounds__(Bwd<G>::THREADS)
   // this thread's states n = g*R + r; a state past N or a channel past D
   // has A = 0 and B = C = x = dt = dy = 0, so its h and g stay 0
   bool owns[R];
-  size_t at_state[R];                 // (b, d, n) in a (Bsz, D, N) tensor
-  float Ar[R], a2[R], h[R];
+  float Ar[R], a2[R], gn[R], dA[R];   // gn is a_{t+1} g_{t+1}
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int n = g * R + r;
     owns[r] = d < D && n < N;
-    at_state[r] = (b * D + d) * N + n;
     Ar[r] = owns[r] ? A[static_cast<size_t>(d) * N + n] : 0.0f;
     a2[r] = __fmul_rn(Ar[r], kLog2e);
-    h[r] = (owns[r] && h0 != nullptr) ? h0[at_state[r]] : 0.0f;
+    gn[r] = (owns[r] && dh_final != nullptr)
+                ? dh_final[(b * D + d) * N + n] : 0.0f;
+    dA[r] = 0.0f;
   }
-
-  // the chunk at t0 into shared memory: x, dt (and dy) as [channel][step],
-  // B (and C) as [step][state]; zeros past S, D and N
-  auto stage = [&](int t0, bool backward) {
-    for (int i = tid; i < CH * CPB; i += P::THREADS) {
-      const int s = i / CPB, cc = i % CPB;
-      const bool ok = t0 + s < S && d0 + cc < D;
-      const size_t at = (b * S + t0 + s) * D + d0 + cc;
-      xs[cc * CHP + s] = ok ? x[at] : 0.0f;
-      dts[cc * CHP + s] = ok ? dt[at] : 0.0f;
-      if (backward) dys[cc * CHP + s] = ok ? dy[at] : 0.0f;
-    }
-    for (int i = tid; i < CH * P::NP; i += P::THREADS) {
-      const int s = i / P::NP, n = i % P::NP;
-      const bool ok = t0 + s < S && n < N;
-      const size_t at = (b * S + t0 + s) * N + n;
-      bs[i] = ok ? Bm[at] : 0.0f;
-      if (backward) cs[i] = ok ? Cm[at] : 0.0f;
-    }
-  };
-  // step s of the staged chunk: h <- exp(dt A) h + (dt x) B
-  auto step = [&](int s) {
-    const float dtv = dts[c * CHP + s];
-    const float dtx = __fmul_rn(dtv, xs[c * CHP + s]);
-    const float4 bv = *reinterpret_cast<const float4*>(bs + s * P::NP + g * R);
-    const float bb[R] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float da = exp2_approx(__fmul_rn(dtv, a2[r]));
-      h[r] = __fadd_rn(__fmul_rn(da, h[r]), __fmul_rn(dtx, bb[r]));
-    }
-  };
-  auto bound_at = [&](int k, int r) {
+  auto state_at = [&](int k, int r) {
     return ((b * chunks + k) * D + d) * N + g * R + r;
   };
 
-  // pass 1: the state before every chunk
-  for (int k = 0; k < chunks; ++k) {
+  // One thread's share of a chunk's staging: element i of x, dt and dy is
+  // step xs0 + G * i of channel d0 + xc, element i of B and C is
+  // tid + i * THREADS of the chunk's [step][NP], and its own R states of
+  // the chunk's first state; zeros past S, D and N.
+  // The chunk's dx and ddt are written back with the same map.
+  const int xc = tid % P::CPB, xs0 = tid / P::CPB;
+  const bool x_ok = d0 + xc < D;
+  const size_t x_at = (b * S + xs0) * D + d0 + xc;   // element 0 at t0 = 0
+  const size_t x_step = static_cast<size_t>(G) * D;  // to element i + 1
+  auto issue = [&](float* half, int t0) {
+    const size_t at0 = x_at + static_cast<size_t>(t0) * D;
+#pragma unroll
+    for (int i = 0; i < P::X_ELEMS; ++i) {
+      const bool ok = x_ok && t0 + xs0 + G * i < S;
+      const size_t at = at0 + i * x_step;
+      float* dst = half + xc * P::CHP + xs0 + G * i;
+      cp_async4(dst, x + at, ok);
+      cp_async4(dst + P::ROW, dt + at, ok);
+      cp_async4(dst + 2 * P::ROW, dy + at, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < P::B_ELEMS; ++i) {
+      const unsigned e = tid + i * P::THREADS;
+      if (P::BC % P::THREADS != 0 && e >= P::BC) break;
+      const int s = e / P::NP, n = e % P::NP;
+      const bool ok = n < N && t0 + s < S;
+      const size_t at = (b * S + t0 + s) * N + n;
+      float* dst = half + 3 * P::ROW + e;
+      cp_async4(dst, Bm + at, ok);
+      cp_async4(dst + P::BC, Cm + at, ok);
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (owns[r]) bounds[bound_at(k, r)] = h[r];
+      cp_async4(half + P::HST + tid * R + r,
+                states + state_at(t0 / CH, r), owns[r]);
     }
-    __syncthreads();                  // every thread is done with chunk k-1
-    stage(k * CH, false);
-    __syncthreads();
-    const int steps = min(CH, S - k * CH);
-    for (int s = 0; s < steps; ++s) step(s);
-  }
+  };
 
-  // pass 2: the chunks in reverse; gn is a_{t+1} g_{t+1}
-  float gn[R], dA[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    gn[r] = (owns[r] && dh_final != nullptr) ? dh_final[at_state[r]] : 0.0f;
-    dA[r] = 0.0f;
+  if (chunks > 0) {
+    issue(stage + ((chunks - 1) & 1) * P::HALF, (chunks - 1) * CH);
+    cp_async_commit();
   }
   const size_t part_row = (static_cast<size_t>(blockIdx.x) * gridDim.y + b) *
                           static_cast<size_t>(S);
+  // Where this lane's sums land.  dB and dC: the warp's 2 NP outputs of
+  // a step, after the reduce-scatter over its channels (see
+  // reduce_lanes): rounds on channel bits 0, 1, 2 pick bits 2, 1, 0 of the
+  // index of the term the lane keeps, (q, r) = index >> 2, index & 3 of
+  // its lane's states; at CW = 4 two rounds leave two terms (index bit 0 =
+  // j), and above 8 the lanes of channels cw < 8 write.  sum_n g B and
+  // sum_n A q: the channel's lanes g = 0 and 1 (its one lane at G = 1)
+  // write one each.
+  constexpr int PER = P::CW < 8 ? 8 / P::CW : 1;     // terms left a lane
+  const int index = ((cw & 1) << 2) | ((cw & 2) >> 1 << 1) |
+                    (P::CW < 8 ? 0 : (cw & 4) >> 2);
+  float* const term_out = wpart + warp * P::WPART + (index >> 2) * P::WQ +
+                          g * R + (index & 3);
+  const bool term_writes = P::CW <= 8 || cw < 8;
+  float* const sum_out = sums + (g & 1) * P::SQ + c * P::DSP;
+  const bool sum_writes = g < 2;
+
   for (int k = chunks - 1; k >= 0; --k) {
+    cp_async_wait<0>();
+    // chunk k is visible to all, and every thread is done with chunk k+1:
+    // its staging half, which the next issue overwrites, and the sums
+    __syncthreads();
     const int t0 = k * CH;
-    const int steps = min(CH, S - t0);
+    if (k > 0) issue(stage + ((k - 1) & 1) * P::HALF, t0 - CH);
+    cp_async_commit();
+
+    const float* half = stage + (k & 1) * P::HALF;
+    const float4 h4 = *reinterpret_cast<const float4*>(half + P::HST +
+                                                       tid * R);
+    float h[R] = {h4.x, h4.y, h4.z, h4.w};   // the state before the chunk
+    const float* xs = half + c * P::CHP;          // this channel's rows
+    const float* dts = xs + P::ROW;
+    const float* dys = dts + P::ROW;
+    const float* bs = half + 3 * P::ROW + g * R;  // this thread's states
+    const float* cs = bs + P::BC;
+    // 4 steps of a channel's row: one 16-byte read
+    auto four = [](const float* row, int s0, float (&v)[4]) {
+      const float4 q = *reinterpret_cast<const float4*>(row + s0);
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    };
+
+    // the chunk forward, as ssm_scan.cu steps it; steps past S are zeros
+    // (dt = 0: a = 1, and h stays as it is).  ah and hh keep a_t and
+    // h_{t-1} of each step.
+    float ah[CH][R], hh[CH][R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) h[r] = owns[r] ? bounds[bound_at(k, r)] : 0.0f;
-    __syncthreads();                  // every thread is done with chunk k+1
-    stage(t0, true);
-    __syncthreads();
-    // h before each step of the chunk: each thread keeps its own states
-    for (int s = 0; s < steps; ++s) {
-      *reinterpret_cast<float4*>(hist + (s * P::THREADS + tid) * R) =
-          make_float4(h[0], h[1], h[2], h[3]);
-      step(s);
+    for (int s0 = 0; s0 < CH; s0 += 4) {
+      float dt4[4], x4[4];
+      four(dts, s0, dt4);
+      four(xs, s0, x4);
+#pragma unroll
+      for (int s = s0; s < s0 + 4; ++s) {
+        const float dtv = dt4[s - s0];
+        const float dtx = __fmul_rn(dtv, x4[s - s0]);
+        const float4 bv = *reinterpret_cast<const float4*>(bs + s * P::NP);
+        const float bb[R] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          ah[s][r] = exp2_approx(__fmul_rn(dtv, a2[r]));
+          hh[s][r] = h[r];
+          h[r] = __fadd_rn(__fmul_rn(ah[s][r], h[r]),
+                           __fmul_rn(dtx, bb[r]));
+        }
+      }
     }
-    for (int s = steps - 1; s >= 0; --s) {
-      const float dtv = dts[c * CHP + s], xv = xs[c * CHP + s];
-      const float dyv = dys[c * CHP + s];
-      const float dtx = __fmul_rn(dtv, xv);
-      const float4 bv =
-          *reinterpret_cast<const float4*>(bs + s * P::NP + g * R);
-      const float4 cv =
-          *reinterpret_cast<const float4*>(cs + s * P::NP + g * R);
-      const float4 hv = *reinterpret_cast<const float4*>(
-          hist + (s * P::THREADS + tid) * R);
-      const float bb[R] = {bv.x, bv.y, bv.z, bv.w};
-      const float cc[R] = {cv.x, cv.y, cv.z, cv.w};
-      const float hp[R] = {hv.x, hv.y, hv.z, hv.w};
-      float sgb = 0.0f, saq = 0.0f;   // sum_n g B, sum_n A (g a h_{t-1})
-      float pb[R], pc[R];             // this channel's dB_t and dC_t terms
+
+    // the chunk backward; steps past S leave g as it is and add nothing
+    // that is stored.  Step s's inputs, then its terms: this channel's dB_t
+    // and dC_t terms (pb, pc), sum_n g B and sum_n A (g a h_{t-1}) (sgb,
+    // saq)
+    struct In {
+      float dtv, xv, dyv;
+      float4 bv, cv;
+    };
+    float dt4[4], x4[4], dy4[4];      // the group of 4 steps of step s
+    auto load_step = [&](int s, In& in) {
+      if (s % 4 == 3) {
+        four(dts, s - 3, dt4);
+        four(xs, s - 3, x4);
+        four(dys, s - 3, dy4);
+      }
+      in.dtv = dt4[s % 4];
+      in.xv = x4[s % 4];
+      in.dyv = dy4[s % 4];
+      in.bv = *reinterpret_cast<const float4*>(bs + s * P::NP);
+      in.cv = *reinterpret_cast<const float4*>(cs + s * P::NP);
+    };
+    // Each step reads the next step's inputs before it writes its sums, so
+    // the reads do not wait on the writes.
+    In in;
+    load_step(CH - 1, in);
+#pragma unroll
+    for (int s = CH - 1; s >= 0; --s) {
+      const float dtx = __fmul_rn(in.dtv, in.xv);
+      const float bb[R] = {in.bv.x, in.bv.y, in.bv.z, in.bv.w};
+      const float cc[R] = {in.cv.x, in.cv.y, in.cv.z, in.cv.w};
+      const float dtv = in.dtv, dyv = in.dyv;
+      float terms[2 * R];             // pb, then pc
+      float sums2[2] = {0.0f, 0.0f};  // sgb, saq
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float a = exp2_approx(__fmul_rn(dtv, a2[r]));
-        const float ht = __fadd_rn(__fmul_rn(a, hp[r]), __fmul_rn(dtx, bb[r]));
+        const float ht = s == CH - 1 ? h[r] : hh[s + 1][r];
         const float gt = fmaf(dyv, cc[r], gn[r]);
-        const float q = gt * a * hp[r];
+        const float ga = gt * ah[s][r];
+        const float q = ga * hh[s][r];
         dA[r] = fmaf(dtv, q, dA[r]);
-        saq = fmaf(Ar[r], q, saq);
-        sgb = fmaf(gt, bb[r], sgb);
-        pc[r] = ht * dyv;
-        pb[r] = gt * dtx;
-        gn[r] = a * gt;
+        sums2[1] = fmaf(Ar[r], q, sums2[1]);
+        sums2[0] = fmaf(gt, bb[r], sums2[0]);
+        terms[R + r] = ht * dyv;
+        terms[r] = gt * dtx;
+        gn[r] = ga;
       }
-      // over the channel's G lanes (a butterfly: every lane gets the sum)
+      if (s > 0) load_step(s - 1, in);
+      // dB_t and dC_t over the warp's channels (the lane bits from G up)
+      reduce_lanes<G, 16, 2 * R>(terms, lane);
+      if (term_writes) {
 #pragma unroll
-      for (int w = 1; w < G; w *= 2) {
-        sgb += __shfl_xor_sync(kFull, sgb, w);
-        saq += __shfl_xor_sync(kFull, saq, w);
+        for (int j = 0; j < PER; ++j) term_out[s * P::NP + j] = terms[j];
       }
-      if (g == 0) {
-        dxs[c * CHP + s] = dtv * sgb;
-        ddts[c * CHP + s] = fmaf(xv, sgb, saq);
-      }
-      // over the warp's channels: lanes g, g + G, g + 2G, ...
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-#pragma unroll
-        for (int w = G; w < 32; w *= 2) {
-          pb[r] += __shfl_xor_sync(kFull, pb[r], w);
-          pc[r] += __shfl_xor_sync(kFull, pc[r], w);
-        }
-      }
-      if (lane < G) {
-        const int at = (warp * CH + s) * P::NP + g * R;
-        *reinterpret_cast<float4*>(part_b + at) =
-            make_float4(pb[0], pb[1], pb[2], pb[3]);
-        *reinterpret_cast<float4*>(part_c + at) =
-            make_float4(pc[0], pc[1], pc[2], pc[3]);
+      // the channel's two sums over its G lanes
+      reduce_lanes<1, G / 2, 2>(sums2, lane);
+      if constexpr (G == 1) {
+        sum_out[s] = sums2[0];
+        sum_out[P::SQ + s] = sums2[1];
+      } else if (sum_writes) {
+        sum_out[s] = sums2[0];
       }
     }
     __syncthreads();
-    // the chunk's dx and ddt, and its dB and dC summed over the warps
-    for (int i = tid; i < CH * CPB; i += P::THREADS) {
-      const int s = i / CPB, cc = i % CPB;
-      if (s < steps && d0 + cc < D) {
-        const size_t at = (b * S + t0 + s) * D + d0 + cc;
-        dx[at] = dxs[cc * CHP + s];
-        ddt[at] = ddts[cc * CHP + s];
+
+    // the chunk's dx and ddt (the staging's elements), and its dB and dC
+    // summed over the warps
+    const int steps = min(CH, S - t0);
+    if (x_ok) {
+      const size_t at0 = x_at + static_cast<size_t>(t0) * D;
+#pragma unroll
+      for (int i = 0; i < P::X_ELEMS; ++i) {
+        const int s = xs0 + G * i;
+        if (s < steps) {
+          const float sgb = sums[xc * P::DSP + s];
+          const float saq = sums[P::SQ + xc * P::DSP + s];
+          const size_t at = at0 + i * x_step;
+          dx[at] = half[P::ROW + xc * P::CHP + s] * sgb;
+          ddt[at] = fmaf(half[xc * P::CHP + s], sgb, saq);
+        }
       }
     }
-    for (int i = tid; i < CH * P::NP; i += P::THREADS) {
-      const int s = i / P::NP, n = i % P::NP;
+#pragma unroll
+    for (int i = 0; i < 2 * CH * P::NP / P::THREADS; ++i) {
+      const unsigned e = tid + i * P::THREADS;
+      const int q = e / (CH * P::NP), s = e / P::NP % CH, n = e % P::NP;
       if (s < steps && n < N) {
-        float sb = part_b[i], sc = part_c[i];
-        for (int w = 1; w < P::WARPS; ++w) {
-          sb += part_b[w * CH * P::NP + i];
-          sc += part_c[w * CH * P::NP + i];
-        }
-        const size_t at = (part_row + t0 + s) * N + n;
-        dB_part[at] = sb;
-        dC_part[at] = sc;
+        const int at = q * P::WQ + s * P::NP + n;
+        float v = wpart[at];
+#pragma unroll
+        for (int w = 1; w < P::WARPS; ++w) v += wpart[w * P::WPART + at];
+        (q == 0 ? dB_part : dC_part)[(part_row + t0 + s) * N + n] = v;
       }
     }
   }
@@ -288,15 +413,45 @@ __global__ void __launch_bounds__(Bwd<G>::THREADS)
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (owns[r]) {
-      dh0[at_state[r]] = gn[r];
-      dA_part[at_state[r]] = dA[r];
+      const size_t at = (b * D + d) * N + g * R + r;
+      dh0[at] = gn[r];
+      dA_part[at] = dA[r];
     }
   }
 }
 
+// dB and dC: the per-block partials summed over the blocks; dA: the
+// per-row partials summed over the batch; each in index order.
+__global__ void __launch_bounds__(256)
+    ssm_scan_bwd_sum_kernel(const float* __restrict__ dB_part,
+                            const float* __restrict__ dC_part,
+                            const float* __restrict__ dA_part,
+                            float* __restrict__ dB, float* __restrict__ dC,
+                            float* __restrict__ dA, int parts, size_t rows,
+                            int Bsz, size_t dn) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  for (size_t i = first; i < rows; i += stride) {
+    float sb = 0.0f, sc = 0.0f;
+#pragma unroll 8
+    for (int p = 0; p < parts; ++p) {
+      sb += dB_part[p * rows + i];
+      sc += dC_part[p * rows + i];
+    }
+    dB[i] = sb;
+    dC[i] = sc;
+  }
+  for (size_t i = first; i < dn; i += stride) {
+    float s = 0.0f;
+    for (int r = 0; r < Bsz; ++r) s += dA_part[r * dn + i];
+    dA[i] = s;
+  }
+}
+
 struct Args {
-  const float *x, *dt, *B, *C, *A, *h0, *dy, *dh_final;
-  float *dx, *ddt, *dB_part, *dC_part, *dA_part, *dh0, *bounds;
+  const float *x, *dt, *B, *C, *A, *states, *dy, *dh_final;
+  float *dx, *ddt, *dB, *dC, *dA, *dh0, *dB_part, *dC_part, *dA_part;
   int Bsz, S, D, N;
 };
 
@@ -318,13 +473,24 @@ cudaError_t prepare(int device) {
 
 template <int G>
 cudaError_t launch_g(const Args& a, int device, cudaStream_t stream) {
-  constexpr size_t bytes = Bwd<G>::BYTES;
+  using P = Bwd<G>;
   const cudaError_t err = prepare<G>(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.D + CPB - 1) / CPB, a.Bsz);
-  ssm_scan_bwd_kernel<G><<<grid, Bwd<G>::THREADS, bytes, stream>>>(
-      a.x, a.dt, a.B, a.C, a.A, a.h0, a.dy, a.dh_final, a.dx, a.ddt,
-      a.dB_part, a.dC_part, a.dA_part, a.dh0, a.bounds, a.S, a.D, a.N);
+  const int blocks = (a.D + P::CPB - 1) / P::CPB;
+  ssm_scan_bwd_kernel<G><<<dim3(blocks, a.Bsz), P::THREADS, P::BYTES,
+                           stream>>>(
+      a.x, a.dt, a.B, a.C, a.A, a.states, a.dy, a.dh_final, a.dx, a.ddt,
+      a.dB_part, a.dC_part, a.dA_part, a.dh0, a.S, a.D, a.N);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return launched;
+  const size_t rows = static_cast<size_t>(a.Bsz) * a.S * a.N;
+  const size_t dn = static_cast<size_t>(a.D) * a.N;
+  const size_t most = rows > dn ? rows : dn;
+  const int grid = static_cast<int>(most / 256 + 1 < 4096 ? most / 256 + 1
+                                                          : 4096);
+  ssm_scan_bwd_sum_kernel<<<grid, 256, 0, stream>>>(
+      a.dB_part, a.dC_part, a.dA_part, a.dB, a.dC, a.dA, blocks, rows,
+      a.Bsz, dn);
   return cudaGetLastError();
 }
 
@@ -332,18 +498,18 @@ cudaError_t launch_g(const Args& a, int device, cudaStream_t stream) {
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers of
 // contiguous row-major float32 tensors: x, dt, dy, dx, ddt (Bsz, S, D); B,
-// C (Bsz, S, N); A (D, N); h0, dh_final, dA_part, dh0 (Bsz, D, N); dB_part,
-// dC_part (ceil(D / 32), Bsz, S, N); bounds (Bsz, ceil(S / 16), D, N),
-// scratch.  h0 and dh_final may be null (zeros).  The caller sums dB_part
-// and dC_part over their first dimension and dA_part over the batch.
-// `stream` is the caller's cudaStream_t; the call only queues the kernel and
-// returns the launch's cudaError_t.
+// C, dB, dC (Bsz, S, N); A, dA (D, N); states (Bsz, ceil(S / 16), D, N),
+// the forward kernel's; dh_final, dh0, dA_part (Bsz, D, N); dB_part,
+// dC_part (ceil(D / 64), Bsz, S, N), or ceil(D / 32) for N > 16: scratch.
+// dh_final may be null (zeros).  `stream` is the caller's cudaStream_t;
+// the call only queues the kernel and the sum of its partials and returns
+// the launches' cudaError_t.
 extern "C" int repro_ssm_scan_bwd_f32(
     const void* x, const void* dt, const void* B, const void* C,
-    const void* A, const void* h0, const void* dy, const void* dh_final,
-    void* dx, void* ddt, void* dB_part, void* dC_part, void* dA_part,
-    void* dh0, void* bounds, int Bsz, int S, int D, int N, int device,
-    void* stream) {
+    const void* A, const void* states, const void* dy, const void* dh_final,
+    void* dx, void* ddt, void* dB, void* dC, void* dA, void* dh0,
+    void* dB_part, void* dC_part, void* dA_part, int Bsz, int S, int D, int N,
+    int device, void* stream) {
   if (Bsz < 0 || S < 0 || D < 0 || N < 1 || N > 8 * R) {
     return cudaErrorInvalidValue;
   }
@@ -351,15 +517,12 @@ extern "C" int repro_ssm_scan_bwd_f32(
   if (Bsz > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
-               static_cast<const float*>(B), static_cast<const float*>(C),
-               static_cast<const float*>(A), static_cast<const float*>(h0),
-               static_cast<const float*>(dy),
-               static_cast<const float*>(dh_final), static_cast<float*>(dx),
-               static_cast<float*>(ddt), static_cast<float*>(dB_part),
-               static_cast<float*>(dC_part), static_cast<float*>(dA_part),
-               static_cast<float*>(dh0), static_cast<float*>(bounds),
-               Bsz, S, D, N};
+  const auto in = [](const void* p) { return static_cast<const float*>(p); };
+  const auto out = [](void* p) { return static_cast<float*>(p); };
+  const Args a{in(x),       in(dt),      in(B),       in(C),   in(A),
+               in(states),  in(dy),      in(dh_final), out(dx), out(ddt),
+               out(dB),     out(dC),     out(dA),     out(dh0),
+               out(dB_part), out(dC_part), out(dA_part), Bsz, S, D, N};
   const auto s = static_cast<cudaStream_t>(stream);
   if (N <= R) return launch_g<1>(a, device, s);
   if (N <= 2 * R) return launch_g<2>(a, device, s);

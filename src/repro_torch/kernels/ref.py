@@ -13,6 +13,9 @@ import torch
 #: steps whose decays, inputs and outputs ssm_scan forms at once, and
 #: whose states ssm_scan_backward recomputes at once
 SCAN_CHUNK = 64
+#: steps between two states that ssm_scan keeps for the backward (the
+#: kernels' too: csrc/ssm_scan.cu's SCH, csrc/ssm_scan_bwd.cu's CH)
+STATE_CHUNK = 16
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -61,14 +64,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, A: torch.Tensor,
              h0: Optional[torch.Tensor] = None, *,
-             return_state: bool = False):
+             return_state: bool = False, return_states: bool = False):
     """Step-by-step selective scan in float32.
 
     ``x, dt (Bsz, S, D)``, ``B, C (Bsz, S, N)``, ``A (D, N)``, optional
     ``h0 (Bsz, D, N)`` (zeros when None).  Each step does
     ``h = exp(dt_t * A) * h + (dt_t * x_t) ⊗ B_t`` and ``y_t = h · C_t``.
     Returns ``y (Bsz, S, D)`` in ``x.dtype``, and with ``return_state``
-    also the float32 state after the last step (``h0`` when ``S == 0``).
+    also the float32 state after the last step (``h0`` when ``S == 0``);
+    with ``return_states`` ``(y, h_final, states)``, where ``states
+    (Bsz, ceil(S / STATE_CHUNK), D, N)`` holds the state before every
+    ``STATE_CHUNK`` steps, as :func:`ssm_scan_backward` takes them.
     Only the recurrence runs step by step: ``exp(dt_t * A)``, the inputs
     ``(dt_t * x_t) ⊗ B_t`` and the products with ``C_t`` are formed for
     ``SCAN_CHUNK`` steps at a time, which leaves two ops a step (and two
@@ -83,24 +89,31 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     h = (torch.zeros((Bsz, D, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float().clone())
     ys = [torch.empty((Bsz, 0, D), dtype=torch.float32, device=x.device)]
+    states = [torch.empty((Bsz, 0, D, N), dtype=torch.float32,
+                          device=x.device)]
     for t0 in range(0, S, SCAN_CHUNK):
         t1 = min(t0 + SCAN_CHUNK, S)
         da = torch.exp(dtf[:, t0:t1, :, None] * Af)          # (Bsz, L, D, N)
         u = (dtf[:, t0:t1] * xf[:, t0:t1])[..., None] * Bf[:, t0:t1, None, :]
         hs = []
         for i in range(t1 - t0):
+            if return_states and (t0 + i) % STATE_CHUNK == 0:
+                states.append(h[:, None])
             h = da[:, i] * h + u[:, i]
             hs.append(h)
         # elementwise products and a sum: no TF32 product here
         ys.append((torch.stack(hs, 1) * Cf[:, t0:t1, None, :]).sum(-1))
     y = torch.cat(ys, 1).to(x.dtype)
+    if return_states:
+        return y, h, torch.cat(states, 1)
     return (y, h) if return_state else y
 
 
 def ssm_scan_backward(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                       C: torch.Tensor, A: torch.Tensor,
                       h0: Optional[torch.Tensor], dy: torch.Tensor,
-                      dh_final: Optional[torch.Tensor] = None):
+                      dh_final: Optional[torch.Tensor] = None, *,
+                      states: Optional[torch.Tensor] = None):
     """Gradients of :func:`ssm_scan` in float32 torch ops: for the upstream
     gradients ``dy (Bsz, S, D)`` of ``y`` and ``dh_final (Bsz, D, N)`` of the
     final state (zeros when None), returns ``(dx, ddt, dB, dC, dA, dh0)``,
@@ -116,24 +129,21 @@ def ssm_scan_backward(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     - ``dA = Σ_{b,t} g_t dt_t a_t h_{t-1}``, ``dh0 = a_0 g_0``.
 
     ``h`` is recomputed ``SCAN_CHUNK`` steps at a time from the states at
-    the chunks' starts, which a first forward pass keeps: a whole ``h``
-    would be 2.1 GB at 2 × 2048 × 8192 × 16.  The JAX package
-    differentiates its scan with XLA; this is the same function, and the
-    backward kernel's plain version.
+    the chunks' starts: a whole ``h`` would be 2.1 GB at 2 × 2048 × 8192 ×
+    16.  They are every ``SCAN_CHUNK // STATE_CHUNK``-th of ``states``, as
+    :func:`ssm_scan` returns them (the forward of a training step keeps
+    them); without ``states`` a run of :func:`ssm_scan` gives them.  The
+    JAX package differentiates its scan with XLA; this is the same
+    function, and the backward kernel's plain version.
     """
     Bsz, S, D = x.shape
     N = A.shape[-1]
+    if states is None:
+        states = ssm_scan(x, dt, B, C, A, h0, return_states=True)[2]
     xf, dtf, Bf, Cf, Af, dyf = (t.float() for t in (x, dt, B, C, A, dy))
     dev = x.device
-    h = (torch.zeros((Bsz, D, N), dtype=torch.float32, device=dev)
-         if h0 is None else h0.float().clone())
     starts = list(range(0, S, SCAN_CHUNK))
-    bounds = []
-    for t0 in starts:                       # the state before each chunk
-        bounds.append(h)
-        for t in range(t0, min(t0 + SCAN_CHUNK, S)):
-            da = torch.exp(dtf[:, t, :, None] * Af[None])
-            h = da * h + (dtf[:, t] * xf[:, t])[:, :, None] * Bf[:, t, None, :]
+    bounds = states[:, ::SCAN_CHUNK // STATE_CHUNK].unbind(1)
     g_next = (torch.zeros((Bsz, D, N), dtype=torch.float32, device=dev)
               if dh_final is None else dh_final.float().clone())
     dx = torch.empty((Bsz, S, D), dtype=torch.float32, device=dev)

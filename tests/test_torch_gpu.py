@@ -485,6 +485,80 @@ def test_ssm_scan_backward_kernel_matches_plain_version(cuda, Bsz, S, D, N,
         assert torch.equal(got[5], args[7])
 
 
+# (Bsz, S, D, N): the training forward's shape, a ragged one, N = 1 and
+# N = 32, S one step past a state chunk (16 steps) and on one, the reduced
+# config's, S = 0
+SCAN_STATE_SHAPES = [(2, 2048, 8192, 16), (3, 1000, 1000, 16),
+                     (2, 37, 100, 1), (1, 130, 17, 32), (1, 17, 33, 9),
+                     (2, 16, 256, 16), (2, 0, 64, 16)]
+
+
+@pytest.mark.parametrize("Bsz,S,D,N", SCAN_STATE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_states_match_plain_version(cuda, Bsz, S, D, N,
+                                                    dtype):
+    """The forward kernel's states (the state before every 16 steps)
+    against ref.ssm_scan's within the scan's float32 tolerance (both widen
+    bf16 inputs to float32 exactly); keeping them changes no bit of y or
+    h_final, and the first is h0."""
+    from repro_torch.kernels import ref, ssm_scan as scan
+    args = _scan_inputs(cuda, Bsz, S, D, N, dtype, True, seed=S + N)
+    y, h, states = scan.ssm_scan(*args, return_states=True)
+    y0, h0 = scan.ssm_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert states.shape == (Bsz, -(-S // 16), D, N)
+    assert states.dtype == torch.float32
+    assert torch.equal(y.view(torch.int16 if dtype == torch.bfloat16
+                              else torch.int32),
+                       y0.view(torch.int16 if dtype == torch.bfloat16
+                               else torch.int32))
+    assert torch.equal(h.view(torch.int32), h0.view(torch.int32))
+    want = ref.ssm_scan(*args, return_states=True)[2]
+    tol = SCAN_TOL[torch.float32]
+    assert torch.allclose(states, want, rtol=tol, atol=tol)
+    if S:
+        assert torch.equal(states[:, 0], args[5])
+
+
+@pytest.mark.parametrize("Bsz,S,D,N,with_states", SCAN_GRAD_SHAPES)
+def test_ssm_scan_backward_kernel_given_states_equals_standalone_route(
+        cuda, Bsz, S, D, N, with_states):
+    """The backward kernel given the forward kernel's states gives the bits
+    of the wrapper's standalone route (which launches the forward kernel
+    for them), and two launches give the same bits."""
+    from repro_torch.kernels import ssm_scan as scan
+    args = _scan_grad_args(cuda, Bsz, S, D, N, with_states)
+    x, dt, B, C, A, h0 = args[:6]
+    fwd, bwd = scan.ssm_scan.launches, scan.ssm_scan_backward.launches
+    states = scan.ssm_scan(x, dt, B, C, A, h0, return_states=True)[2]
+    given = scan.ssm_scan_backward(*args, states=states)
+    again = scan.ssm_scan_backward(*args, states=states)
+    assert scan.ssm_scan.launches == fwd + 1
+    alone = scan.ssm_scan_backward(*args)
+    torch.cuda.synchronize()
+    assert scan.ssm_scan.launches == fwd + 2
+    assert scan.ssm_scan_backward.launches == bwd + 3
+    for name, g, a, s in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), given,
+                             again, alone):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32)), name
+        assert torch.equal(g.view(torch.int32), s.view(torch.int32)), name
+
+
+def test_ssm_scan_function_launches_one_forward_and_one_backward(cuda):
+    """SSMScan's forward keeps the kernel's states, so its backward
+    launches the backward kernel and no forward of its own."""
+    from repro_torch.kernels import ops, ssm_scan as scan
+    x, dt, B, C, A, h0 = _scan_inputs(cuda, 2, 300, 256, 16, torch.float32,
+                                      True)
+    ins = [t.clone().requires_grad_() for t in (x, dt, B, C, A, h0)]
+    fwd, bwd = scan.ssm_scan.launches, scan.ssm_scan_backward.launches
+    y = ops.ssm_scan(*ins)
+    torch.autograd.grad(y, ins, torch.ones_like(y))
+    torch.cuda.synchronize()
+    assert (scan.ssm_scan.launches, scan.ssm_scan_backward.launches) == \
+        (fwd + 1, bwd + 1)
+
+
 def test_ssm_scan_function_gradient_matches_plain_autograd(cuda):
     """SSMScan on the card (the scan kernel, then its backward kernel)
     against autograd of the plain scan, bf16 inputs included (gradients
@@ -521,6 +595,13 @@ def test_ssm_scan_backward_wrapper_rejects_what_it_cannot_take(cuda):
     big = _scan_grad_args(cuda, 1, 2, 16, 33, False)
     with pytest.raises(ValueError):
         scan.ssm_scan_backward(*big)                       # N > 32
+    states = scan.ssm_scan(x, dt, B, C, A, h0, return_states=True)[2]
+    with pytest.raises(ValueError, match="states"):
+        scan.ssm_scan_backward(x, dt, B, C, A, h0, dy, dh,
+                               states=states[:, :0])
+    with pytest.raises(TypeError):
+        scan.ssm_scan_backward(x, dt, B, C, A, h0, dy, dh,
+                               states=states.double())
 
 
 # ------------------------------------------------------- flash attention

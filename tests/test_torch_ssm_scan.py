@@ -230,6 +230,56 @@ def test_plain_backward_matches_autograd_of_the_plain_scan(S, N, with_h0,
                            else torch.from_numpy(dh))
 
 
+# ref.STATE_CHUNK is 16: S = 16 and 64 end on a boundary, 17, 37 and 130
+# one step or more past one
+@pytest.mark.parametrize("S", [0, 1, 16, 17, 37, 64, 130])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_plain_scan_states_are_the_state_at_each_chunk_boundary(S, with_h0):
+    """``ref.ssm_scan(..., return_states=True)`` keeps the state before every
+    STATE_CHUNK steps: each equals the final state of the scan stopped
+    there, bit for bit; y and h_final are those of the plain call."""
+    from repro_torch.kernels import ref
+    assert ref.STATE_CHUNK == 16
+    x, dt, B, C, A, h0 = _cpu(_inputs(2, S, 12, 5, seed=S + 7, h0=True))
+    h0 = h0 if with_h0 else None
+    y, h, states = ref.ssm_scan(x, dt, B, C, A, h0, return_states=True)
+    assert states.shape == (2, -(-S // 16), 12, 5)
+    assert states.dtype == torch.float32
+    want_y, want_h = ref.ssm_scan(x, dt, B, C, A, h0, return_state=True)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    for k in range(states.shape[1]):
+        t = 16 * k
+        _, at = ref.ssm_scan(x[:, :t], dt[:, :t], B[:, :t], C[:, :t], A, h0,
+                             return_state=True)
+        assert torch.equal(states[:, k], at), k
+
+
+@pytest.mark.parametrize("S", [0, 1, 37, 64, 65, 130])
+@pytest.mark.parametrize("with_states", [False, True])
+def test_plain_backward_given_states_equals_the_result_without(S,
+                                                               with_states):
+    """``ref.ssm_scan_backward`` starts its chunks from the forward's states
+    when it is given them, and gives the same bits as when it makes them
+    itself; the wrapper on the CPU passes them through and checks their
+    shape."""
+    from repro_torch.kernels import ref
+    x, dt, B, C, A, h0, dy, dh = (
+        None if a is None else torch.from_numpy(a)
+        for a in _grad_inputs(2, S, 6, 16, seed=S, with_h0=with_states,
+                              with_dh=with_states))
+    states = ref.ssm_scan(x, dt, B, C, A, h0, return_states=True)[2]
+    want = ref.ssm_scan_backward(x, dt, B, C, A, h0, dy, dh)
+    got = ref.ssm_scan_backward(x, dt, B, C, A, h0, dy, dh, states=states)
+    wrapped = pt_scan.ssm_scan_backward(x, dt, B, C, A, h0, dy, dh,
+                                        states=states)
+    for name, g, k, w in zip(GRADS, got, wrapped, want):
+        assert torch.equal(g, w) and torch.equal(k, w), name
+    with pytest.raises(ValueError, match="states"):
+        pt_scan.ssm_scan_backward(x, dt, B, C, A, h0, dy, dh,
+                                  states=states[:, :0] if S else
+                                  torch.zeros(2, 1, 6, 16))
+
+
 @pytest.mark.parametrize("S,chunk", [(64, 32), (100, 32), (1, 32)])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_function_gradient_matches_jax_grad_of_selective_scan(S, chunk,
