@@ -74,11 +74,13 @@ Each phase prints one line; any failure raises and exits non-zero:
    causal), a served prefill (S = 12), the reduced qwen2-7b prefill of
    phase 9b's workers (q 1x4x12x32, 2 kv heads), a ragged shape
    (2x8x1000x64, 2 kv heads), a cross-shaped one (Sq 300, Sk 777, not
-   causal) and one with D = 72: float32 (the simt route), bf16 (wgmma) and
-   bf16 through the simt route (q, k, v one element past a 16-byte
-   boundary), each launched twice (the same bits), with CUDA-event times of
-   the kernel, the plain version and ``scaled_dot_product_attention`` beside
-   the card's bound, and the route of each check;
+   causal), one with D = 72, and zamba2-7b's long and served prefills
+   (q 1x32x2048x112 and 1x32x12x112, 32 kv heads; phase 12): float32
+   (the simt route), bf16 (wgmma) and bf16 through the simt route (q, k,
+   v one element past a 16-byte boundary), each launched twice (the same
+   bits), with CUDA-event times of the kernel, the plain version and
+   ``scaled_dot_product_attention`` beside the card's bound, and the route
+   of each check;
 9. serve — falcon-mamba-7b's parameters freed, qwen2-7b at full width
    (28 layers, 7,615,616,512 float32 parameters drawn on the card from a
    seed) served by the same launcher and argv: 28 decode steps, the traced
@@ -136,10 +138,21 @@ Each phase prints one line; any failure raises and exits non-zero:
    steps with the plain scan (autograd of the step-by-step loop) within
    TRAIN_TRAJ_TOL; then the first step in float32 compute within
    SCAN_F32_*, and a control, the kernel path reading Δ rounded to bf16,
-   which must break the float32 limits and TRAIN_TRAJ_TOL.
+   which must break the float32 limits and TRAIN_TRAJ_TOL;
+12. hybrid — the training state freed, zamba2-7b at full width (81 Mamba2
+   layers and one shared transformer block applied after every 6th: 13
+   sites of 32 heads of 112, 6,751,130,832 float32 parameters drawn on the
+   card from a seed) served by the same launcher and argv: 28 decode steps,
+   the traced tokens a prefix of request 0's, 13 flash launches per
+   prefill, all on the route ``route()`` gives (wgmma in bf16), none per
+   decode step; then phase 7's long prefill with the kernel (13 launches)
+   and with the plain attention (none), and the parameters freed.  Its
+   Mamba2 (SSD) layers are torch ops: the JAX package has no kernel for
+   them.
 
 With ``--profile`` it also profiles one decode step and two prefills of
-each served model and one full-width training step of each (device time
+each served model (zamba2-7b's too) and one full-width training step of
+each trained one (device time
 by kernel, device busy share, and the device time of the port's own
 kernels).
 
@@ -192,10 +205,12 @@ PROCESS_RUNS = [("off", None), ("auto", None), ("auto", (1, 2))]
 # for spawned interpreters to import torch and open a CUDA context
 PROCESS_TIMEOUT = 120.0
 
-# the serve paths: falcon-mamba-7b and qwen2-7b at full width, the JAX
-# launcher's defaults for prompts (4-12 tokens) and --max-len 64
+# the serve paths: falcon-mamba-7b, qwen2-7b and zamba2-7b (phase 12) at
+# full width, the JAX launcher's defaults for prompts (4-12 tokens) and
+# --max-len 64
 ARCH, N_PARAMS = "falcon-mamba-7b", 7_272_665_088
 DENSE_ARCH, DENSE_N_PARAMS = "qwen2-7b", 7_615_616_512
+HYBRID_ARCH, HYBRID_N_PARAMS = "zamba2-7b", 6_751_130_832
 SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
               "--show-graph", "--backend", "thread"]
 SERVE_MAX_LEN = 64               # serve.py's --max-len default
@@ -213,11 +228,14 @@ SCAN_SHAPES = [(1, 2048, 8192, 16, False), (1, 1, 8192, 16, True),
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # (B, H, KH, Sq, Sk, D, causal): qwen2-7b's long prefill and a served
 # prefill, the reduced qwen2-7b's prefill (phase 9b's workers, float32),
-# the attention of phase 11c's training step and of 11b's reduced one, a
-# ragged shape, a cross-shaped one and one whose D is a multiple of 8 but
-# not of 16
+# zamba2-7b's long and served prefills (phase 12: 32 heads of 112, no
+# GQA), the attention of phase 11c's training step and of 11b's reduced
+# one, a ragged shape, a cross-shaped one and one whose D is a multiple of
+# 8 but not of 16
 FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (1, 28, 4, 12, 12, 128, True),
+                (1, 32, 32, 2048, 2048, 112, True),
+                (1, 32, 32, 12, 12, 112, True),
                 (1, 4, 2, 12, 12, 32, True),
                 (2, 28, 4, 2048, 2048, 128, True),
                 (2, 4, 2, 16, 16, 32, True),
@@ -1075,9 +1093,15 @@ def phase_params(torch, arch: str, n_params: int):
                     "d_model": cfg.d_model, "vocab": cfg.vocab_size,
                     "compute_dtype": cfg.compute_dtype,
                     **({"d_inner": cfg.d_inner, "state": cfg.ssm_state}
-                       if _path_kernel(cfg) == "ssm_scan" else
-                       {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-                        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff})})
+                       if "mamba" in cfg.layer_plan[0] else {}),
+                    **({"ssm_heads": cfg.n_ssm_heads,
+                        "ssm_head_dim": cfg.ssm_head_dim,
+                        "chunk": cfg.ssm_chunk}
+                       if "mamba2" in cfg.layer_plan[0] else {}),
+                    **({"attention_sites": _kernel_layers(cfg),
+                        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff}
+                       if _path_kernel(cfg) == "flash_attention" else {})})
     return cfg, params
 
 
@@ -1140,8 +1164,18 @@ def _launch_routes(fn, in_workers=None) -> collections.Counter:
 
 def _path_kernel(cfg) -> str:
     """The kernel a model's path launches: the scan for Mamba1 (every
-    forward), flash attention for the dense transformer (every prefill)."""
+    forward), flash attention for the dense transformer and the hybrid's
+    shared-attention sites (every prefill)."""
     return "ssm_scan" if cfg.layer_plan[0] == "mamba1" else "flash_attention"
+
+
+def _kernel_layers(cfg) -> int:
+    """The layers that launch the path kernel once a forward (scan) or a
+    prefill (flash): every Mamba1 layer, every attention site (each layer of
+    the dense transformer, zamba2's 13 shared-attention sites)."""
+    if _path_kernel(cfg) == "ssm_scan":
+        return cfg.n_layers
+    return sum("attn" in p for p in cfg.layer_plan)
 
 
 def phase_serve(torch, cfg, params) -> int:
@@ -1166,7 +1200,7 @@ def phase_serve(torch, cfg, params) -> int:
     # the scan runs in every forward, flash attention in every prefill
     per = out["forwards"] if kernel == "ssm_scan" else out["prefills"]
     want = {name: 0 for name in counters}
-    want[kernel] = cfg.n_layers * per
+    want[kernel] = _kernel_layers(cfg) * per
     if launches != want:
         fail(f"{cfg.name}: kernel launches {launches}, expected {want}")
     if out["traced_tokens"] != finished[0].out[:3]:
@@ -1230,7 +1264,7 @@ def phase_serve_process(torch, arch: str, reduced: bool) -> int:
     per = (out["forwards"] - 3 if kernel == "ssm_scan"
            else out["prefills"] - 1)
     want = {name: 0 for name in counters}
-    want[kernel] = cfg.n_layers * per
+    want[kernel] = _kernel_layers(cfg) * per
     if launches != want:
         fail(f"{what}: kernel launches in this process {launches}, "
              f"expected {want}")
@@ -1240,7 +1274,7 @@ def phase_serve_process(torch, arch: str, reduced: bool) -> int:
         fail(f"{what}: the workers ran {ran}, expected 1 prefill and 2 "
              f"decodes")
     in_workers = stats["kernel_launches"]
-    n = cfg.n_layers * (3 if kernel == "ssm_scan" else 1)
+    n = _kernel_layers(cfg) * (3 if kernel == "ssm_scan" else 1)
     if {k: v for k, v in in_workers.items() if "/" not in k} != {kernel: n}:
         fail(f"{what}: the workers launched {in_workers}, expected {n} "
              f"{kernel} launches")
@@ -1312,7 +1346,7 @@ def phase_serve_gateway(torch, arch: str, thread_tokens: list) -> int:
     per = (out["forwards"] - 3 if kernel == "ssm_scan"
            else out["prefills"] - 1)
     want = {name: 0 for name in counters}
-    want[kernel] = cfg.n_layers * per
+    want[kernel] = _kernel_layers(cfg) * per
     if launches != want:
         fail(f"{what}: kernel launches in this process {launches}, "
              f"expected {want}")
@@ -1322,7 +1356,7 @@ def phase_serve_gateway(torch, arch: str, thread_tokens: list) -> int:
         fail(f"{what}: the job ran {ran} as {stats['tenant']!r}, expected 1 "
              f"prefill and 2 decodes as 'serve'")
     in_workers = stats["kernel_launches"]
-    n = cfg.n_layers * (3 if kernel == "ssm_scan" else 1)
+    n = _kernel_layers(cfg) * (3 if kernel == "ssm_scan" else 1)
     if {k: v for k, v in in_workers.items() if "/" not in k} != {kernel: n}:
         fail(f"{what}: the worker launched {in_workers}, expected {n} "
              f"{kernel} launches")
@@ -1394,8 +1428,8 @@ def phase_long_prefill(torch, cfg, params) -> dict:
     peak = torch.cuda.max_memory_allocated()
     toks_r, logits_r, pre_r, dec_r, _ = run("ref", feed=toks_k)
     # the scan runs in every forward, flash attention in the prefill
-    want = cfg.n_layers * (1 + LONG_DECODE if counter.__name__ == "ssm_scan"
-                           else 1)
+    want = _kernel_layers(cfg) * (1 + LONG_DECODE
+                                  if counter.__name__ == "ssm_scan" else 1)
     if launches_k != want or counter.launches != launches_k:
         fail(f"{launches_k} and {counter.launches - launches_k} "
              f"{counter.__name__} launches in the kernel and plain runs, "
@@ -1514,6 +1548,27 @@ def phase_model(torch, arch: str, n_params: int, profile: bool):
     launches += phase_serve_gateway(torch, arch, thread_tokens)
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hybrid(torch, profile: bool) -> collections.Counter:
+    """Phase 12: zamba2-7b drawn on the card at full width, served, its long
+    prefill run with the flash kernel and with the plain attention (with
+    ``profile``, profiled), and its parameters freed; returns the flash
+    launches by route.  The process-backend and gateway phases of
+    :func:`phase_model` are left out: their workers serve the reduced
+    config, whose 4 layers hold no shared-attention site."""
+    import gc
+    cfg, params = phase_params(torch, HYBRID_ARCH, HYBRID_N_PARAMS)
+    launches, _ = phase_serve(torch, cfg, params)
+    launches += phase_long_prefill(torch, cfg, params)["routes"]
+    if profile:
+        phase_profile(torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    line("freed", {"arch": HYBRID_ARCH,
+                   "allocated_bytes": torch.cuda.memory_allocated()})
     return launches
 
 
@@ -2152,6 +2207,8 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
 
 
 def main() -> int:
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2192,6 +2249,10 @@ def main() -> int:
                 phase_train_full(torch, ARCH, profile)):
         scan_launches += run["ssm_scan"]
         bwd_launches += run["ssm_scan_backward"]
+    # phase 12: the Mamba2 hybrid, the flash kernel at its 13 sites
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_launches += phase_hybrid(torch, profile)
 
     def entry(kernel, source, replaces, launches, routes, check, all_checks):
         return {"name": kernel, "route": "cuda",

@@ -32,8 +32,9 @@ can import them.
 It runs on the card unless ``--device`` names another device; with no card
 and no ``--device`` it raises.  This slice serves the dense transformer
 family (qwen2-7b, qwen3-14b, granite-20b, yi-9b; every prefill runs the
-flash-attention kernel) and the Mamba1 family (falcon-mamba-7b); MoE,
-Mamba2, hybrid and encoder-decoder architectures raise
+flash-attention kernel), the Mamba1 family (falcon-mamba-7b) and the
+Mamba2 hybrid (zamba2-7b; every prefill runs the flash-attention kernel at
+each shared-attention site); MoE and encoder-decoder architectures raise
 ``NotImplementedError``.  One parameter set serves both the traced request
 and the main loop.
 

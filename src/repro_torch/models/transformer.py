@@ -1,12 +1,17 @@
 """The port's decoder-only LM over stacked layers, for plan kinds ``attn``
-(dense, no experts) and ``mamba1``: forward, loss and gradients.
+(dense, no experts), ``mamba1``, ``mamba2`` and ``mamba2_shared`` (the
+zamba2 hybrid): forward, loss and gradients.
 
 Port of ``repro/models/transformer.py``.  Parameters keep the reference's
 tree: nested dicts with a leading ``n_layers`` dim on every per-layer leaf,
 so a tree made by ``repro.models.transformer.init_params`` and carried
 across with ``interop.params_from_numpy`` runs here unchanged.  The
 reference's ``lax.scan`` over the stacked layers becomes a Python loop over
-per-layer views (``tree.unstack_layers``).
+per-layer views (``tree.unstack_layers``), so zamba2's shared transformer
+block (one unstacked parameter set, applied after every
+``shared_attn_every``-th layer) is placed by the loop's static index, as
+the reference's unrolled path places it; its KV caches are the
+``cache["shared"]`` slots, one a site.
 
 Training (``forward(train=True)``, ``make_loss_fn``; the train step is
 ``launch/steps.py``'s) follows the reference's remat modes with
@@ -15,11 +20,11 @@ Training (``forward(train=True)``, ``make_loss_fn``; the train step is
 functional like ``jax.value_and_grad``.  With
 ``impl="kernel"`` the attention's gradient goes through the flash kernel's
 autograd Function, and Mamba1's through the scan's (``SSMScan``: the scan
-kernel forward, the scan's backward kernel).
+kernel forward, the scan's backward kernel); Mamba2's SSD is torch ops.
 
 This slice runs the dense transformer family (qwen2-7b, qwen3-14b,
-granite-20b, yi-9b, llava-next-34b's backbone) and the attention-free
-Mamba1 family (falcon-mamba-7b).  MoE, Mamba2, the hybrid and the
+granite-20b, yi-9b, llava-next-34b's backbone), the attention-free Mamba1
+family (falcon-mamba-7b) and the Mamba2 hybrid (zamba2-7b).  MoE and the
 encoder-decoder raise ``NotImplementedError`` naming the ROADMAP item that
 brings them.
 """
@@ -38,7 +43,8 @@ from .config import ModelConfig
 from .layers import (apply_norm, attention_block, embed_tokens,
                      init_attention, init_embed, init_mlp, init_norm,
                      init_param, mlp_block, unembed)
-from .ssm import init_mamba1, mamba1_block, mamba1_decode_cache
+from .ssm import (init_mamba1, init_mamba2, mamba1_block, mamba1_decode_cache,
+                  mamba2_block, mamba2_decode_cache)
 
 
 # --------------------------------------------------------------------------
@@ -58,18 +64,20 @@ def _plan_kind(cfg: ModelConfig) -> str:
     raise ValueError(f"unsupported layer plan {kinds} (scan needs homogeneity)")
 
 
+def _n_shared_sites(cfg: ModelConfig) -> int:
+    return sum(1 for p in cfg.layer_plan if p == "mamba2+shared_attn")
+
+
 def check_supported(cfg: ModelConfig) -> str:
     """The plan kind of ``cfg`` if this port runs it, else raise
     ``NotImplementedError`` naming the ROADMAP item that brings it."""
     kind = _plan_kind(cfg)
     if cfg.is_encoder_decoder:
         what = "encoder-decoder models: ROADMAP §1 item 7"
-    elif kind == "mamba1" or (kind == "attn" and not cfg.n_experts):
+    elif kind != "attn" or not cfg.n_experts:
         return kind
-    elif kind == "attn":
-        what = "MoE layers: ROADMAP §1 item 7"
     else:
-        what = "Mamba2 (SSD) and hybrid layers: ROADMAP §1 item 7"
+        what = "MoE layers: ROADMAP §1 item 7"
     raise NotImplementedError(
         f"{cfg.name}: layer plan {kind!r} is not ported yet; it comes with "
         f"{what}")
@@ -90,9 +98,19 @@ def param_specs(cfg: ModelConfig) -> Dict:
                                                   stacked=L)
         specs["layers"]["ffn"] = init_mlp("layers/mlp", cfg, stacked=L)
         specs["layers"]["norm2"] = init_norm("layers/norm2", cfg, stacked=L)
-    else:
+    elif kind == "mamba1":
         specs["layers"]["mixer"] = init_mamba1("layers/mamba1", cfg,
                                                stacked=L)
+    else:
+        specs["layers"]["mixer"] = init_mamba2("layers/mamba2", cfg,
+                                               stacked=L)
+    if kind == "mamba2_shared":
+        # zamba2's shared block is a full transformer block (attention +
+        # MLP), ONE parameter set reused at every site
+        specs["shared_attn"] = init_attention("shared_attn", cfg)
+        specs["shared_norm"] = init_norm("shared_norm", cfg)
+        specs["shared_mlp"] = init_mlp("shared_mlp", cfg)
+        specs["shared_norm2"] = init_norm("shared_norm2", cfg)
     return specs
 
 
@@ -126,8 +144,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Decode cache tree.  ``pos`` is the write cursor (same for the batch).
     An attention cache holds each layer's (batch, max_len, KH, hd) k and v
     in ``dtype`` (the compute type by default), or int8 with bf16 scales
-    when ``cfg.kv_cache_dtype == "int8"``; a Mamba1 cache holds each layer's
-    conv window and state, so ``max_len`` does not size it."""
+    when ``cfg.kv_cache_dtype == "int8"``; a Mamba cache holds each layer's
+    conv window and state, so ``max_len`` does not size it, and the hybrid
+    adds ``shared``: each shared-attention site's (batch, max_len, KH, hd)
+    k and v."""
     kind = check_supported(cfg)
     device = resolve_device(device)
     dt = dtype or cfg.cdtype
@@ -146,11 +166,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             layers = {"k": torch.zeros(shape, dtype=dt, device=device),
                       "v": torch.zeros(shape, dtype=dt, device=device)}
     else:
-        c = mamba1_decode_cache(cfg, batch, dt, device)
+        make = mamba1_decode_cache if kind == "mamba1" else mamba2_decode_cache
+        c = make(cfg, batch, dt, device)
         layers = {k: v.expand((L,) + v.shape).contiguous()
                   for k, v in c.items()}
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": layers}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
+             "layers": layers}
+    if kind == "mamba2_shared":
+        shape = (_n_shared_sites(cfg), batch, max_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        cache["shared"] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                           "v": torch.zeros(shape, dtype=dt, device=device)}
+    return cache
 
 
 # --------------------------------------------------------------------------
@@ -197,48 +224,77 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     (``"kernel"``: flash attention in prefill and training, the selective
     scan) or their plain versions (``"ref"``).  ``train`` applies
     ``cfg.remat`` to each layer (no cache then).  The cache given is not
-    changed; a new one is returned.  On the attention path, reading the
-    cache's write position is the forward's one host sync; a Mamba1
-    forward needs no positions.
+    changed; a new one is returned.  On a path with attention (``attn``,
+    the hybrid), reading the cache's write position is the forward's one
+    host sync; a Mamba forward without attention needs no positions.
+
+    The hybrid applies the shared block (norm, attention, residual, norm,
+    MLP, residual) after layer ``idx`` when ``(idx + 1) % every == 0``, at
+    site ``(idx + 1) // every - 1`` of ``cache["shared"]``; in training it
+    runs inside that layer's remat, its index bound by closure.
     """
     kind = check_supported(cfg)
     if train and cache is not None:
         raise ValueError("a training forward takes no cache")
     B, S = tokens.shape
     L = cfg.n_layers
-    pos0 = int(cache["pos"]) if cache is not None and kind == "attn" else 0
+    pos0 = (int(cache["pos"]) if cache is not None
+            and kind in ("attn", "mamba2_shared") else 0)
     positions = (torch.arange(S, device=tokens.device) + pos0).expand(B, S)
     x = embed_tokens(params["embed"], tokens, cfg, positions)
     if patch_embeds is not None:
         P = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(x.dtype), x[:, P:, :]], dim=1)
 
-    def body(x, lp, lcache):
+    every = cfg.shared_attn_every if kind == "mamba2_shared" else 0
+    site_caches = None
+    if kind == "mamba2_shared" and cache is not None:
+        site_caches = [{"k": k, "v": v} for k, v in zip(
+            cache["shared"]["k"].unbind(0), cache["shared"]["v"].unbind(0))]
+
+    def shared_block(x, site):
+        h = apply_norm(x, params["shared_norm"], cfg)
+        h, nc = attention_block(
+            params["shared_attn"], h, cfg, positions=positions,
+            cache=None if site_caches is None else site_caches[site],
+            cache_pos=pos0, causal=True, impl=impl)
+        if nc is not None:
+            site_caches[site] = nc
+        x = x + h
+        h = apply_norm(x, params["shared_norm2"], cfg)
+        return x + mlp_block(params["shared_mlp"], h, cfg)
+
+    def body(x, lp, lcache, idx):
         h = apply_norm(x, lp["norm1"], cfg)
         if kind == "attn":
             h, nc = attention_block(lp["mixer"], h, cfg, positions=positions,
                                     cache=lcache, cache_pos=pos0,
                                     causal=True, impl=impl)
-        else:
+        elif kind == "mamba1":
             h, nc = mamba1_block(lp["mixer"], h, cfg, cache=lcache,
                                  impl=impl)
+        else:
+            h, nc = mamba2_block(lp["mixer"], h, cfg, cache=lcache)
         x = x + h
         if "ffn" in lp:
             h = apply_norm(x, lp["norm2"], cfg)
             x = x + mlp_block(lp["ffn"], h, cfg)
+        if every and (idx + 1) % every == 0:
+            x = shared_block(x, (idx + 1) // every - 1)
         return x, nc
 
     layers = unstack_layers(params["layers"], L)
     new_layers = []
     if train:
-        step = _remat(cfg, lambda x, lp: body(x, lp, None)[0])
-        for lp in layers:
+        for idx, lp in enumerate(layers):
+            step = _remat(cfg, lambda x, lp, idx=idx: body(x, lp, None,
+                                                           idx)[0])
             x = step(x, lp)
     else:
         caches = (unstack_layers(cache["layers"], L) if cache is not None
                   else [None] * L)
-        for lp, lcache in zip(layers, caches):
-            x, nc = body(x, lp, lcache)
+        for idx, (lp, lcache) in enumerate(zip(layers, caches)):
+            x, nc = body(x, lp, lcache, idx)
             new_layers.append(nc)
 
     x = apply_norm(x, params["final_norm"], cfg)
@@ -249,6 +305,9 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         new_cache = {"pos": cache["pos"] + S,
                      "layers": {k: torch.stack([c[k] for c in new_layers])
                                 for k in new_layers[0]}}
+        if site_caches is not None:
+            new_cache["shared"] = {k: torch.stack([c[k] for c in site_caches])
+                                   for k in ("k", "v")}
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, new_cache, aux
 

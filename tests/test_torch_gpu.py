@@ -805,6 +805,56 @@ def test_dense_forward_on_the_card_matches_the_cpu(cuda):
     assert torch.allclose(got_step.cpu(), want_step, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_hybrid_prefill_and_decode_on_the_card(cuda, compute_dtype):
+    """zamba2's hybrid at a narrow width with its head dim of 112 (the
+    reduced config with two shared-attention sites): prefill launches the
+    flash kernel once a site, on the route of the compute dtype, and decode
+    none.  In float32 the card's logits meet the CPU's at 1e-4; in bf16
+    the kernel's meet the plain attention's on the card at 5e-2 (the wgmma
+    route rounds P to bf16, and each layer's output is rounded)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as TF
+    cfg = get_config("zamba2-7b").reduced(
+        n_layers=4, shared_attn_every=2, compute_dtype=compute_dtype,
+        n_heads=4, n_kv_heads=4, head_dim=112)
+    params = TF.init_params(cfg, seed=3, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32)
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+    on_card = to_card(params)
+
+    def run(tree, device, impl):
+        prefill = TF.make_prefill_step(cfg, max_len=48, impl=impl)
+        decode = TF.make_decode_step(cfg, impl=impl)
+        last, cache = prefill(tree, toks.to(device))
+        step, cache = decode(tree, cache, toks[:, :1].to(device))
+        return last.cpu(), step.cpu(), cache
+
+    route = fa.route(cfg.cdtype, cfg.head_dim)
+    before = (fa.flash_attention.launches,
+              fa.flash_attention.route_launches[route])
+    got, got_step, cache = run(on_card, cuda, "kernel")
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.route_launches[route]) == \
+        (before[0] + 2, before[1] + 2)
+    assert tuple(cache["shared"]["k"].shape) == (2, 2, 48, 4, 112)
+    if compute_dtype == "float32":
+        want, want_step, _ = run(params, "cpu", "kernel")
+        tol = 1e-4
+    else:
+        want, want_step, _ = run(on_card, cuda, "ref")
+        tol = 5e-2
+    assert fa.flash_attention.launches == before[0] + 2
+    assert torch.allclose(got, want, rtol=tol, atol=tol)
+    assert torch.allclose(got_step, want_step, rtol=tol, atol=tol)
+
+
 def test_dense_prefill_launches_flash_per_layer_on_wgmma(cuda):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa

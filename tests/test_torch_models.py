@@ -227,7 +227,6 @@ def test_counts_match_the_reference():
 @pytest.mark.parametrize("arch,item", [("llama4-maverick-400b-a17b",
                                         "§1 item 7"),
                                        ("dbrx-132b", "§1 item 7"),
-                                       ("zamba2-7b", "§1 item 7"),
                                        ("whisper-tiny", "§1 item 7")])
 def test_other_plans_raise_naming_the_roadmap_item(arch, item):
     cfg = get_config(arch).reduced()

@@ -106,7 +106,7 @@ def test_serve_takes_the_references_tp_flag(tp):
             serve.main(argv + ["--tp", tp])
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
 def test_unported_arch_raises_naming_roadmap_item_7(arch):
     with pytest.raises(NotImplementedError, match="§1 item 7"):
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
