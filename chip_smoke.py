@@ -75,7 +75,9 @@ Each phase prints one line; any failure raises and exits non-zero:
    phase 9b's workers (q 1x4x12x32, 2 kv heads), a ragged shape
    (2x8x1000x64, 2 kv heads), a cross-shaped one (Sq 300, Sk 777, not
    causal), one with D = 72, and zamba2-7b's long and served prefills
-   (q 1x32x2048x112 and 1x32x12x112, 32 kv heads; phase 12): float32
+   (q 1x32x2048x112 and 1x32x12x112, 32 kv heads; phase 12), and
+   dbrx-132b's and llama4-maverick-400b-a17b's long and served prefills
+   (q 1x48xSx128 and 1x40xSx128 over 8 kv heads; phase 13): float32
    (the simt route), bf16 (wgmma) and bf16 through the simt route (q, k,
    v one element past a 16-byte boundary), each launched twice (the same
    bits), with CUDA-event times of the kernel, the plain version and
@@ -148,13 +150,29 @@ Each phase prints one line; any failure raises and exits non-zero:
    decode step; then phase 7's long prefill with the kernel (13 launches)
    and with the plain attention (none), and the parameters freed.  Its
    Mamba2 (SSD) layers are torch ops: the JAX package has no kernel for
-   them.
+   them;
+13. MoE — the hybrid freed, dbrx-132b at its published width (d_model
+   6144, 48 heads of 128 over 8 kv heads, 16 experts of 10752, top-4,
+   every layer MoE) cut to 4 of its 40 layers (14,269,470,720 float32
+   parameters drawn on the card from a seed), served through the
+   launcher's ``--layers 4`` by the same argv: 28 decode steps, the
+   traced tokens a prefix of request 0's, 4 flash launches per prefill,
+   all wgmma, none per decode step; then phase 7's long prefill with the
+   kernel and with the plain attention, whose line adds each MoE layer's
+   routing: the last position's picks that differ between the two runs,
+   the rows of the prompt whose picks differ, the picks dropped by
+   capacity in each run, and the smallest gap between the K-th and the
+   (K+1)-th router probability at the last position.  Then the same for
+   llama4-maverick-400b-a17b cut to 2 of its 48 layers, one dense layer
+   and one MoE layer (128 experts of 8192, top-1, a shared expert;
+   18,553,267,200 bf16 parameters): 2 flash launches per prefill.  The
+   expert products are ``torch.bmm`` in bf16: the JAX package computes
+   MoE outside any Pallas kernel.
 
 With ``--profile`` it also profiles one decode step and two prefills of
-each served model (zamba2-7b's too) and one full-width training step of
-each trained one (device time
-by kernel, device busy share, and the device time of the port's own
-kernels).
+each served model (zamba2-7b's and the MoE models' too) and one
+full-width training step of each trained one (device time by kernel,
+device busy share, and the device time of the port's own kernels).
 
 Then one JSON line of the kernels (``flash_attention``, headed by its
 wgmma kernel, counts the wrapper's launches on both routes, serving and
@@ -211,6 +229,13 @@ PROCESS_TIMEOUT = 120.0
 ARCH, N_PARAMS = "falcon-mamba-7b", 7_272_665_088
 DENSE_ARCH, DENSE_N_PARAMS = "qwen2-7b", 7_615_616_512
 HYBRID_ARCH, HYBRID_N_PARAMS = "zamba2-7b", 6_751_130_832
+# phase 13: (arch, layers served, parameters at that depth).  dbrx-132b's
+# float32 parameters take 57.1 GB at 4 layers (70.1 at 5, which leaves no
+# room for a layer's three 2.1 GB bf16 casts of its experts);
+# llama4-maverick-400b-a17b's bf16 ones 37.1 GB at 2 layers, one block of a
+# dense and an MoE layer (its 128 experts: 10.7 GB a weight)
+MOE_CELLS = [("dbrx-132b", 4, 14_269_470_720),
+             ("llama4-maverick-400b-a17b", 2, 18_553_267_200)]
 SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
               "--show-graph", "--backend", "thread"]
 SERVE_MAX_LEN = 64               # serve.py's --max-len default
@@ -229,13 +254,18 @@ SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # (B, H, KH, Sq, Sk, D, causal): qwen2-7b's long prefill and a served
 # prefill, the reduced qwen2-7b's prefill (phase 9b's workers, float32),
 # zamba2-7b's long and served prefills (phase 12: 32 heads of 112, no
-# GQA), the attention of phase 11c's training step and of 11b's reduced
-# one, a ragged shape, a cross-shaped one and one whose D is a multiple of
-# 8 but not of 16
+# GQA), dbrx-132b's and llama4-maverick-400b-a17b's long and served
+# prefills (phase 13: GQA 6 and 5), the attention of phase 11c's training
+# step and of 11b's reduced one, a ragged shape, a cross-shaped one and one
+# whose D is a multiple of 8 but not of 16
 FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (1, 28, 4, 12, 12, 128, True),
                 (1, 32, 32, 2048, 2048, 112, True),
                 (1, 32, 32, 12, 12, 112, True),
+                (1, 48, 8, 2048, 2048, 128, True),
+                (1, 48, 8, 12, 12, 128, True),
+                (1, 40, 8, 2048, 2048, 128, True),
+                (1, 40, 8, 12, 12, 128, True),
                 (1, 4, 2, 12, 12, 32, True),
                 (2, 28, 4, 2048, 2048, 128, True),
                 (2, 4, 2, 16, 16, 32, True),
@@ -1065,10 +1095,16 @@ def phase_flash_kernels(torch) -> list:
     return checks
 
 
-def phase_params(torch, arch: str, n_params: int):
+def phase_params(torch, arch: str, n_params: int, layers: int = 0):
+    """Draw ``arch`` on the card from seed 0, cut to its first ``layers``
+    layers when given; fails unless it has ``n_params`` parameters."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TF
+    from repro_torch.models.config import cut_depth
     cfg = get_config(arch)
+    published = cfg.n_layers
+    if layers:
+        cfg = cut_depth(cfg, layers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = TF.init_params(cfg, 0, "cuda")
@@ -1090,6 +1126,7 @@ def phase_params(torch, arch: str, n_params: int):
                     "bytes": sum(t.numel() * t.element_size()
                                  for t in leaves),
                     "draw_s": seconds, "layers": cfg.n_layers,
+                    "published_layers": published,
                     "d_model": cfg.d_model, "vocab": cfg.vocab_size,
                     "compute_dtype": cfg.compute_dtype,
                     **({"d_inner": cfg.d_inner, "state": cfg.ssm_state}
@@ -1101,7 +1138,16 @@ def phase_params(torch, arch: str, n_params: int):
                     **({"attention_sites": _kernel_layers(cfg),
                         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
                         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff}
-                       if _path_kernel(cfg) == "flash_attention" else {})})
+                       if _path_kernel(cfg) == "flash_attention" else {}),
+                    **({"experts": cfg.n_experts,
+                        "top_k": cfg.experts_per_token,
+                        "expert_d_ff": cfg.expert_d_ff,
+                        "shared_experts": cfg.n_shared_experts,
+                        "moe_every": cfg.moe_every,
+                        "capacity_factor": cfg.capacity_factor,
+                        "moe_group": cfg.moe_group,
+                        "active_params": TF.count_active_params(cfg)}
+                       if cfg.n_experts else {})})
     return cfg, params
 
 
@@ -1178,11 +1224,18 @@ def _kernel_layers(cfg) -> int:
     return sum("attn" in p for p in cfg.layer_plan)
 
 
+def _depth_args(cfg) -> list:
+    """The launcher's ``--layers`` for a config cut in depth, else none."""
+    from repro_torch.configs import get_config
+    cut = cfg.n_layers != get_config(cfg.name).n_layers
+    return ["--layers", str(cfg.n_layers)] if cut else []
+
+
 def phase_serve(torch, cfg, params) -> int:
     from repro_torch.launch import serve
     counters = _counters()
     kernel = _path_kernel(cfg)
-    argv = ["--arch", cfg.name] + SERVE_ARGS
+    argv = ["--arch", cfg.name] + _depth_args(cfg) + SERVE_ARGS
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         _reset(fn)
@@ -1381,11 +1434,75 @@ def phase_serve_gateway(torch, arch: str, thread_tokens: list) -> int:
     return _launch_routes(counters[kernel], in_workers)
 
 
+@contextlib.contextmanager
+def _recording_routing(torch):
+    """Records the routing of every MoE layer call while it is open: the
+    router (``models/moe.py::route``) run again on the layer's input, its
+    picks, the probabilities at the call's last position and the picks it
+    drops, kept on the device (no host read inside a timed run; the router
+    is a (tokens, d) by (d, E) product, small beside the layer)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TF
+    inner, calls = TF.moe_block, []
+
+    def recording(p, x, cfg):
+        r = moe.route(p, x, cfg)
+        calls.append({"tokens": x.shape[0] * x.shape[1], "idx": r.idx,
+                      "last_probs": r.probs[-1, -1],
+                      "dropped": (~r.keep).sum()})
+        return inner(p, x, cfg)
+    TF.moe_block = recording
+    try:
+        yield calls
+    finally:
+        TF.moe_block = inner
+
+
+def _routing_summary(torch, cfg, kernel_calls, plain_calls) -> dict:
+    """Phase 13's routing fields: per MoE layer of the long prefill, the
+    last position's picks that the kernel run and the plain run do not
+    share, the prompt rows whose pick sets differ, and the gap between the
+    K-th and (K+1)-th router probability at the last position; the picks
+    dropped by capacity in each run's prefill and decode steps."""
+    K = cfg.experts_per_token
+    out = {"last_position_picks_differing": [], "rows_differing": [],
+           "last_position_kth_gap_kernel": [],
+           "last_position_kth_gap_plain": [],
+           "last_position_picks_kernel": []}
+    pre_k = [c for c in kernel_calls if c["tokens"] == LONG_PROMPT]
+    pre_p = [c for c in plain_calls if c["tokens"] == LONG_PROMPT]
+    for ck, cp in zip(pre_k, pre_p):
+        ik = torch.sort(ck["idx"].reshape(-1, K), dim=-1).values
+        ip = torch.sort(cp["idx"].reshape(-1, K), dim=-1).values
+        last_k, last_p = set(ik[-1].tolist()), set(ip[-1].tolist())
+        out["last_position_picks_differing"].append(len(last_k - last_p))
+        out["rows_differing"].append(int((ik != ip).any(-1).sum()))
+        out["last_position_picks_kernel"].append(sorted(last_k))
+        for c, key in ((ck, "kernel"), (cp, "plain")):
+            top = torch.sort(c["last_probs"], descending=True).values
+            out[f"last_position_kth_gap_{key}"].append(
+                (top[K - 1] - top[K]).item() if K < cfg.n_experts else None)
+    for calls, key in ((kernel_calls, "kernel"), (plain_calls, "plain")):
+        out[f"dropped_prefill_{key}"] = sum(
+            int(c["dropped"]) for c in calls if c["tokens"] == LONG_PROMPT)
+        out[f"dropped_decode_{key}"] = sum(
+            int(c["dropped"]) for c in calls if c["tokens"] != LONG_PROMPT)
+    gaps = [g for g in out["last_position_kth_gap_kernel"] if g is not None]
+    out["min_last_position_kth_gap"] = min(gaps) if gaps else None
+    out["moe_layers"] = len(pre_k)
+    if len(pre_k) != len(pre_p) or \
+            len(pre_k) != cfg.n_layers // cfg.moe_every:
+        fail(f"{cfg.name}: {len(pre_k)} and {len(pre_p)} MoE prefill calls "
+             f"recorded, expected {cfg.n_layers // cfg.moe_every}")
+    return out
+
+
 def phase_long_prefill(torch, cfg, params) -> dict:
     """One LONG_PROMPT prefill and LONG_DECODE greedy steps in ``cfg``'s
     compute dtype, with the path kernel and with its plain version; the
     kernel run's prefill also times the kernel's own launches (CUDA events
-    around each)."""
+    around each).  An MoE model's line adds the routing of both runs
+    (:func:`_routing_summary`)."""
     from repro_torch.models import transformer as TF
     counter = _counters()[_path_kernel(cfg)]
     module = sys.modules[counter.__module__]
@@ -1419,14 +1536,21 @@ def phase_long_prefill(torch, cfg, params) -> dict:
         toks = [int(t) for t in torch.argmax(logits, dim=-1)]
         return toks, logits, prefill_s, decode_s, kernel_ms
 
+    moe = bool(cfg.n_experts)
     torch.cuda.reset_peak_memory_stats()
     _reset(counter)
-    toks_k, logits_k, pre_k, dec_k, kernel_ms = run("kernel")
+    with (_recording_routing(torch) if moe
+          else contextlib.nullcontext([])) as calls_k:
+        toks_k, logits_k, pre_k, dec_k, kernel_ms = run("kernel")
     launches_k = counter.launches
     routes = _check_routes(counter, cfg,
                            f"{cfg.name} {cfg.compute_dtype} long prefill")
     peak = torch.cuda.max_memory_allocated()
-    toks_r, logits_r, pre_r, dec_r, _ = run("ref", feed=toks_k)
+    with (_recording_routing(torch) if moe
+          else contextlib.nullcontext([])) as calls_r:
+        toks_r, logits_r, pre_r, dec_r, _ = run("ref", feed=toks_k)
+    routing = (_routing_summary(torch, cfg, calls_k, calls_r) if moe
+               else None)
     # the scan runs in every forward, flash attention in the prefill
     want = _kernel_layers(cfg) * (1 + LONG_DECODE
                                   if counter.__name__ == "ssm_scan" else 1)
@@ -1459,7 +1583,8 @@ def phase_long_prefill(torch, cfg, params) -> dict:
            "launches_by_route": routes,
            f"{counter.__name__}_prefill_ms": kernel_ms,
            f"{counter.__name__}_prefill_share": kernel_ms / 1e3 / pre_k,
-           "peak_device_bytes": peak}
+           "peak_device_bytes": peak,
+           **({"layers": cfg.n_layers, "routing": routing} if moe else {})}
     line("long_prefill", out)
     out["routes"] = _launch_routes(counter)
     return out
@@ -1569,6 +1694,31 @@ def phase_hybrid(torch, profile: bool) -> collections.Counter:
     torch.cuda.empty_cache()
     line("freed", {"arch": HYBRID_ARCH,
                    "allocated_bytes": torch.cuda.memory_allocated()})
+    return launches
+
+
+def phase_moe(torch, profile: bool) -> collections.Counter:
+    """Phase 13: each of MOE_CELLS drawn on the card at its published width
+    cut in depth, served through the launcher's ``--layers``, its long
+    prefill run with the flash kernel and with the plain attention (with
+    ``profile``, profiled), and its parameters freed; returns the flash
+    launches by route.  The process-backend and gateway phases of
+    :func:`phase_model` are left out: their workers serve the reduced
+    configs, which phase 9b already runs on the card."""
+    import gc
+    launches = collections.Counter()
+    for arch, layers, n_params in MOE_CELLS:
+        cfg, params = phase_params(torch, arch, n_params, layers)
+        served, _ = phase_serve(torch, cfg, params)
+        launches += served
+        launches += phase_long_prefill(torch, cfg, params)["routes"]
+        if profile:
+            phase_profile(torch, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        line("freed", {"arch": arch,
+                       "allocated_bytes": torch.cuda.memory_allocated()})
     return launches
 
 
@@ -1951,13 +2101,11 @@ def _train_cell(arch: str):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as scan
-    full = get_config(arch)
+    from repro_torch.models.config import cut_depth
     layers, n_params, fn_cls = (
         (TRAIN_LAYERS, TRAIN_N_PARAMS, fa.FlashAttention) if arch == DENSE_ARCH
         else (MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_N_PARAMS, scan.SSMScan))
-    cfg = dataclasses.replace(full, n_layers=layers,
-                              layer_plan=full.layer_plan[:layers])
-    return cfg, n_params, fn_cls
+    return cut_depth(get_config(arch), layers), n_params, fn_cls
 
 
 def phase_train_full(torch, arch: str = DENSE_ARCH,
@@ -2253,6 +2401,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     flash_launches += phase_hybrid(torch, profile)
+    # phase 13: MoE, the flash kernel at 48 and 40 heads over 8 kv heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_launches += phase_moe(torch, profile)
 
     def entry(kernel, source, replaces, launches, routes, check, all_checks):
         return {"name": kernel, "route": "cuda",

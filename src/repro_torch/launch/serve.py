@@ -15,11 +15,11 @@ With ``--backend thread`` the traced request's tasks close over the
 launcher's one parameter set.  With ``--backend process`` they are the
 module-level recipe functions below (``_demo_prefill``/``_demo_decode``, as
 in the reference): the graph pickles into spawned workers, and each worker
-draws its own parameters from ``(arch, reduced, max_len, seed, device)``
-once (``_serve_runtime``), so the traced tokens match the main loop's.  The
-KV or SSM cache crosses between workers as host bytes.  A caller's own
-parameter tree (``main(params=...)``) cannot be rebuilt from a seed, so it
-serves only on the thread backend.
+draws its own parameters from ``(arch, reduced, layers, max_len, seed,
+device)`` once (``_serve_runtime``), so the traced tokens match the main
+loop's.  The KV or SSM cache crosses between workers as host bytes.  A
+caller's own parameter tree (``main(params=...)``) cannot be rebuilt from a
+seed, so it serves only on the thread backend.
 
 With ``--gateway HOST:PORT`` the traced request goes instead, built from the
 same recipe functions, to a resident gateway (``python -m
@@ -31,16 +31,20 @@ can import them.
 
 It runs on the card unless ``--device`` names another device; with no card
 and no ``--device`` it raises.  This slice serves the dense transformer
-family (qwen2-7b, qwen3-14b, granite-20b, yi-9b; every prefill runs the
-flash-attention kernel), the Mamba1 family (falcon-mamba-7b) and the
-Mamba2 hybrid (zamba2-7b; every prefill runs the flash-attention kernel at
-each shared-attention site); MoE and encoder-decoder architectures raise
-``NotImplementedError``.  One parameter set serves both the traced request
+family (qwen2-7b, qwen3-14b, granite-20b, yi-9b) and the MoE family
+(dbrx-132b, llama4-maverick-400b-a17b), where every prefill runs the
+flash-attention kernel at each layer, the Mamba1 family (falcon-mamba-7b)
+and the Mamba2 hybrid (zamba2-7b; every prefill runs the flash-attention
+kernel at each shared-attention site).  whisper-tiny, an encoder-decoder,
+is refused, as the reference refuses it.  ``--layers N`` serves the
+config's first N layers at its full width (a full-width model that does
+not fit the card whole).  One parameter set serves both the traced request
 and the main loop.
 
 CPU example (reduced config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --reduced --device cpu --requests 6 --slots 2 --max-new 8
+  ... --arch dbrx-132b --reduced                (MoE, top-4 of 4 experts)
   ... --show-graph --backend process --graph-workers 2   (worker processes)
   ... --show-graph --gateway HOST:PORT --gateway-token T  (a gateway's pool)
 """
@@ -59,6 +63,7 @@ from ..configs import ARCHS, get_config
 from ..core import task, trace
 from ..interop import resolve_device
 from ..models import transformer as TF
+from ..models.config import cut_depth
 from .backend import add_backend_args, execute_traced, validate_backend_args
 
 
@@ -93,27 +98,34 @@ def _greedy(logits: torch.Tensor) -> int:
 # arguments, so the graph pickles into spawned cluster workers; each worker
 # rebuilds its parameters and step functions from the recipe once.
 # --------------------------------------------------------------------------
-@functools.lru_cache(maxsize=2)
-def _serve_runtime(arch: str, reduced: bool, max_len: int, seed: int,
-                   device: str):
+def _config(arch: str, reduced: bool, layers: int):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    return cut_depth(cfg, layers) if layers else cfg
+
+
+@functools.lru_cache(maxsize=2)
+def _serve_runtime(arch: str, reduced: bool, layers: int, max_len: int,
+                   seed: int, device: str):
+    cfg = _config(arch, reduced, layers)
     params = TF.init_params(cfg, seed, torch.device(device))
     return (params, TF.make_prefill_step(cfg, max_len=max_len),
             TF.make_decode_step(cfg))
 
 
-def _demo_prefill(arch, reduced, max_len, seed, device, prompt):
-    params, prefill, _ = _serve_runtime(arch, reduced, max_len, seed, device)
+def _demo_prefill(arch, reduced, layers, max_len, seed, device, prompt):
+    params, prefill, _ = _serve_runtime(arch, reduced, layers, max_len, seed,
+                                        device)
     tokens = torch.as_tensor(np.asarray(prompt, np.int32)[None, :],
                              device=device)
     last, cache = prefill(params, tokens)
     return _greedy(last), cache
 
 
-def _demo_decode(arch, reduced, max_len, seed, device, tok, cache):
-    params, _, decode = _serve_runtime(arch, reduced, max_len, seed, device)
+def _demo_decode(arch, reduced, layers, max_len, seed, device, tok, cache):
+    params, _, decode = _serve_runtime(arch, reduced, layers, max_len, seed,
+                                       device)
     token = torch.tensor([[tok]], dtype=torch.int32, device=device)
     logits, cache = decode(params, cache, token)
     return _greedy(logits), cache
@@ -130,7 +142,7 @@ demo_respond = task(_demo_respond, cost=0.01, name="respond")
 
 def _recipe_tasks(recipe: tuple):
     """The demo's tasks for the process backend: the recipe functions with
-    ``recipe = (arch, reduced, max_len, seed, device)`` bound at trace
+    ``recipe = (arch, reduced, layers, max_len, seed, device)`` bound at trace
     time."""
     def prefill_t(prompt):
         return demo_prefill(*recipe, prompt)
@@ -176,6 +188,9 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b", choices=ARCHS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the config's first N layers at its width "
+                         "(default: all)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--max-new", type=int, default=8)
@@ -206,9 +221,7 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
             f"--tp {args.tp}: tensor parallelism is intra-op SPMD, which "
             f"comes with ROADMAP §1 item 8; the port serves on one device")
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = _config(args.arch, args.reduced, args.layers)
     if cfg.is_encoder_decoder:
         raise SystemExit("serve.py targets decoder-only archs; whisper's "
                          "enc-dec serving is exercised in the dry-run cells")
@@ -239,8 +252,8 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
             import importlib
             canon = importlib.import_module("repro_torch.launch.serve")
             prefill_t, decode_t, respond_t = canon._recipe_tasks(
-                (args.arch, args.reduced, args.max_len, args.seed,
-                 str(device)))
+                (args.arch, args.reduced, args.layers, args.max_len,
+                 args.seed, str(device)))
         else:
             prefill_t, decode_t, respond_t = _demo_tasks(params, prefill,
                                                          decode, device)

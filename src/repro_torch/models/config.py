@@ -169,6 +169,20 @@ class ModelConfig:
         return dataclasses.replace(self, **small)
 
 
+def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` at the same width cut to its first ``n_layers`` layers (the
+    prefix of its layer plan).  Interleaved MoE keeps whole blocks of
+    ``moe_every`` layers, so each still ends in its MoE layer."""
+    if not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name}: cannot cut {cfg.n_layers} layers "
+                         f"to {n_layers}")
+    if cfg.n_experts and n_layers % cfg.moe_every:
+        raise ValueError(f"{cfg.name}: {n_layers} layers are no whole "
+                         f"number of blocks of {cfg.moe_every}")
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               layer_plan=cfg.layer_plan[:n_layers])
+
+
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     """One input-shape cell from the assignment."""

@@ -1,6 +1,6 @@
 """The port's decoder-only LM over stacked layers, for plan kinds ``attn``
-(dense, no experts), ``mamba1``, ``mamba2`` and ``mamba2_shared`` (the
-zamba2 hybrid): forward, loss and gradients.
+(dense, or MoE), ``mamba1``, ``mamba2`` and ``mamba2_shared`` (the zamba2
+hybrid): forward, loss and gradients.
 
 Port of ``repro/models/transformer.py``.  Parameters keep the reference's
 tree: nested dicts with a leading ``n_layers`` dim on every per-layer leaf,
@@ -11,7 +11,13 @@ per-layer views (``tree.unstack_layers``), so zamba2's shared transformer
 block (one unstacked parameter set, applied after every
 ``shared_attn_every``-th layer) is placed by the loop's static index, as
 the reference's unrolled path places it; its KV caches are the
-``cache["shared"]`` slots, one a site.
+``cache["shared"]`` slots, one a site.  An MoE layer's feed-forward is
+:func:`moe.moe_block`, picked by structure (a ``router`` in the layer's
+``ffn``) as there, and its aux loss adds into the returned one.  With
+``moe_every = k > 1`` (llama4-maverick) ``layers/ffn`` holds ``mlp``
+stacked by L − L/k and ``moe`` stacked by L/k: layer ``s·k + j`` takes
+``mlp[s·(k−1) + j]`` for ``j < k − 1`` and ``moe[s]`` for ``j = k − 1``,
+the reference's super-block order (:func:`_layer_params`).
 
 Training (``forward(train=True)``, ``make_loss_fn``; the train step is
 ``launch/steps.py``'s) follows the reference's remat modes with
@@ -23,15 +29,16 @@ autograd Function, and Mamba1's through the scan's (``SSMScan``: the scan
 kernel forward, the scan's backward kernel); Mamba2's SSD is torch ops.
 
 This slice runs the dense transformer family (qwen2-7b, qwen3-14b,
-granite-20b, yi-9b, llava-next-34b's backbone), the attention-free Mamba1
-family (falcon-mamba-7b) and the Mamba2 hybrid (zamba2-7b).  MoE and the
-encoder-decoder raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+granite-20b, yi-9b, llava-next-34b's backbone), the MoE family (dbrx-132b,
+llama4-maverick-400b-a17b), the attention-free Mamba1 family
+(falcon-mamba-7b) and the Mamba2 hybrid (zamba2-7b).  The encoder-decoder
+(whisper-tiny) raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -43,8 +50,9 @@ from .config import ModelConfig
 from .layers import (apply_norm, attention_block, embed_tokens,
                      init_attention, init_embed, init_mlp, init_norm,
                      init_param, mlp_block, unembed)
+from .moe import init_moe, moe_block, moe_flops_per_token
 from .ssm import (init_mamba1, init_mamba2, mamba1_block, mamba1_decode_cache,
-                  mamba2_block, mamba2_decode_cache)
+                  mamba2_block, mamba2_decode_cache, ssm_flops_per_token)
 
 
 # --------------------------------------------------------------------------
@@ -73,14 +81,50 @@ def check_supported(cfg: ModelConfig) -> str:
     ``NotImplementedError`` naming the ROADMAP item that brings it."""
     kind = _plan_kind(cfg)
     if cfg.is_encoder_decoder:
-        what = "encoder-decoder models: ROADMAP §1 item 7"
-    elif kind != "attn" or not cfg.n_experts:
-        return kind
-    else:
-        what = "MoE layers: ROADMAP §1 item 7"
-    raise NotImplementedError(
-        f"{cfg.name}: layer plan {kind!r} is not ported yet; it comes with "
-        f"{what}")
+        raise NotImplementedError(
+            f"{cfg.name}: layer plan {kind!r} is not ported yet; it comes "
+            f"with encoder-decoder models: ROADMAP §1 item 7")
+    _superblock(cfg)
+    return kind
+
+
+def _superblock(cfg: ModelConfig) -> int:
+    """Layers a super-block: ``moe_every`` for interleaved MoE (k − 1 dense
+    layers, then one MoE layer), else 1."""
+    if cfg.n_experts and cfg.moe_every > 1 and _plan_kind(cfg) == "attn":
+        if cfg.n_layers % cfg.moe_every:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are no "
+                             f"whole number of blocks of {cfg.moe_every}")
+        return cfg.moe_every
+    return 1
+
+
+def _ffn_init(cfg: ModelConfig, L: int) -> Dict:
+    """The attention layers' feed-forward specs: the MLP, the MoE layer, or
+    for interleaved MoE both, stacked by the layers that take each."""
+    if not cfg.n_experts:
+        return init_mlp("layers/mlp", cfg, stacked=L)
+    k = _superblock(cfg)
+    if k == 1:
+        return init_moe("layers/moe", cfg, stacked=L)
+    return {"mlp": init_mlp("layers/mlp", cfg, stacked=L - L // k),
+            "moe": init_moe("layers/moe", cfg, stacked=L // k)}
+
+
+def _layer_params(layers: Dict, cfg: ModelConfig) -> List[Dict]:
+    """Each layer's parameter tree, its leaves views of the stacked ones.
+    With interleaved MoE the ``ffn`` leaves are stacked by the layers of
+    each kind, so they are unbound by those counts and placed by index."""
+    L, k = cfg.n_layers, _superblock(cfg)
+    if k == 1:
+        return unstack_layers(layers, L)
+    per = unstack_layers({n: t for n, t in layers.items() if n != "ffn"}, L)
+    mlp = unstack_layers(layers["ffn"]["mlp"], L - L // k)
+    moe = unstack_layers(layers["ffn"]["moe"], L // k)
+    for i, lp in enumerate(per):
+        s, j = divmod(i, k)
+        lp["ffn"] = mlp[s * (k - 1) + j] if j < k - 1 else moe[s]
+    return per
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
@@ -96,7 +140,7 @@ def param_specs(cfg: ModelConfig) -> Dict:
     if kind == "attn":
         specs["layers"]["mixer"] = init_attention("layers/attn", cfg,
                                                   stacked=L)
-        specs["layers"]["ffn"] = init_mlp("layers/mlp", cfg, stacked=L)
+        specs["layers"]["ffn"] = _ffn_init(cfg, L)
         specs["layers"]["norm2"] = init_norm("layers/norm2", cfg, stacked=L)
     elif kind == "mamba1":
         specs["layers"]["mixer"] = init_mamba1("layers/mamba1", cfg,
@@ -132,6 +176,47 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def count_params(cfg: ModelConfig) -> int:
     return sum(s.numel for s in tree_leaves(param_specs(cfg)))
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: top-k experts only; interleaved MoE
+    counts only the L//moe_every layers that actually have experts)."""
+    total = count_params(cfg)
+    if not cfg.n_experts:
+        return total
+    d, ff, E, K = (cfg.d_model, cfg.expert_d_ff, cfg.n_experts,
+                   cfg.experts_per_token)
+    n_moe_layers = cfg.n_layers // cfg.moe_every
+    return total - n_moe_layers * (E - K) * 3 * d * ff
+
+
+def model_flops_per_token(cfg: ModelConfig, seq_len: int) -> float:
+    """Forward matmul FLOPs per token (the 6·N·D convention divides into
+    2·N_active fwd + 4·N_active bwd; attention adds the S-dependent term).
+    With interleaved MoE only the last layer of each block of ``moe_every``
+    counts the MoE layer's FLOPs, the others their MLP's; the reference
+    counts the MoE layer's at every attention layer (ROADMAP §3)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = (2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+            + 2 * cfg.n_heads * hd * d
+            + 2 * 2 * cfg.n_heads * hd * seq_len / 2)
+    k = _superblock(cfg)
+    f = 0.0
+    for i, plan in enumerate(cfg.layer_plan):
+        if plan == "attn":
+            f += attn
+            if cfg.n_experts and (i + 1) % k == 0:
+                f += moe_flops_per_token(cfg)
+            else:
+                mult = 3 if cfg.mlp_act == "swiglu" else 2
+                f += mult * 2 * d * cfg.d_ff
+        else:
+            f += ssm_flops_per_token(
+                cfg, "mamba1" if plan == "mamba1" else "mamba2")
+            if "shared_attn" in plan:
+                f += attn
+    f += 2 * d * cfg.vocab_size          # unembed
+    return f
 
 
 # --------------------------------------------------------------------------
@@ -231,7 +316,9 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     The hybrid applies the shared block (norm, attention, residual, norm,
     MLP, residual) after layer ``idx`` when ``(idx + 1) % every == 0``, at
     site ``(idx + 1) // every - 1`` of ``cache["shared"]``; in training it
-    runs inside that layer's remat, its index bound by closure.
+    runs inside that layer's remat, its index bound by closure.  The aux
+    loss is the sum of the MoE layers' load-balancing losses in layer order
+    (zero without experts).
     """
     kind = check_supported(cfg)
     if train and cache is not None:
@@ -265,6 +352,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         return x + mlp_block(params["shared_mlp"], h, cfg)
 
     def body(x, lp, lcache, idx):
+        """One layer: returns x, the layer's new cache and its MoE aux loss
+        (None for a layer without experts)."""
         h = apply_norm(x, lp["norm1"], cfg)
         if kind == "attn":
             h, nc = attention_block(lp["mixer"], h, cfg, positions=positions,
@@ -276,26 +365,37 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         else:
             h, nc = mamba2_block(lp["mixer"], h, cfg, cache=lcache)
         x = x + h
+        a = None
         if "ffn" in lp:
             h = apply_norm(x, lp["norm2"], cfg)
-            x = x + mlp_block(lp["ffn"], h, cfg)
+            if "router" in lp["ffn"]:           # MoE vs dense by structure
+                h, a = moe_block(lp["ffn"], h, cfg)
+            else:
+                h = mlp_block(lp["ffn"], h, cfg)
+            x = x + h
         if every and (idx + 1) % every == 0:
             x = shared_block(x, (idx + 1) // every - 1)
-        return x, nc
+        return x, nc, a
 
-    layers = unstack_layers(params["layers"], L)
+    layers = _layer_params(params["layers"], cfg)
     new_layers = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if train:
         for idx, lp in enumerate(layers):
+            # (x, aux) of the layer: a training forward keeps no cache
             step = _remat(cfg, lambda x, lp, idx=idx: body(x, lp, None,
-                                                           idx)[0])
-            x = step(x, lp)
+                                                           idx)[::2])
+            x, a = step(x, lp)
+            if a is not None:
+                aux = aux + a
     else:
         caches = (unstack_layers(cache["layers"], L) if cache is not None
                   else [None] * L)
         for idx, (lp, lcache) in enumerate(zip(layers, caches)):
-            x, nc = body(x, lp, lcache, idx)
+            x, nc, a = body(x, lp, lcache, idx)
             new_layers.append(nc)
+            if a is not None:
+                aux = aux + a
 
     x = apply_norm(x, params["final_norm"], cfg)
     logits = unembed(params["embed"], x, cfg)
@@ -308,7 +408,6 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         if site_caches is not None:
             new_cache["shared"] = {k: torch.stack([c[k] for c in site_caches])
                                    for k in ("k", "v")}
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, new_cache, aux
 
 

@@ -1,0 +1,112 @@
+"""The port's examples (``examples/torch_*.py``) on the CPU against the
+reference's (``examples/{quickstart,train_lm,serve_lm}.py``).
+
+Each reference example runs as it is (``runpy``), beside the port's with
+``--device cpu``.  The language-model examples draw their parameters in
+the launchers; the port's launcher is handed the reference's draw
+(``repro.models.transformer.init_params`` from the same seed, carried
+across with ``interop.params_from_numpy``), so both compute with the same
+numbers: losses at rtol 1e-4, tokens exactly.  The training example runs
+at 10 steps of 2 × 16 tokens, which still takes its crash (at step 6) and
+its resume (from the step-0 checkpoint) through its arguments.
+"""
+import runpy
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import transformer as JTF  # noqa: E402
+from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.models import transformer as PTF  # noqa: E402
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+CPU = ["--device", "cpu"]
+
+
+def _port(name):
+    """The port's example module ``name``, loaded without running it."""
+    return runpy.run_path(str(EXAMPLES / f"{name}.py"), run_name=name)
+
+
+def _reference_params(monkeypatch, arch):
+    """Have the port's launchers draw the reference launcher's parameters
+    (``init_params(cfg, PRNGKey(0))`` of the reduced config)."""
+    tree = jax.device_get(JTF.init_params(jax_config(arch).reduced(),
+                                          jax.random.PRNGKey(0)))
+    monkeypatch.setattr(PTF, "init_params",
+                        lambda cfg, seed, device: params_from_numpy(tree,
+                                                                    device))
+
+
+def test_quickstart_prints_and_computes_the_references(capsys):
+    want = runpy.run_path(str(EXAMPLES / "quickstart.py"),
+                          run_name="__main__")
+    want_out = capsys.readouterr().out
+    got = _port("torch_quickstart")["main"](CPU)
+    assert capsys.readouterr().out == want_out
+    assert got["device"] == "cpu"
+    y, z = got["outputs"]
+    assert isinstance(y, torch.Tensor) and y.device.type == "cpu"
+    assert [float(y), int(z)] == [want["seq"][t]
+                                  for t in want["graph"].outputs]
+    assert got["schedule"].makespan == want["sched"].makespan
+    assert got["simulated"].makespan == want["r"].makespan
+
+
+def test_train_lm_crashes_resumes_and_matches_the_reference(tmp_path,
+                                                            monkeypatch):
+    argv = ["--steps", "10", "--batch", "2", "--seq", "16"]
+    # the reference example, run as it is: record its launcher's results
+    ref_example = runpy.run_path(str(EXAMPLES / "train_lm.py"),
+                                 run_name="train_lm")
+    train_main, want = ref_example["train_mod"].main, []
+    monkeypatch.setattr(ref_example["train_mod"], "main",
+                        lambda a: want.append(train_main(a)) or want[-1])
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", *argv, "--ckpt",
+                                      str(tmp_path / "ref")])
+    try:
+        ref_example["main"]()
+    except AssertionError as e:
+        # its 20 % loss-drop check needs the default 200 steps
+        assert str(e) == "no learning?"
+    _reference_params(monkeypatch, "qwen2-7b")
+    example = _port("torch_train_lm")
+    got = example["crash_and_resume"](example["parse"](
+        argv + CPU + ["--ckpt", str(tmp_path / "port")]))
+    assert len(want) == len(got) == 2
+    # phase 1: steps 0-5, the crash; phase 2: resumed from the step-0
+    # checkpoint, steps 1-9
+    assert [len(r["losses"]) for r in got] == [6, 9]
+    assert [r["start_step"] for r in got] == [0, 1] == \
+        [r["start_step"] for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["losses"], w["losses"], rtol=1e-4)
+    assert got[1]["device"] == "cpu"
+
+
+def test_serve_lm_gives_the_references_tokens(monkeypatch):
+    want = runpy.run_path(str(EXAMPLES / "serve_lm.py"),
+                          run_name="__main__")["out"]
+    _reference_params(monkeypatch, "yi-9b")
+    got = _port("torch_serve_lm")["main"](CPU)
+    assert got["decode_steps"] == want["decode_steps"] > 0
+    assert {r.rid: r.out for r in got["finished"]} == \
+        {r.rid: r.out for r in want["finished"]}
+    assert len(got["finished"]) == 8 and got["device"] == "cpu"
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_serve_lm",
+                                  "torch_train_lm"])
+def test_examples_need_a_card_unless_the_cpu_is_named(name, monkeypatch,
+                                                      tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _port(name)["main"](["--steps", "2", "--ckpt", str(tmp_path)]
+                            if "train" in name else [])

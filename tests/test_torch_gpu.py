@@ -879,6 +879,33 @@ def test_dense_prefill_launches_flash_per_layer_on_wgmma(cuda):
     assert torch.isfinite(last).all() and torch.isfinite(step).all()
 
 
+def test_reduced_moe_serves_on_the_card_as_on_the_cpu(cuda):
+    """The reduced dbrx-132b (top-2 of 4 experts, float32 compute) served
+    on the card from the CPU's parameter draw gives the CPU run's tokens,
+    with one flash launch a layer a prefill (the simt route in float32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TF
+    cfg = get_config("dbrx-132b").reduced()
+    params = TF.init_params(cfg, seed=0, device="cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+    argv = ["--arch", "dbrx-132b", "--reduced", "--requests", "3",
+            "--slots", "2", "--max-new", "5"]
+    want = serve.main(argv + ["--device", "cpu"], params=params)
+    before = dict(fa.flash_attention.route_launches)
+    got = serve.main(argv + ["--device", "cuda"], params=to_card(params))
+    assert got["device"].startswith("cuda")
+    assert fa.flash_attention.route_launches == {
+        "simt": before["simt"] + cfg.n_layers * got["prefills"],
+        "wgmma": before["wgmma"]}
+    assert {r.rid: r.out for r in got["finished"]} == \
+        {r.rid: r.out for r in want["finished"]}
+
+
 # --------------------------------------------------------------------------
 # training: the flash Function's gradient, the wrappers' guard, a step
 # --------------------------------------------------------------------------

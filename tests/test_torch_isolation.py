@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and neither
-``chip_smoke.py`` nor ``kernel_ab.py``, imports JAX or the JAX package
+"""The port stands alone: no module of ``repro_torch``, neither
+``chip_smoke.py`` nor ``kernel_ab.py``, and no ``examples/torch_*.py``
+imports JAX or the JAX package
 ``repro`` (by an import statement or by ``importlib.import_module``), and
 neither a spawned cluster worker nor a gateway client that sends it a
 traced serve request loads them."""
@@ -84,9 +85,11 @@ _BAD_IMPORT = re.compile(
 
 
 def test_port_sources_name_no_jax_or_repro_import():
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 3
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "kernel_ab.py"]
-    assert len(files) >= 63          # the 62 modules and chip_smoke.py
+                                          ROOT / "kernel_ab.py"] + examples
+    assert len(files) >= 67          # the modules, the scripts, the examples
     offenders = {str(f.relative_to(ROOT)): _BAD_IMPORT.findall(f.read_text())
                  for f in files}
     assert {f: m for f, m in offenders.items() if m} == {}

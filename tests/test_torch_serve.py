@@ -5,7 +5,8 @@ The JAX launcher draws its parameters with
 tree, carries it across with ``params_from_numpy`` and hands it to the
 port's ``main`` through its ``params`` keyword, so both serve the same
 model on the same argv (plus ``--device cpu``), for the Mamba1 family
-(falcon-mamba-7b) and the dense family (qwen2-7b).  Greedy tokens must be
+(falcon-mamba-7b), the dense family (qwen2-7b) and the MoE family
+(dbrx-132b, llama4-maverick-400b-a17b).  Greedy tokens must be
 equal: both compute in float32 and differ only in summation order.
 """
 import pytest
@@ -108,8 +109,12 @@ def test_serve_takes_the_references_tp_flag(tp):
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
 def test_unported_arch_raises_naming_roadmap_item_7(arch):
-    with pytest.raises(NotImplementedError, match="§1 item 7"):
-        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    """MoE serving is ported (ROADMAP §1 item 7's MoE half): dbrx-132b and
+    llama4-maverick-400b-a17b ``--reduced`` give the JAX launcher's tokens,
+    the traced request's a prefix of request 0's."""
+    runs = _both(arch)
+    test_request_tokens_equal_the_jax_launchers(runs)
+    test_traced_tokens_prefix_request_0(runs)
 
 
 @pytest.mark.parametrize("extra", [["--backend", "process"],
