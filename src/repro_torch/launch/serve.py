@@ -36,7 +36,11 @@ family (qwen2-7b, qwen3-14b, granite-20b, yi-9b) and the MoE family
 flash-attention kernel at each layer, the Mamba1 family (falcon-mamba-7b)
 and the Mamba2 hybrid (zamba2-7b; every prefill runs the flash-attention
 kernel at each shared-attention site).  whisper-tiny, an encoder-decoder,
-is refused, as the reference refuses it.  ``--layers N`` serves the
+is refused with the reference's message: the reference serves no
+encoder-decoder, so the port's prefill and decode steps for it
+(``models/encdec.py``) are driven by the tests and ``chip_smoke.py``
+alone.  llava-next-34b serves its text backbone, as in the reference (no
+patch embeddings).  ``--layers N`` serves the
 config's first N layers at its full width (a full-width model that does
 not fit the card whole).  One parameter set serves both the traced request
 and the main loop.

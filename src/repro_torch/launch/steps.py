@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from ..models import model_module
 from ..models import transformer as TF
 from ..models.config import ModelConfig
 from ..optim import Adafactor, AdamW
@@ -30,9 +31,12 @@ def make_train_step(cfg: ModelConfig, optimizer,
     The reference pins the gradients to the parameters' layout when
     ``cfg.shard_grads`` (a reduce-scatter instead of an all-reduce); on one
     device there is no layout to pin, so ``ctx`` changes nothing here.
-    Encoder-decoder models raise, naming ROADMAP §1 item 7."""
-    TF.check_supported(cfg)
-    grad_fn = TF.value_and_grad(TF.make_loss_fn(cfg))
+    The loss is the encoder-decoder's (``models/encdec.py``; its batch
+    carries ``frames``) or the decoder-only LM's (``models/transformer.py``;
+    a VLM's carries ``patch_embeds``), as the reference dispatches it."""
+    M = model_module(cfg)
+    M.check_supported(cfg)
+    grad_fn = TF.value_and_grad(M.make_loss_fn(cfg))
 
     def train_step(params, opt_state, batch):
         (total, metrics), grads = grad_fn(params, batch)

@@ -24,12 +24,18 @@ pickles into spawned workers, which rebuild the runtime from the recipe.
 They are taken from the module imported as ``repro_torch.launch.train``,
 never from ``__main__`` (which they would pickle as when this file runs
 with ``python -m``), as ``launch/serve.py`` takes its own.
-This slice trains the dense transformer family and Mamba1 on the card
-and the CPU (Mamba1's gradient goes through the scan's backward kernel on
-the card); ``--tp`` takes only 1 (intra-op SPMD is ROADMAP §1 item 8).
+It trains every config of the pool on the card and the CPU: the dense
+transformer family, llava-next-34b (its batches carry ``patch_embeds``,
+``frontends.synth_patches``), MoE, Mamba1 (its gradient through the scan's
+backward kernel on the card), the Mamba2 hybrid and the encoder-decoder
+whisper-tiny (``models/encdec.py``; its batches carry ``frames``,
+``frontends.synth_frames``).  As in the reference, every step takes the
+same patches or frames, drawn from seed 0 on the run's device.  ``--tp``
+takes only 1 (intra-op SPMD is ROADMAP §1 item 8).
 
 CPU example (reduced qwen2-family config; ``--arch falcon-mamba-7b`` for
-Mamba1, and without ``--device cpu`` on the card):
+Mamba1, ``whisper-tiny`` for the encoder-decoder, ``llava-next-34b`` for
+the VLM, and without ``--device cpu`` on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --reduced --device cpu --steps 8 --batch 2 --seq 16
 """
@@ -50,7 +56,7 @@ from ..core import checkpoint_barrier, io_task, task, trace
 from ..core.placement import standard_rules
 from ..data.pipeline import Prefetcher, SyntheticLMDataset
 from ..interop import resolve_device
-from ..models import transformer as TF
+from ..models import frontends, model_module
 from ..optim.schedules import cosine_schedule
 from ..parallel.mesh import single_device_mesh
 from ..parallel.sharding import ShardingCtx
@@ -64,12 +70,22 @@ def _config(arch: str, reduced: bool, remat: str):
     if reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, remat=remat)
-    TF.check_supported(cfg)
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: training feeds the vision frontend's patch "
-            f"embeddings, which come with ROADMAP §1 item 7")
+    model_module(cfg).check_supported(cfg)
     return cfg
+
+
+def add_frontend(batch: Dict[str, Any], cfg, n: int, device,
+                 seed: int = 0) -> Dict[str, Any]:
+    """``batch`` with the frontend's stand-in input of ``cfg``, drawn on
+    ``device`` from ``seed`` (the launcher's every step: seed 0, the
+    reference's ``train.py:206-210``): a VLM's ``patch_embeds``, an
+    encoder-decoder's ``frames``."""
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = frontends.synth_patches(cfg, n, seed,
+                                                        device=device)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = frontends.synth_frames(cfg, n, seed, device=device)
+    return batch
 
 
 def _batch_on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -90,16 +106,20 @@ def _demo_runtime(arch, reduced, remat, mode, lr, warmup, steps, seed,
                       standard_rules(mode, pod_axis=None))
     opt = steps_mod.make_optimizer(cfg, lr=cosine_schedule(lr, warmup, steps))
     step = steps_mod.make_train_step(cfg, opt, ctx)
-    params = TF.init_params(cfg, seed, device)
+    params = model_module(cfg).init_params(cfg, seed, device)
     return cfg, step, params, opt.init(params)
 
 
-def _demo_load_batch(arch, reduced, seq, batch, step, seed):
+def _demo_load_batch(arch, reduced, seq, batch, step, seed, device):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     ds = SyntheticLMDataset(cfg.vocab_size, seq, batch, seed=seed)
-    return ds.batch_at(step)
+    # the frontend's input is drawn where the loop draws it (the same
+    # numbers), then kept on the host, so the graph's values pickle
+    b = add_frontend(ds.batch_at(step), cfg, batch, device)
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in b.items()}
 
 
 def _demo_train_step(arch, reduced, remat, mode, lr, warmup, steps, seed,
@@ -135,7 +155,7 @@ def build_runtime(args, device: torch.device) -> Dict[str, Any]:
     opt = steps_mod.make_optimizer(cfg, lr=cosine_schedule(
         args.lr, args.warmup, args.steps))
     step_fn = steps_mod.make_train_step(cfg, opt, ctx)
-    params = TF.init_params(cfg, args.seed, device)
+    params = model_module(cfg).init_params(cfg, args.seed, device)
     return dict(cfg=cfg, mesh=mesh, ctx=ctx, opt=opt, params=params,
                 opt_state=opt.init(params), step=step_fn)
 
@@ -203,7 +223,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
 
         def demo_driver():
             b = canon.demo_load_batch(args.arch, args.reduced, args.seq,
-                                      args.batch, start_step, args.seed)
+                                      args.batch, start_step, args.seed,
+                                      str(device))
             loss = canon.demo_train_step(
                 args.arch, args.reduced, args.remat, args.mode, args.lr,
                 args.warmup, args.steps, args.seed, str(device), b)
@@ -222,7 +243,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     t_total = time.time()
     final_step = start_step
     for s in range(start_step, args.steps):
-        batch = _batch_on(pf.next(), device)
+        batch = add_frontend(_batch_on(pf.next(), device), cfg,
+                              args.batch, device)
         t0 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["total_loss"])

@@ -4,9 +4,9 @@ Port of ``repro/models/layers.py``: the parameter initialisers of
 ``Builder.p`` (``layers.py:37-61``), the norms (``rmsnorm``, ``layernorm``,
 ``apply_norm``), rotary embeddings, GQA attention with a KV cache (plain or
 int8), the MLP (``swiglu`` or ``gelu``) and the token embedding and
-unembedding.  Prefill attention goes through the flash-attention kernel
-(:func:`repro_torch.kernels.ops.flash_attention`); attention over a cache
-that already holds tokens stays torch ops.  The reference's sharding
+unembedding.  Prefill and cross-attention go through the flash-attention
+kernel (:func:`repro_torch.kernels.ops.flash_attention`); attention over a
+cache that already holds tokens stays torch ops.  The reference's sharding
 constraints (``shard_act``) have nothing to do on one device and are left
 out.
 
@@ -251,6 +251,8 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, cache: Optional[Dict] = None,
                     cache_pos: int = 0, causal: bool = True,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
                     impl: str = "kernel"
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention with an optional KV cache; returns (out, new_cache).
@@ -259,7 +261,14 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     * a cache with ``cache_pos == 0``: prefill, writing the first S slots;
     * a cache with ``cache_pos > 0``: decode (or a later chunk), writing
       slots ``cache_pos .. cache_pos + S - 1`` and attending over the slots
-      written so far.
+      written so far;
+    * ``kv_override=(k, v)``, each (B, Sk, KH, hd) in the compute type:
+      cross-attention of ``x``'s queries over them (the encoder-decoder's).
+      The k and v projections, ``k_norm``, RoPE (on q too, as the
+      reference skips it) and the cache are skipped; ``bq`` and ``q_norm``
+      apply.  It is always the flash kernel's, over all Sk keys, also for
+      a decode step's one query, as the reference gives it no cache and no
+      ``kv_len``.
 
     The cache holds (B, S_max, KH, hd) k and v in the compute type, or int8
     with bf16 scales per (token, head).  It is not changed: the written
@@ -282,19 +291,25 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     cd = cfg.cdtype
 
     q = torch.matmul(x, params["wq"].to(cd))
-    k = torch.matmul(x, params["wk"].to(cd))
-    v = torch.matmul(x, params["wv"].to(cd))
     if "bq" in params:
         q = q + params["bq"].to(cd)
-        k = k + params["bk"].to(cd)
-        v = v + params["bv"].to(cd)
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KH, hd)
-    v = v.reshape(B, S, KH, hd)
+    if kv_override is None:
+        k = torch.matmul(x, params["wk"].to(cd))
+        v = torch.matmul(x, params["wv"].to(cd))
+        if "bk" in params:
+            k = k + params["bk"].to(cd)
+            v = v + params["bv"].to(cd)
+        k = k.reshape(B, S, KH, hd)
+        v = v.reshape(B, S, KH, hd)
+    else:
+        k, v = kv_override
+        cache = None
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    if cfg.use_rope:
+        if kv_override is None:
+            k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    if cfg.use_rope and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -321,11 +336,12 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     if cache is None or cache_pos == 0:
         # the slots past S are masked by kv_len in the reference: attend
-        # over the first S only
+        # over the first S only (an override's keys: all of them)
+        Sk = S if kv_override is None else k.shape[1]
         out = ops.flash_attention(
             q.transpose(1, 2).contiguous(),
-            k[:, :S].transpose(1, 2).contiguous(),
-            v[:, :S].transpose(1, 2).contiguous(), causal=causal, impl=impl)
+            k[:, :Sk].transpose(1, 2).contiguous(),
+            v[:, :Sk].transpose(1, 2).contiguous(), causal=causal, impl=impl)
         out = out.transpose(1, 2)
     else:
         kv_len = torch.full((B,), cache_pos + S, device=x.device)

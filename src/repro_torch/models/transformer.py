@@ -28,12 +28,12 @@ functional like ``jax.value_and_grad``.  With
 autograd Function, and Mamba1's through the scan's (``SSMScan``: the scan
 kernel forward, the scan's backward kernel); Mamba2's SSD is torch ops.
 
-This slice runs the dense transformer family (qwen2-7b, qwen3-14b,
-granite-20b, yi-9b, llava-next-34b's backbone), the MoE family (dbrx-132b,
-llama4-maverick-400b-a17b), the attention-free Mamba1 family
-(falcon-mamba-7b) and the Mamba2 hybrid (zamba2-7b).  The encoder-decoder
-(whisper-tiny) raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+It runs the dense transformer family (qwen2-7b, qwen3-14b, granite-20b,
+yi-9b, llava-next-34b's backbone, whose ``patch_embeds`` stand in for the
+vision frontend), the MoE family (dbrx-132b, llama4-maverick-400b-a17b),
+the attention-free Mamba1 family (falcon-mamba-7b) and the Mamba2 hybrid
+(zamba2-7b).  The encoder-decoder (whisper-tiny) is ``models/encdec.py``'s:
+here it raises ``NotImplementedError`` naming that module.
 """
 from __future__ import annotations
 
@@ -77,13 +77,13 @@ def _n_shared_sites(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> str:
-    """The plan kind of ``cfg`` if this port runs it, else raise
-    ``NotImplementedError`` naming the ROADMAP item that brings it."""
+    """The plan kind of ``cfg`` if this module runs it; an encoder-decoder
+    config raises ``NotImplementedError`` naming the module that does."""
     kind = _plan_kind(cfg)
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: layer plan {kind!r} is not ported yet; it comes "
-            f"with encoder-decoder models: ROADMAP §1 item 7")
+            f"{cfg.name} is an encoder-decoder model: "
+            f"repro_torch.models.encdec builds and runs it")
     _superblock(cfg)
     return kind
 

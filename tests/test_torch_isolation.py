@@ -1,9 +1,10 @@
-"""The port stands alone: no module of ``repro_torch``, neither
-``chip_smoke.py`` nor ``kernel_ab.py``, and no ``examples/torch_*.py``
-imports JAX or the JAX package
+"""The port stands alone: no module of ``repro_torch``, none of
+``chip_smoke.py``, ``kernel_ab.py`` and ``train_check_causes.py``, and no
+``examples/torch_*.py`` imports JAX or the JAX package
 ``repro`` (by an import statement or by ``importlib.import_module``), and
-neither a spawned cluster worker nor a gateway client that sends it a
-traced serve request loads them."""
+neither a spawned cluster worker, a gateway client that sends it a traced
+serve request, nor training the encoder-decoder and the VLM (through
+``models.encdec`` and ``models.frontends``) loads them."""
 import os
 import re
 import subprocess
@@ -39,7 +40,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1) \
         if " " in proc.stdout.strip() else (proc.stdout.strip(), "")
-    assert int(count) >= 62          # every module of the slices was imported
+    assert int(count) >= 64          # every module of the slices was imported
     assert bad == "", f"port imports pulled in {bad}"
 
 
@@ -87,9 +88,10 @@ _BAD_IMPORT = re.compile(
 def test_port_sources_name_no_jax_or_repro_import():
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(examples) == 3
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "kernel_ab.py"] + examples
-    assert len(files) >= 67          # the modules, the scripts, the examples
+    scripts = [ROOT / name for name in ("chip_smoke.py", "kernel_ab.py",
+                                        "train_check_causes.py")]
+    files = sorted(PORT.rglob("*.py")) + scripts + examples
+    assert len(files) >= 70          # the modules, the scripts, the examples
     offenders = {str(f.relative_to(ROOT)): _BAD_IMPORT.findall(f.read_text())
                  for f in files}
     assert {f: m for f, m in offenders.items() if m} == {}
@@ -138,3 +140,29 @@ def test_a_gateway_serve_request_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr
     tokens, _, bad = proc.stdout.strip().splitlines()[-1].partition(" BAD")
     assert tokens.startswith("TOKENS [") and bad.strip() == "", bad
+
+
+_TRAIN_SCRIPT = r"""
+import sys
+from repro_torch.launch import train
+from repro_torch.models import encdec, frontends  # noqa: F401
+losses = []
+for arch in ("whisper-tiny", "llava-next-34b"):
+    losses += train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                          "--steps", "1", "--batch", "2", "--seq", "16"]
+                         )["losses"]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("LOSSES", len(losses), "BAD", ",".join(bad))
+"""
+
+
+def test_training_the_encoder_decoder_and_the_vlm_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_SCRIPT],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    losses, _, bad = proc.stdout.strip().splitlines()[-1].partition(" BAD")
+    assert losses == "LOSSES 2" and bad.strip() == "", proc.stdout

@@ -22,11 +22,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import encdec as jax_encdec  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
 from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models import transformer as JTF  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.interop import params_from_numpy, tensor_to_numpy  # noqa: E402
+from repro_torch.models import encdec as pt_encdec  # noqa: E402
 from repro_torch.models import layers as pt_layers  # noqa: E402
 from repro_torch.models import ssm as pt_ssm  # noqa: E402
 from repro_torch.models import transformer as PTF  # noqa: E402
@@ -226,18 +228,25 @@ def test_counts_match_the_reference():
 
 @pytest.mark.parametrize("arch,item", [("llama4-maverick-400b-a17b", None),
                                        ("dbrx-132b", None),
-                                       ("whisper-tiny", "§1 item 7")])
+                                       ("whisper-tiny", "models.encdec")])
 def test_other_plans_raise_naming_the_roadmap_item(arch, item):
-    """The encoder-decoder still raises, naming its ROADMAP item; the MoE
-    configs are ported (§1 item 7's MoE half): the reference's parameter
-    tree, and a forward with finite logits and a positive aux loss
-    (``tests/test_torch_moe.py`` holds them to the reference's values)."""
+    """The decoder-only LM refuses the encoder-decoder, naming the module
+    that builds it, whose parameters are the reference's tree
+    (``tests/test_torch_encdec.py`` holds its values); the MoE configs are
+    ported: the reference's parameter tree, and a forward with finite
+    logits and a positive aux loss (``tests/test_torch_moe.py`` holds them
+    to the reference's values)."""
     cfg = get_config(arch).reduced()
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             PTF.init_params(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match=item):
             PTF.forward({}, torch.zeros((1, 2), dtype=torch.int32), cfg)
+        params = pt_encdec.init_params(cfg, device="cpu")
+        want = jax.eval_shape(lambda: jax_encdec.init_params(
+            jax_config(arch).reduced(), jax.random.PRNGKey(0)))
+        assert {p: tuple(t.shape) for p, t in _leaves(params)} == \
+            {p: tuple(a.shape) for p, a in _leaves(want)}
         return
     assert PTF.check_supported(cfg) == "attn"
     params = PTF.init_params(cfg, device="cpu")
