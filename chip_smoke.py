@@ -196,7 +196,25 @@ Each phase prints one line; any failure raises and exits non-zero:
    (3,148,938,240 float32 parameters) on batches of 2 x 2048 tokens, the
    first 576 positions patch embeddings (seed 0; each loss batch its own),
    trained as 11c at VLM_LR with 8 wgmma flash launches a step.  Phase
-   14a's kernel checks run in phases 8 and 11a.
+   14a's kernel checks run in phases 8 and 11a;
+15. intra-op SPMD — a world of one NCCL rank (``parallel.mesh.init_world``
+   on a fresh file store), destroyed afterwards: (a) phase 4's Fig. 2 DAG
+   through ``MeshExecutor`` on a (1, 1) ("data", "model") mesh, every node
+   ("batch", "d_model") under ``standard_rules("dp_tp")``, twice: each
+   call's ``reduce`` phase 4's sequential value bit for bit, 16 matmul
+   launches on ``route()``'s route (the kernel on each rank's local shard
+   of the DTensors), no collective (``CommDebugMode``) and the DAG's
+   2 x 16 x 4096^3 FLOPs (``FlopCounterMode``); the refinement's changed
+   specs and resharding bytes; (b) qwen2-7b at 11c's 8 layers (seed 0,
+   bf16 compute, no grad) through ``pipelined_forward``, one stage, 4
+   microbatches of 1 x 2048 embedded tokens, against ``layer_stack`` on
+   the whole batch within 2e-2 of its largest entry, equal aux, 32 wgmma
+   flash launches of q 1x28x2048x128; (c) ``Int8BlockCompressor`` over
+   that parameter tree: each block's roundtrip within half its own step,
+   ``dp_gradient_sync(..., compressor=)`` over the world of one the
+   roundtrip's bits, and one leaf's codes and scales the CPU's bits, with
+   ms per GB, the payload and the all-reduce's wire bytes against
+   ``compression_ratio(4)``, and the peak memory.
 
 With ``--profile`` it also profiles one decode step and two prefills of
 each served model (zamba2-7b's and the MoE models' too) and one
@@ -204,9 +222,11 @@ full-width training step of each trained one (whisper-tiny's and
 llava-next-34b's too; device time by kernel,
 device busy share, and the device time of the port's own kernels).
 
-Then one JSON line of the kernels (``flash_attention``, headed by its
+Then one JSON line of the kernels (``matmul`` counts phase 15a's launches
+too; ``flash_attention``, headed by its
 wgmma kernel, counts the wrapper's launches on both routes, serving and
-training, the encoder-decoder's prefill and decode steps too;
+training, the encoder-decoder's prefill and decode steps and phase 15b's
+pipeline too;
 ``flash_attention_simt`` is the CUDA-core kernel and its
 launches; ``ssm_scan`` counts serving and training forwards, and
 ``ssm_scan_backward``, headed by the training shape, the backward kernel's
@@ -420,6 +440,14 @@ VLM_LR = 1e-5
 # scale 1, gives logits of ±170, where one bf16 step of the final hidden
 # state moves a logit by about 0.5; a wrong attention moves them by tens
 DECODE_REL_TOL = 2e-2
+# phase 15b: qwen2-7b at 11c's width and depth (8 of 28 layers) through the
+# pipeline, one stage (the world has one rank), SPMD_MICRO microbatches of
+# 1 x TRAIN_SEQ tokens, held to the bf16 limit of tests/test_torch_gpu.py
+# (of the largest entry) against the same layers on the whole batch
+SPMD_MICRO = 4
+SPMD_PIPE_TOL = TOL["bfloat16"]
+# phase 15c: the leaf whose int8 codes and scales are held to the CPU's
+SPMD_BITS_LEAF = "layers/mixer/wk"
 # the training cells: (layers, parameters at that depth, batch, sequence)
 TRAIN_CELLS = {
     DENSE_ARCH: (TRAIN_LAYERS, TRAIN_N_PARAMS, TRAIN_BATCH, TRAIN_SEQ),
@@ -503,18 +531,21 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
 
 
 @contextlib.contextmanager
-def timed_launches(torch, module, name: str):
+def timed_launches(torch, module, name: str, shapes=None):
     """Within the block, every call that ``kernels/ops.py`` makes of the
     kernel wrapper ``module.<name>`` is bracketed by CUDA events on the
     current stream; yields the list of (start, end) pairs.  Only ops.py's
     reference to the module is swapped: the wrapper itself, and the launch
-    counts it keeps on its own function object, are untouched."""
+    counts it keeps on its own function object, are untouched.  Each
+    call's first argument's shape is appended to ``shapes`` when given."""
     from repro_torch.kernels import ops
     alias = next(a for a, val in vars(ops).items() if val is module)
     inner = getattr(module, name)
     events = []
 
     def timed(*args, **kwargs):
+        if shapes is not None:
+            shapes.append(list(args[0].shape))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2648,6 +2679,229 @@ def phase_encdec(torch, profile: bool) -> collections.Counter:
     return launches
 
 
+def phase_mesh_executor(torch, seq_total: float) -> int:
+    """Phase 15a: phase 4's Fig. 2 DAG through ``MeshExecutor`` on a (1, 1)
+    mesh of the world of one: the placement refinement's specs, then two
+    calls (the first counts FLOPs and collectives), each bit for bit phase
+    4's sequential value with one matmul launch a ``mul`` on its route, on
+    each rank's local shard, and no collective.  Returns the launches."""
+    from repro_torch.core import (MeshExecutor, ValueInfo, logical_to_spec,
+                                  standard_rules, total_resharding_bytes,
+                                  trace)
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.parallel.mesh import make_mesh_for
+    from repro_torch.workloads import matrix_driver
+    graph, _ = trace(matrix_driver, N_TASKS, SIZE, device="cuda")
+    mesh = make_mesh_for(1)
+    rules = standard_rules("dp_tp", pod_axis=None)
+    info = {t: ValueInfo((SIZE, SIZE), 4, ("batch", "d_model"))
+            for t in graph.nodes}
+    t0 = time.perf_counter()
+    ex = MeshExecutor(graph, mesh, rules, value_info=info)
+    refine_s = time.perf_counter() - t0
+    init = {t: logical_to_spec(info[t].logical_axes, rules, mesh.axis_names)
+            for t in graph.nodes}
+    path = mm.route(torch.float32, SIZE, SIZE)
+    walls, launches = [], 0
+    for _ in range(2):
+        _reset(mm.matmul)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ex({})[0]            # reduce reads its sums on the host
+        walls.append(time.perf_counter() - t0)
+        if mm.matmul.route_launches != {r: (N_TASKS if r == path else 0)
+                                        for r in mm.matmul.route_launches}:
+            fail(f"mesh executor: matmul launches by route "
+                 f"{mm.matmul.route_launches}, expected {N_TASKS} {path}")
+        launches += mm.matmul.launches
+        if out != seq_total:
+            fail(f"mesh executor: reduce {out!r} is not phase 4's "
+                 f"sequential {seq_total!r}")
+    cost = ex.cost_analysis()
+    if cost["collectives"] != 0:
+        fail(f"mesh executor: {cost['collectives_by_op']} collectives on a "
+             f"mesh of one device")
+    if cost["flops"] != N_TASKS * 2 * SIZE ** 3:
+        fail(f"mesh executor: {cost['flops']} FLOPs counted, expected "
+             f"{N_TASKS * 2 * SIZE ** 3}")
+    line("mesh_executor", {
+        "mesh": mesh.shape, "nodes": len(graph), "refine_s": refine_s,
+        "specs_changed": sum(ex.specs[t] != init[t] for t in graph.nodes),
+        "resharding_bytes_rules": total_resharding_bytes(graph, info, init,
+                                                         mesh),
+        "resharding_bytes_refined": total_resharding_bytes(
+            graph, info, ex.specs, mesh),
+        "wall_s_counted": walls[0], "wall_s": walls[1],
+        "launches_per_call": N_TASKS, "route": path,
+        "equals_sequential": True, "reduce": out,
+        "flops": cost["flops"], "flops_by_op": cost["flops_by_op"],
+        "collectives": cost["collectives"]})
+    return launches
+
+
+def phase_pipeline(torch):
+    """Phase 15b: qwen2-7b at 8 of 28 layers (11c's draw) through
+    ``pipelined_forward`` with one stage and SPMD_MICRO microbatches of
+    1 x TRAIN_SEQ embedded tokens, bf16 compute, against ``layer_stack`` on
+    the whole batch.  Returns the parameters and the pipeline's flash
+    launches by route."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.parallel.mesh import make_mesh_for
+    from repro_torch.parallel.pipeline import (bubble_fraction,
+                                               pipelined_forward,
+                                               split_stages)
+    cfg, params = phase_params(torch, DENSE_ARCH, TRAIN_N_PARAMS,
+                               TRAIN_LAYERS)
+    B, S = SPMD_MICRO, TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    positions = torch.arange(S, device="cuda").expand(B, S)
+    # the world has one rank: the stage axis is the mesh's "data" axis
+    mesh = make_mesh_for(1)
+    fn = pipelined_forward(cfg, mesh, n_microbatch=SPMD_MICRO,
+                           stage_axis="data", train=False)
+    stages = split_stages(params["layers"], 1, cfg.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        x = embed_tokens(params["embed"], tokens, cfg, positions)
+        for _ in range(2):        # a warm-up, then the timed run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, want_aux, _ = TF.layer_stack(params["layers"], x, cfg,
+                                               positions=positions)
+            torch.cuda.synchronize()
+            base_s = time.perf_counter() - t0
+        _reset(fa.flash_attention)
+        shapes = []
+        with timed_launches(torch, fa, "flash_attention", shapes) as ev:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, aux = fn(stages, x)
+            torch.cuda.synchronize()
+            pipe_s = time.perf_counter() - t0
+        flash_ms = events_ms(torch, ev)
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers * SPMD_MICRO
+    routes = dict(fa.flash_attention.route_launches)
+    want_shape = [1, cfg.n_heads, S, cfg.head_dim]
+    if fa.flash_attention.launches != n or routes["wgmma"] != n or \
+            any(sh != want_shape for sh in shapes):
+        fail(f"pipeline: flash launches {routes}, shapes "
+             f"{sorted(set(map(tuple, shapes)))}; expected {n} wgmma of "
+             f"{want_shape}")
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    if not (err <= SPMD_PIPE_TOL * scale) or float(aux) != float(want_aux):
+        fail(f"pipeline: max |err| {err} against {SPMD_PIPE_TOL} x "
+             f"{scale}, aux {float(aux)} against {float(want_aux)}")
+    line("pipeline", {
+        "arch": cfg.name, "layers": cfg.n_layers, "stages": 1,
+        "microbatches": SPMD_MICRO, "tokens": [B, S],
+        "compute_dtype": cfg.compute_dtype,
+        "bubble_fraction": bubble_fraction(1, SPMD_MICRO),
+        "pipeline_s": pipe_s, "whole_batch_s": base_s,
+        "flash_ms": flash_ms, "flash_launches": routes,
+        "flash_q_shape": want_shape, "max_abs_err": err,
+        "max_abs_ref": scale, "rel_err": err / scale, "tol": SPMD_PIPE_TOL,
+        "bits_equal": bool(torch.equal(got, want)), "aux": float(aux),
+        "peak_device_bytes": peak})
+    return params, collections.Counter(routes)
+
+
+def phase_compression(torch, params) -> None:
+    """Phase 15c: ``Int8BlockCompressor`` over 15b's parameter tree,
+    standing in for gradients: each block's roundtrip within half its own
+    step (its scale, the block's largest magnitude over 127),
+    ``dp_gradient_sync(..., compressor=)`` over the world of one the bits
+    of the roundtrip, and one leaf's int8 codes and scales the bits the
+    CPU gives."""
+    from repro_torch.parallel.collectives import dp_gradient_sync
+    from repro_torch.parallel.compression import (Int8BlockCompressor,
+                                                  compression_ratio)
+    from repro_torch.parallel.mesh import make_mesh_for
+    from repro_torch.tree import tree_flatten_with_paths
+    comp, mesh = Int8BlockCompressor(), make_mesh_for(1)
+    leaves = tree_flatten_with_paths(params)
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    torch.cuda.reset_peak_memory_stats()
+    round_s = sync_s = 0.0
+    worst, blocks, elems = 0.0, 0, 0
+    with torch.no_grad():
+        for path, leaf in leaves:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt = comp.roundtrip(leaf)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            synced = dp_gradient_sync({"g": leaf}, mesh, ("data",),
+                                      compressor=comp)["g"]
+            torch.cuda.synchronize()
+            round_s += t1 - t0
+            sync_s += time.perf_counter() - t1
+            # round to nearest: each block within half its own step, with
+            # a few ulp of the step for the float32 quotient and product
+            _, step = comp.quantize(leaf)
+            err = (comp._blocks(rt) - comp._blocks(leaf)).abs().amax(
+                dim=1, keepdim=True)
+            over = (err / step).max().item()
+            if not bool((err <= step * (0.5 * (1 + 2 ** -14))).all()):
+                fail(f"compression: {path} roundtrip error {over} of a "
+                     f"block's step, over half")
+            if not _same(torch, synced, rt):
+                fail(f"compression: {path} dp_gradient_sync over one rank "
+                     f"is not the roundtrip's bits")
+            worst = max(worst, over)
+            n = leaf.numel()
+            elems += n
+            blocks += -(-n // comp.block)
+            del rt, synced
+        peak = torch.cuda.max_memory_allocated()
+        leaf = dict(leaves)[SPMD_BITS_LEAF]
+        q, s = comp.quantize(leaf)
+        qc, sc = comp.quantize(leaf.cpu())
+    if not (torch.equal(q.cpu(), qc) and _same(torch, s.cpu(), sc)):
+        fail(f"compression: {SPMD_BITS_LEAF}'s int8 codes or scales differ "
+             f"from the CPU's")
+    gb = n_bytes / 1e9
+    payload = blocks * comp.block + 4 * blocks
+    line("compression", {
+        "leaves": len(leaves), "bytes": n_bytes, "block": comp.block,
+        "roundtrip_ms_per_gb": round_s * 1e3 / gb,
+        "dp_sync_ms_per_gb": sync_s * 1e3 / gb,
+        "worst_err_over_block_step": worst,
+        "payload_ratio": payload / (4 * elems),
+        "compression_ratio_4": compression_ratio(4),
+        "allreduce_int32_ratio": (4 * blocks * comp.block + 4 * blocks)
+        / (4 * elems),
+        "bits_leaf": SPMD_BITS_LEAF, "bits_equal_cpu": True,
+        "peak_device_bytes": peak})
+
+
+def phase_spmd(torch, seq_total: float):
+    """Phase 15: the intra-op SPMD layer in a world of one NCCL rank
+    (15a-15c), destroyed afterwards.  Returns the matmul launches and the
+    flash launches by route."""
+    import gc
+    import tempfile
+    from repro_torch.parallel.mesh import destroy_world, init_world
+    store = Path(tempfile.mkdtemp(prefix="chip-smoke-world-")) / "store"
+    line("world", {"backend": init_world(0, 1, str(store), device="cuda"),
+                   "ranks": 1})
+    try:
+        mm_launches = phase_mesh_executor(torch, seq_total)
+        params, flash_launches = phase_pipeline(torch)
+        phase_compression(torch, params)
+        del params
+    finally:
+        destroy_world()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return mm_launches, flash_launches
+
+
 def main() -> int:
     import gc
 
@@ -2670,6 +2924,7 @@ def main() -> int:
     launches, graph, seq = phase_main_path(torch, checks)
     launches += phase_process_path(torch, graph, seq)
     launches += phase_gateway_path(torch, graph, seq)
+    seq_total = seq[graph.outputs[0]]
     del seq
     torch.cuda.empty_cache()
     scan_checks = phase_scan_kernels(torch)
@@ -2703,6 +2958,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     flash_launches += phase_encdec(torch, profile)
+    # phase 15: intra-op SPMD in a world of one NCCL rank
+    gc.collect()
+    torch.cuda.empty_cache()
+    spmd_matmul, spmd_flash = phase_spmd(torch, seq_total)
+    launches += spmd_matmul
+    flash_launches += spmd_flash
 
     def entry(kernel, source, replaces, launches, routes, check, all_checks):
         return {"name": kernel, "route": "cuda",

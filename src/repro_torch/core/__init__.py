@@ -15,11 +15,16 @@ Port of ``repro/core/__init__.py``, exporting what is ported so far:
   run_graph, make_executor                                (real execution;
       backend="thread" stays in-process, backend="process" selects the
       multi-process repro_torch.cluster.ClusterExecutor runtime)
+  MeshExecutor                                            (SPMD: the graph
+      on every rank of a device mesh, over DTensors; imported on first
+      use, so a process that runs no mesh loads no DTensor machinery)
   recovery_plan, recover                                  (lineage FT)
+  standard_rules, logical_to_spec, tree_shardings,
+  ValueInfo, refine_placements, resharding_bytes          (auto-sharding:
+      rule tables and the greedy placement refinement)
 
-The placement rule tables are in ``core/placement.py`` (imported where
-needed, not here); the placement refinement and the mesh executor come
-with intra-op SPMD (ROADMAP §1 item 8).
+Tensor parallelism inside the launchers (sharded parameters, flash on each
+rank's local heads, ``shard_grads``) is ROADMAP §1 item 8b.
 """
 from .graph import TaskGraph, TaskNode, TaskKind, GraphError
 from .tracing import (task, io_task, trace, placeholder, checkpoint_barrier,
@@ -39,5 +44,17 @@ from .simulator import ClusterSim, SimResult, WorkerEvent, simulate
 from .executor import (execute_sequential, ThreadedExecutor, run_graph,
                        make_executor, output_values, Executor, TaskFailed)
 from .lineage import recovery_plan, recover, replay, lineage_depth, NonIdempotentReplay
+from .placement import (standard_rules, sequence_parallel_rules,
+                        logical_to_spec, sharding_for, tree_specs,
+                        tree_shardings, ValueInfo, refine_placements,
+                        resharding_bytes, total_resharding_bytes, spec_shards)
 
-__all__ = [k for k in dir() if not k.startswith("_")]
+__all__ = [k for k in dir() if not k.startswith("_")] + ["MeshExecutor"]
+
+
+def __getattr__(name):
+    if name == "MeshExecutor":
+        from .mesh_executor import MeshExecutor
+        globals()["MeshExecutor"] = MeshExecutor
+        return MeshExecutor
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

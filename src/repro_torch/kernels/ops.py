@@ -3,10 +3,13 @@
 Port of ``repro/kernels/ops.py``.  ``impl="kernel"`` (the default) calls the
 hand-written kernel's wrapper, which launches the kernel for CUDA tensors
 and uses the plain version for CPU tensors; ``impl="ref"`` calls the plain
-version on any device.
+version on any device.  With a DTensor argument, ``matmul`` and
+``flash_attention`` run the wrapper on each rank's local shard
+(``kernels/sharded.py``).
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
@@ -17,11 +20,25 @@ from . import needs_grad, ref
 from . import ssm_scan as _ssm_scan
 
 
+def _sharded(*tensors):
+    """``kernels.sharded`` when an argument is a DTensor, else None.  No
+    DTensor exists before ``torch.distributed.tensor`` is imported, so a
+    process that never imported it pays no import here."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is None or not any(isinstance(t, dt.DTensor) for t in tensors):
+        return None
+    from . import sharded
+    return sharded
+
+
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
            impl: str = "kernel") -> torch.Tensor:
     if impl == "ref":
         return ref.matmul(x, y)
     if impl == "kernel":
+        sharded = _sharded(x, y)
+        if sharded is not None:
+            return sharded.matmul(x, y)
         return _matmul.matmul(x, y)
     raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")
 
@@ -38,6 +55,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl == "ref":
         return ref.attention(q, k, v, causal=causal)
     if impl == "kernel":
+        sharded = _sharded(q, k, v)
+        if sharded is not None:
+            return sharded.flash_attention(
+                q, k, v, lambda q, k, v: flash_attention(q, k, v,
+                                                         causal=causal))
         if needs_grad(q, k, v):
             return _flash.FlashAttention.apply(q, k, v, causal)
         return _flash.flash_attention(q, k, v, causal=causal)

@@ -222,8 +222,8 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     validate_backend_args(args)
     if args.tp != 1:
         raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism is intra-op SPMD, which "
-            f"comes with ROADMAP §1 item 8; the port serves on one device")
+            f"--tp {args.tp}: tensor parallelism in the launchers comes "
+            f"with ROADMAP §1 item 8b; the port serves on one device")
 
     cfg = _config(args.arch, args.reduced, args.layers)
     if cfg.is_encoder_decoder:

@@ -1,26 +1,71 @@
-"""Step builders shared by the launchers: the optimizer of a config and the
-train step.
+"""Step builders shared by the launchers: the optimizer of a config, the
+train step and the sharding helpers.
 
-Port of ``repro/launch/steps.py`` (``make_optimizer`` :50,
-``make_train_step`` :99).  The dry-run's cases (``Case``, ``build_case``,
-``lower_case``) and the sharding helpers come with intra-op SPMD and the
-dry-run (ROADMAP §1 items 8-9).
+Port of ``repro/launch/steps.py`` (``make_optimizer`` :50, ``make_rules``
+:60, ``make_train_step`` :99, ``_fit_sharding`` and ``fit_case_shardings``
+:222-253, the latter two as functions of shapes, specs and a mesh).  The
+dry-run's cases (``Case``, ``build_case``, ``lower_case``) and
+``opt_state_shardings`` come with the dry-run (ROADMAP §1 item 9);
+``make_train_step``'s ``shard_grads`` with tensor parallelism in the
+launchers (item 8b).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
+from ..core.placement import Spec, standard_rules
 from ..models import model_module
 from ..models import transformer as TF
 from ..models.config import ModelConfig
 from ..optim import Adafactor, AdamW
 from ..parallel.sharding import ShardingCtx
+from ..tree import tree_map
 
 
 def make_optimizer(cfg: ModelConfig, lr=3e-4):
     if cfg.name.startswith("llama4"):
         return Adafactor(lr=lr)        # Adam state cannot fit
     return AdamW(lr=lr, weight_decay=0.1)
+
+
+def make_rules(mesh, mode: str, global_batch: int):
+    """The rule table of ``mode`` on ``mesh``; a batch that the batch axes
+    do not divide (long_500k's B = 1) is replicated, TP and FSDP kept."""
+    pod = "pod" if "pod" in mesh.axis_names else None
+    rules = standard_rules(mode, pod_axis=pod)
+    batch_ways = mesh.shape["data"] * (mesh.shape["pod"] if pod else 1)
+    if global_batch % batch_ways != 0:
+        rules = [("batch", None), ("expert_group", None)] + \
+            [r for r in rules if r[0] not in ("batch", "expert_group")]
+    return rules
+
+
+def _fit_sharding(shape: Tuple[int, ...], spec: Spec, mesh) -> Spec:
+    """``spec`` without the mesh axes whose shard count does not divide
+    their dim of ``shape``: a jit's I/O shardings need exact divisibility in
+    the reference.  E.g. whisper's vocab of 51865 cannot shard 16 ways; the
+    embedding is replicated on that dim instead."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, part in zip(shape, parts):
+        if part is None:
+            out.append(None)
+            continue
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        out.append(part if dim % n == 0 else None)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def fit_case_shardings(shapes: Any, specs: Any, mesh) -> Any:
+    """:func:`_fit_sharding` at each leaf of a tree of shapes and the tree
+    of their specs."""
+    return tree_map(lambda shape, spec: _fit_sharding(shape, spec, mesh),
+                    shapes, specs)
 
 
 def make_train_step(cfg: ModelConfig, optimizer,

@@ -31,7 +31,8 @@ backward kernel on the card), the Mamba2 hybrid and the encoder-decoder
 whisper-tiny (``models/encdec.py``; its batches carry ``frames``,
 ``frontends.synth_frames``).  As in the reference, every step takes the
 same patches or frames, drawn from seed 0 on the run's device.  ``--tp``
-takes only 1 (intra-op SPMD is ROADMAP §1 item 8).
+takes only 1 (tensor parallelism in the launchers is ROADMAP §1 item
+8b).
 
 CPU example (reduced qwen2-family config; ``--arch falcon-mamba-7b`` for
 Mamba1, ``whisper-tiny`` for the encoder-decoder, ``llava-next-34b`` for
@@ -148,8 +149,8 @@ def build_runtime(args, device: torch.device) -> Dict[str, Any]:
     cfg = _config(args.arch, args.reduced, args.remat)
     if args.tp != 1:
         raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism is intra-op SPMD, which "
-            f"comes with ROADMAP §1 item 8; the port trains on one device")
+            f"--tp {args.tp}: tensor parallelism in the launchers comes "
+            f"with ROADMAP §1 item 8b; the port trains on one device")
     mesh = single_device_mesh(device)
     ctx = ShardingCtx(mesh, standard_rules(args.mode, pod_axis=None))
     opt = steps_mod.make_optimizer(cfg, lr=cosine_schedule(

@@ -23,9 +23,10 @@ is checkpointed: the reference's bodies are not, whatever ``cfg.remat``
 says.  Gradients come from ``transformer.value_and_grad`` over
 :func:`make_loss_fn`.
 
-The reference's ``logical_axes``, ``abstract_params`` and
-``cache_logical_axes`` are sharding and dry-run helpers; they come with
-intra-op SPMD and the dry-run (ROADMAP §1 items 8 and 9).
+:func:`logical_axes` and :func:`cache_logical_axes` give each parameter's
+and cache leaf's logical axis names, as the reference's do; its
+``abstract_params`` is a dry-run helper and comes with the dry-run
+(ROADMAP §1 item 9).
 """
 from __future__ import annotations
 
@@ -58,7 +59,8 @@ def param_specs(cfg: ModelConfig) -> Dict:
     Le, Ld = cfg.n_enc_layers, cfg.n_layers
     return {
         "embed": init_embed(cfg),
-        "enc_pos": p("enc_pos", (cfg.enc_seq, cfg.d_model), scale=0.02),
+        "enc_pos": p("enc_pos", (cfg.enc_seq, cfg.d_model), (None, "embed"),
+                     scale=0.02),
         "enc_layers": {
             "attn": init_attention("enc/attn", cfg, stacked=Le),
             "norm1": init_norm("enc/norm1", cfg, stacked=Le),
@@ -76,6 +78,12 @@ def param_specs(cfg: ModelConfig) -> Dict:
         },
         "dec_norm": init_norm("dec_norm", cfg),
     }
+
+
+def logical_axes(cfg: ModelConfig) -> Dict:
+    """The parameter tree of ``cfg`` with each leaf's logical axis names,
+    the reference's ``logical_axes`` (``encdec.py:52``)."""
+    return tree_map(lambda s: s.axes, param_specs(cfg))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -198,6 +206,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                device=device) for n in ("k", "v")}
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "layers": kv(max_len), "xkv": kv(cfg.enc_seq)}
+
+
+def cache_logical_axes(cfg: ModelConfig) -> Dict:
+    """The logical axis names of each leaf of :func:`init_cache`'s tree,
+    the reference's ``cache_logical_axes`` (``encdec.py:154``)."""
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"pos": (), "layers": {"k": kv, "v": kv},
+            "xkv": {"k": kv, "v": kv}}
 
 
 # --------------------------------------------------------------------------

@@ -32,20 +32,26 @@ from .config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     """One parameter as ``Builder.p`` declares it: its name (what the
-    random stream is folded from), shape, initialiser and scale."""
+    random stream is folded from), shape, initialiser and scale, and the
+    logical name of each of its axes (``Builder(mode="axes")``'s mirror:
+    what the placement rules map onto mesh axes)."""
     name: str
     shape: Tuple[int, ...]
     init: str = "normal"            # normal | zeros | ones | mamba_A | mamba_dt
     scale: Optional[float] = None
+    axes: Optional[Tuple[Optional[str], ...]] = None
 
     @property
     def numel(self) -> int:
         return math.prod(self.shape)
 
 
-def p(name: str, shape: Tuple[int, ...], init: str = "normal",
-      scale: Optional[float] = None) -> ParamSpec:
-    return ParamSpec(name, tuple(shape), init, scale)
+def p(name: str, shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
+      init: str = "normal", scale: Optional[float] = None) -> ParamSpec:
+    if len(shape) != len(axes):
+        raise ValueError(f"{name}: shape {tuple(shape)} has {len(shape)} "
+                         f"axes, names {tuple(axes)}")
+    return ParamSpec(name, tuple(shape), init, scale, tuple(axes))
 
 
 def param_seed(seed: int, name: str) -> int:
@@ -99,20 +105,24 @@ def init_param(spec: ParamSpec, seed: int, dtype: torch.dtype,
 
 
 def init_embed(cfg: ModelConfig) -> Dict:
-    out = {"tok": p("embed/tok", (cfg.vocab_size, cfg.d_model), scale=1.0)}
+    out = {"tok": p("embed/tok", (cfg.vocab_size, cfg.d_model),
+                   ("vocab", "embed"), scale=1.0)}
     if not cfg.use_rope:
-        out["pos"] = p("embed/pos", (8192, cfg.d_model), scale=0.02)
+        out["pos"] = p("embed/pos", (8192, cfg.d_model), (None, "embed"),
+                       scale=0.02)
     if not cfg.tie_embeddings:
-        out["unembed"] = p("embed/unembed", (cfg.d_model, cfg.vocab_size))
+        out["unembed"] = p("embed/unembed", (cfg.d_model, cfg.vocab_size),
+                           ("embed", "vocab"))
     return out
 
 
 def init_norm(name: str, cfg: ModelConfig, dim: Optional[int] = None,
               stacked: int = 0) -> Dict:
     shape = ((stacked,) if stacked else ()) + (dim or cfg.d_model,)
-    out = {"scale": p(f"{name}/scale", shape, "ones")}
+    axes = (("layers",) if stacked else ()) + ("norm_dim",)
+    out = {"scale": p(f"{name}/scale", shape, axes, "ones")}
     if cfg.norm_type == "layernorm":
-        out["bias"] = p(f"{name}/bias", shape, "zeros")
+        out["bias"] = p(f"{name}/bias", shape, axes, "zeros")
     return out
 
 
@@ -172,19 +182,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def init_attention(name: str, cfg: ModelConfig, stacked: int = 0) -> Dict:
     d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L: Tuple[int, ...] = (stacked,) if stacked else ()
+    A: Tuple[str, ...] = ("layers",) if stacked else ()
     out = {
-        "wq": p(f"{name}/wq", L + (d, H * hd)),
-        "wk": p(f"{name}/wk", L + (d, KH * hd)),
-        "wv": p(f"{name}/wv", L + (d, KH * hd)),
-        "wo": p(f"{name}/wo", L + (H * hd, d)),
+        "wq": p(f"{name}/wq", L + (d, H * hd), A + ("embed", "heads_dim")),
+        "wk": p(f"{name}/wk", L + (d, KH * hd), A + ("embed", "kv_dim")),
+        "wv": p(f"{name}/wv", L + (d, KH * hd), A + ("embed", "kv_dim")),
+        "wo": p(f"{name}/wo", L + (H * hd, d), A + ("heads_dim", "embed")),
     }
     if cfg.qkv_bias:
-        out["bq"] = p(f"{name}/bq", L + (H * hd,), "zeros")
-        out["bk"] = p(f"{name}/bk", L + (KH * hd,), "zeros")
-        out["bv"] = p(f"{name}/bv", L + (KH * hd,), "zeros")
+        out["bq"] = p(f"{name}/bq", L + (H * hd,), A + ("heads_dim",),
+                      "zeros")
+        out["bk"] = p(f"{name}/bk", L + (KH * hd,), A + ("kv_dim",),
+                      "zeros")
+        out["bv"] = p(f"{name}/bv", L + (KH * hd,), A + ("kv_dim",),
+                      "zeros")
     if cfg.qk_norm:
-        out["q_norm"] = p(f"{name}/q_norm", L + (hd,), "ones")
-        out["k_norm"] = p(f"{name}/k_norm", L + (hd,), "ones")
+        out["q_norm"] = p(f"{name}/q_norm", L + (hd,), A + ("norm_dim",),
+                          "ones")
+        out["k_norm"] = p(f"{name}/k_norm", L + (hd,), A + ("norm_dim",),
+                          "ones")
     return out
 
 
@@ -359,14 +375,17 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 def init_mlp(name: str, cfg: ModelConfig, stacked: int = 0) -> Dict:
     d, ff = cfg.d_model, cfg.d_ff
     L: Tuple[int, ...] = (stacked,) if stacked else ()
+    A: Tuple[str, ...] = ("layers",) if stacked else ()
     if cfg.mlp_act == "swiglu":
-        return {"wi_gate": p(f"{name}/wi_gate", L + (d, ff)),
-                "wi_up": p(f"{name}/wi_up", L + (d, ff)),
-                "wo": p(f"{name}/wo", L + (ff, d))}
-    return {"wi": p(f"{name}/wi", L + (d, ff)),
-            "bi": p(f"{name}/bi", L + (ff,), "zeros"),
-            "wo": p(f"{name}/wo", L + (ff, d)),
-            "bo": p(f"{name}/bo", L + (d,), "zeros")}
+        return {"wi_gate": p(f"{name}/wi_gate", L + (d, ff),
+                             A + ("embed", "d_ff")),
+                "wi_up": p(f"{name}/wi_up", L + (d, ff),
+                           A + ("embed", "d_ff")),
+                "wo": p(f"{name}/wo", L + (ff, d), A + ("d_ff", "embed"))}
+    return {"wi": p(f"{name}/wi", L + (d, ff), A + ("embed", "d_ff")),
+            "bi": p(f"{name}/bi", L + (ff,), A + ("d_ff",), "zeros"),
+            "wo": p(f"{name}/wo", L + (ff, d), A + ("d_ff", "embed")),
+            "bo": p(f"{name}/bo", L + (d,), A + ("norm_dim",), "zeros")}
 
 
 def mlp_block(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

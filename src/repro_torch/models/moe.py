@@ -32,17 +32,25 @@ from .layers import p
 def init_moe(name: str, cfg: ModelConfig, stacked: int = 0) -> Dict:
     d, ff, E = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
     L: Tuple[int, ...] = (stacked,) if stacked else ()
+    A: Tuple[str, ...] = ("layers",) if stacked else ()
     out = {
-        "router": p(f"{name}/router", L + (d, E), scale=d ** -0.5),
-        "wi_gate": p(f"{name}/wi_gate", L + (E, d, ff)),
-        "wi_up": p(f"{name}/wi_up", L + (E, d, ff)),
-        "wo": p(f"{name}/wo", L + (E, ff, d)),
+        "router": p(f"{name}/router", L + (d, E), A + ("embed", None),
+                    scale=d ** -0.5),
+        "wi_gate": p(f"{name}/wi_gate", L + (E, d, ff),
+                     A + ("experts", "embed", "d_ff")),
+        "wi_up": p(f"{name}/wi_up", L + (E, d, ff),
+                   A + ("experts", "embed", "d_ff")),
+        "wo": p(f"{name}/wo", L + (E, ff, d),
+                A + ("experts", "d_ff", "embed")),
     }
     if cfg.n_shared_experts:
         sff = ff * cfg.n_shared_experts
-        out["shared_wi_gate"] = p(f"{name}/shared_wi_gate", L + (d, sff))
-        out["shared_wi_up"] = p(f"{name}/shared_wi_up", L + (d, sff))
-        out["shared_wo"] = p(f"{name}/shared_wo", L + (sff, d))
+        out["shared_wi_gate"] = p(f"{name}/shared_wi_gate", L + (d, sff),
+                                  A + ("embed", "d_ff"))
+        out["shared_wi_up"] = p(f"{name}/shared_wi_up", L + (d, sff),
+                                A + ("embed", "d_ff"))
+        out["shared_wo"] = p(f"{name}/shared_wo", L + (sff, d),
+                             A + ("d_ff", "embed"))
     return out
 
 

@@ -31,16 +31,25 @@ def init_mamba1(name: str, cfg: ModelConfig, stacked: int = 0) -> Dict:
     d, di, N, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     R = dt_rank(cfg)
     L: Tuple[int, ...] = (stacked,) if stacked else ()
+    A: Tuple[str, ...] = ("layers",) if stacked else ()
     return {
-        "in_proj": p(f"{name}/in_proj", L + (d, 2 * di)),
-        "conv_w": p(f"{name}/conv_w", L + (k, di), scale=k ** -0.5),
-        "conv_b": p(f"{name}/conv_b", L + (di,), "zeros"),
-        "x_proj": p(f"{name}/x_proj", L + (di, R + 2 * N)),
-        "dt_proj": p(f"{name}/dt_proj", L + (R, di), scale=R ** -0.5),
-        "dt_bias": p(f"{name}/dt_bias", L + (di,), "mamba_dt"),
-        "A_log": p(f"{name}/A_log", L + (di, N), "mamba_A"),
-        "D": p(f"{name}/D", L + (di,), "ones"),
-        "out_proj": p(f"{name}/out_proj", L + (di, d)),
+        "in_proj": p(f"{name}/in_proj", L + (d, 2 * di),
+                     A + ("embed", "ssm_inner")),
+        "conv_w": p(f"{name}/conv_w", L + (k, di), A + (None, "ssm_inner"),
+                    scale=k ** -0.5),
+        "conv_b": p(f"{name}/conv_b", L + (di,), A + ("ssm_inner",),
+                    "zeros"),
+        "x_proj": p(f"{name}/x_proj", L + (di, R + 2 * N),
+                    A + ("ssm_inner", None)),
+        "dt_proj": p(f"{name}/dt_proj", L + (R, di), A + (None, "ssm_inner"),
+                     scale=R ** -0.5),
+        "dt_bias": p(f"{name}/dt_bias", L + (di,), A + ("ssm_inner",),
+                     "mamba_dt"),
+        "A_log": p(f"{name}/A_log", L + (di, N), A + ("ssm_inner", "state"),
+                   "mamba_A"),
+        "D": p(f"{name}/D", L + (di,), A + ("ssm_inner",), "ones"),
+        "out_proj": p(f"{name}/out_proj", L + (di, d),
+                      A + ("ssm_inner", "embed")),
     }
 
 
@@ -126,16 +135,22 @@ def init_mamba2(name: str, cfg: ModelConfig, stacked: int = 0) -> Dict:
     conv_dim = di + 2 * N
     k = cfg.ssm_conv
     L: Tuple[int, ...] = (stacked,) if stacked else ()
+    A: Tuple[str, ...] = ("layers",) if stacked else ()
     return {
         # order: [z (di), x (di), B (N), C (N), dt (H)]
-        "in_proj": p(f"{name}/in_proj", L + (d, 2 * di + 2 * N + H)),
-        "conv_w": p(f"{name}/conv_w", L + (k, conv_dim), scale=k ** -0.5),
-        "conv_b": p(f"{name}/conv_b", L + (conv_dim,), "zeros"),
-        "A_log": p(f"{name}/A_log", L + (H,), "mamba_A"),
-        "dt_bias": p(f"{name}/dt_bias", L + (H,), "mamba_dt"),
-        "D": p(f"{name}/D", L + (H,), "ones"),
-        "norm": p(f"{name}/norm", L + (di,), "ones"),
-        "out_proj": p(f"{name}/out_proj", L + (di, d)),
+        "in_proj": p(f"{name}/in_proj", L + (d, 2 * di + 2 * N + H),
+                     A + ("embed", "ssm_inner")),
+        "conv_w": p(f"{name}/conv_w", L + (k, conv_dim),
+                    A + (None, "conv_dim"), scale=k ** -0.5),
+        "conv_b": p(f"{name}/conv_b", L + (conv_dim,), A + ("conv_dim",),
+                    "zeros"),
+        "A_log": p(f"{name}/A_log", L + (H,), A + ("ssm_heads",), "mamba_A"),
+        "dt_bias": p(f"{name}/dt_bias", L + (H,), A + ("ssm_heads",),
+                     "mamba_dt"),
+        "D": p(f"{name}/D", L + (H,), A + ("ssm_heads",), "ones"),
+        "norm": p(f"{name}/norm", L + (di,), A + ("norm_dim",), "ones"),
+        "out_proj": p(f"{name}/out_proj", L + (di, d),
+                      A + ("ssm_inner", "embed")),
     }
 
 

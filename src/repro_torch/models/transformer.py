@@ -111,11 +111,13 @@ def _ffn_init(cfg: ModelConfig, L: int) -> Dict:
             "moe": init_moe("layers/moe", cfg, stacked=L // k)}
 
 
-def _layer_params(layers: Dict, cfg: ModelConfig) -> List[Dict]:
-    """Each layer's parameter tree, its leaves views of the stacked ones.
-    With interleaved MoE the ``ffn`` leaves are stacked by the layers of
-    each kind, so they are unbound by those counts and placed by index."""
-    L, k = cfg.n_layers, _superblock(cfg)
+def _layer_params(layers: Dict, cfg: ModelConfig,
+                  L: Optional[int] = None) -> List[Dict]:
+    """Each layer's parameter tree, its leaves views of the stacked ones
+    (``L`` of them, ``cfg.n_layers`` unless given).  With interleaved MoE
+    the ``ffn`` leaves are stacked by the layers of each kind, so they are
+    unbound by those counts and placed by index."""
+    L, k = L or cfg.n_layers, _superblock(cfg)
     if k == 1:
         return unstack_layers(layers, L)
     per = unstack_layers({n: t for n, t in layers.items() if n != "ffn"}, L)
@@ -156,6 +158,14 @@ def param_specs(cfg: ModelConfig) -> Dict:
         specs["shared_mlp"] = init_mlp("shared_mlp", cfg)
         specs["shared_norm2"] = init_norm("shared_norm2", cfg)
     return specs
+
+
+def logical_axes(cfg: ModelConfig) -> Dict:
+    """The parameter tree of ``cfg`` with each leaf's logical axis names (a
+    tuple, one name or ``None`` a dimension), the reference's
+    ``logical_axes`` (``Builder(mode="axes")``): what the placement rules
+    map onto mesh axes (``core.placement.tree_specs``)."""
+    return tree_map(lambda s: s.axes, param_specs(cfg))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -265,6 +275,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Dict:
+    """The logical axis names of each leaf of :func:`init_cache`'s tree,
+    as the reference's ``cache_logical_axes`` gives them."""
+    kind = check_supported(cfg)
+    ax: Dict = {"pos": ()}
+    if kind == "attn":
+        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+        ax["layers"] = {"k": kv, "v": kv}
+        if cfg.kv_cache_dtype == "int8":
+            ax["layers"]["k_scale"] = kv[:-1]
+            ax["layers"]["v_scale"] = kv[:-1]
+    elif kind == "mamba1":
+        ax["layers"] = {"conv": ("layers", "batch", None, "ssm_inner"),
+                        "h": ("layers", "batch", "ssm_inner", "state")}
+    else:
+        ax["layers"] = {"conv": ("layers", "batch", None, "conv_dim"),
+                        "h": ("layers", "batch", "ssm_heads", None, "state")}
+        if kind == "mamba2_shared":
+            kv = (None, "batch", "kv_seq", "kv_heads", None)
+            ax["shared"] = {"k": kv, "v": kv}
+    return ax
+
+
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
@@ -295,61 +328,46 @@ def _remat(cfg: ModelConfig, body: Callable) -> Callable:
     return functools.partial(checkpoint, body, use_reentrant=False, **kw)
 
 
-def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            cache: Optional[Dict] = None,
-            patch_embeds: Optional[torch.Tensor] = None,
-            impl: str = "kernel", train: bool = False
-            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Returns (logits, new_cache, aux_loss).
+def layer_stack(layers: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor, caches: Optional[List] = None,
+                cache_pos: int = 0, shared: Optional[Dict] = None,
+                site_caches: Optional[List[Dict]] = None,
+                impl: str = "kernel", train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, List]:
+    """Run the stacked layers ``layers`` (each leaf with a leading layer
+    dim, as ``params["layers"]`` holds them, or a contiguous slice of them)
+    on ``x`` (B, S, d) at ``positions`` (B, S): the counterpart of the
+    reference's ``_layer_body`` scanned over the stack, which
+    :func:`forward` and the pipeline's stage body
+    (``parallel/pipeline.py``) both run.
 
-    tokens: (B, S) on the parameters' device.  With ``cache``: prefill
-    (pos=0, S>1) or decode (S==1, written at ``cache["pos"]``).
-    ``patch_embeds`` (B, P, d) overrides the first P embeddings (the VLM
-    stub frontend).  Logits are float32.  ``impl`` selects the kernels
-    (``"kernel"``: flash attention in prefill and training, the selective
-    scan) or their plain versions (``"ref"``).  ``train`` applies
-    ``cfg.remat`` to each layer (no cache then).  The cache given is not
-    changed; a new one is returned.  On a path with attention (``attn``,
-    the hybrid), reading the cache's write position is the forward's one
-    host sync; a Mamba forward without attention needs no positions.
-
-    The hybrid applies the shared block (norm, attention, residual, norm,
-    MLP, residual) after layer ``idx`` when ``(idx + 1) % every == 0``, at
-    site ``(idx + 1) // every - 1`` of ``cache["shared"]``; in training it
-    runs inside that layer's remat, its index bound by closure.  The aux
-    loss is the sum of the MoE layers' load-balancing losses in layer order
-    (zero without experts).
-    """
+    ``caches`` holds each layer's cache (``None`` for none); ``cache_pos``
+    is the write position.  The hybrid's shared block takes its parameters
+    from ``shared`` (a tree with ``shared_attn``, ``shared_norm``,
+    ``shared_mlp`` and ``shared_norm2``, such as ``params``) and its KV
+    caches from ``site_caches``, which it updates in place.  ``train``
+    applies ``cfg.remat`` to each layer (no caches then).  Returns ``x``,
+    the sum of the MoE layers' aux losses in layer order (float32 zero
+    without experts) and each layer's new cache (``None``s without
+    caches)."""
     kind = check_supported(cfg)
-    if train and cache is not None:
-        raise ValueError("a training forward takes no cache")
-    B, S = tokens.shape
-    L = cfg.n_layers
-    pos0 = (int(cache["pos"]) if cache is not None
-            and kind in ("attn", "mamba2_shared") else 0)
-    positions = (torch.arange(S, device=tokens.device) + pos0).expand(B, S)
-    x = embed_tokens(params["embed"], tokens, cfg, positions)
-    if patch_embeds is not None:
-        P = patch_embeds.shape[1]
-        x = torch.cat([patch_embeds.to(x.dtype), x[:, P:, :]], dim=1)
-
+    L = tree_leaves(layers["norm1"])[0].shape[0]
     every = cfg.shared_attn_every if kind == "mamba2_shared" else 0
-    site_caches = None
-    if kind == "mamba2_shared" and cache is not None:
-        site_caches = [{"k": k, "v": v} for k, v in zip(
-            cache["shared"]["k"].unbind(0), cache["shared"]["v"].unbind(0))]
+    if every and shared is None:
+        raise ValueError(f"{cfg.name}: the shared block needs its "
+                         f"parameters (shared=)")
 
     def shared_block(x, site):
-        h = apply_norm(x, params["shared_norm"], cfg)
+        h = apply_norm(x, shared["shared_norm"], cfg)
         h, nc = attention_block(
-            params["shared_attn"], h, cfg, positions=positions,
+            shared["shared_attn"], h, cfg, positions=positions,
             cache=None if site_caches is None else site_caches[site],
-            cache_pos=pos0, causal=True, impl=impl)
+            cache_pos=cache_pos, causal=True, impl=impl)
         if nc is not None:
             site_caches[site] = nc
         x = x + h
-        h = apply_norm(x, params["shared_norm2"], cfg)
-        return x + mlp_block(params["shared_mlp"], h, cfg)
+        h = apply_norm(x, shared["shared_norm2"], cfg)
+        return x + mlp_block(shared["shared_mlp"], h, cfg)
 
     def body(x, lp, lcache, idx):
         """One layer: returns x, the layer's new cache and its MoE aux loss
@@ -357,7 +375,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         h = apply_norm(x, lp["norm1"], cfg)
         if kind == "attn":
             h, nc = attention_block(lp["mixer"], h, cfg, positions=positions,
-                                    cache=lcache, cache_pos=pos0,
+                                    cache=lcache, cache_pos=cache_pos,
                                     causal=True, impl=impl)
         elif kind == "mamba1":
             h, nc = mamba1_block(lp["mixer"], h, cfg, cache=lcache,
@@ -377,11 +395,12 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             x = shared_block(x, (idx + 1) // every - 1)
         return x, nc, a
 
-    layers = _layer_params(params["layers"], cfg)
-    new_layers = []
+    new_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if train:
-        for idx, lp in enumerate(layers):
+        if caches is not None:
+            raise ValueError("a training forward takes no cache")
+        for idx, lp in enumerate(_layer_params(layers, cfg, L)):
             # (x, aux) of the layer: a training forward keeps no cache
             step = _remat(cfg, lambda x, lp, idx=idx: body(x, lp, None,
                                                            idx)[::2])
@@ -389,13 +408,67 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             if a is not None:
                 aux = aux + a
     else:
-        caches = (unstack_layers(cache["layers"], L) if cache is not None
-                  else [None] * L)
-        for idx, (lp, lcache) in enumerate(zip(layers, caches)):
+        for idx, (lp, lcache) in enumerate(zip(
+                _layer_params(layers, cfg, L),
+                caches if caches is not None else [None] * L)):
             x, nc, a = body(x, lp, lcache, idx)
-            new_layers.append(nc)
+            new_caches.append(nc)
             if a is not None:
                 aux = aux + a
+    return x, aux, new_caches
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            cache: Optional[Dict] = None,
+            patch_embeds: Optional[torch.Tensor] = None,
+            impl: str = "kernel", train: bool = False
+            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (logits, new_cache, aux_loss).
+
+    tokens: (B, S) on the parameters' device.  With ``cache``: prefill
+    (pos=0, S>1) or decode (S==1, written at ``cache["pos"]``).
+    ``patch_embeds`` (B, P, d) overrides the first P embeddings (the VLM
+    stub frontend).  Logits are float32.  ``impl`` selects the kernels
+    (``"kernel"``: flash attention in prefill and training, the selective
+    scan) or their plain versions (``"ref"``).  ``train`` applies
+    ``cfg.remat`` to each layer (no cache then).  The cache given is not
+    changed; a new one is returned.  On a path with attention (``attn``,
+    the hybrid), reading the cache's write position is the forward's one
+    host sync; a Mamba forward without attention needs no positions.
+
+    The layers run in :func:`layer_stack`.  The hybrid applies the shared
+    block (norm, attention, residual, norm, MLP, residual) after layer
+    ``idx`` when ``(idx + 1) % every == 0``, at site
+    ``(idx + 1) // every - 1`` of ``cache["shared"]``; in training it runs
+    inside that layer's remat, its index bound by closure.  The aux loss is
+    the sum of the MoE layers' load-balancing losses in layer order (zero
+    without experts).
+    """
+    kind = check_supported(cfg)
+    if train and cache is not None:
+        raise ValueError("a training forward takes no cache")
+    B, S = tokens.shape
+    L = cfg.n_layers
+    pos0 = (int(cache["pos"]) if cache is not None
+            and kind in ("attn", "mamba2_shared") else 0)
+    positions = (torch.arange(S, device=tokens.device) + pos0).expand(B, S)
+    x = embed_tokens(params["embed"], tokens, cfg, positions)
+    if patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, P:, :]], dim=1)
+
+    site_caches = None
+    if kind == "mamba2_shared" and cache is not None:
+        site_caches = [{"k": k, "v": v} for k, v in zip(
+            cache["shared"]["k"].unbind(0), cache["shared"]["v"].unbind(0))]
+
+    x, aux, new_layers = layer_stack(
+        params["layers"], x, cfg, positions=positions,
+        caches=(unstack_layers(cache["layers"], L) if cache is not None
+                else None),
+        cache_pos=pos0,
+        shared=params if kind == "mamba2_shared" else None,
+        site_caches=site_caches, impl=impl, train=train)
 
     x = apply_norm(x, params["final_norm"], cfg)
     logits = unembed(params["embed"], x, cfg)

@@ -1,8 +1,15 @@
-"""Parallel layouts (``repro/parallel/`` in the reference), as a one-device
-stand-in: the mesh and the model-facing sharding context.  Meshes of more
-than one device, the collectives, compression and pipelining come with
-intra-op SPMD (ROADMAP §1 item 8)."""
-from .mesh import Mesh, make_mesh_for, single_device_mesh
-from .sharding import ShardingCtx
+"""Parallel layouts (``repro/parallel/`` in the reference): device meshes
+over a ``torch.distributed`` world (``mesh``), the model-facing sharding
+context (``sharding``), the mesh-level collectives (``collectives``), int8
+gradient compression (``compression``) and the GPipe pipeline over a mesh
+axis (``pipeline``).  Tensor parallelism inside the launchers is ROADMAP §1
+item 8b."""
+from .mesh import (Mesh, init_world, destroy_world, spawn_world,
+                   make_mesh_for, make_production_mesh, single_device_mesh)
+from .sharding import ShardingCtx, act_spec, param_shardings
+from . import collectives, compression, pipeline
 
-__all__ = ["Mesh", "make_mesh_for", "single_device_mesh", "ShardingCtx"]
+__all__ = ["Mesh", "init_world", "destroy_world", "spawn_world",
+           "make_mesh_for", "make_production_mesh", "single_device_mesh",
+           "ShardingCtx", "act_spec", "param_shardings", "collectives",
+           "compression", "pipeline"]

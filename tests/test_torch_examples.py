@@ -1,5 +1,6 @@
 """The port's examples (``examples/torch_*.py``) on the CPU against the
-reference's (``examples/{quickstart,train_lm,serve_lm}.py``).
+reference's (``examples/{quickstart,train_lm,serve_lm,
+autoparallel_cluster}.py``).
 
 Each reference example runs as it is (``runpy``), beside the port's with
 ``--device cpu``.  The language-model examples draw their parameters in
@@ -10,7 +11,10 @@ numbers: losses at rtol 1e-4, tokens exactly.  The training example runs
 at 10 steps of 2 × 16 tokens, which still takes its crash (at step 6) and
 its resume (from the step-0 checkpoint) through its arguments.
 """
+import os
+import re
 import runpy
+import subprocess
 import sys
 from pathlib import Path
 
@@ -102,8 +106,51 @@ def test_serve_lm_gives_the_references_tokens(monkeypatch):
     assert len(got["finished"]) == 8 and got["device"] == "cpu"
 
 
+def _stages(out):
+    """The printed lines of each numbered stage, by stage number."""
+    stages, cur = {}, None
+    for text in out.splitlines():
+        m = re.match(r"(\d)\) ", text)
+        if m:
+            cur = int(m.group(1))
+        if cur is not None and text.strip():
+            stages.setdefault(cur, []).append(text)
+    return stages
+
+
+def test_autoparallel_cluster_prints_the_references_stages(capsys):
+    """Stages 1-3 (trace, simulated cluster, simulated faults) print the
+    reference's lines exactly; stage 4 (the real cluster with a SIGKILL and
+    a join) its counts; stage 5 (the DAG on an 8-device mesh: 8 gloo ranks
+    here, 8 forced host devices there) the same mesh and the same number of
+    collectives, counted by CommDebugMode where the reference counts its
+    partitioned HLO's."""
+    env = dict(os.environ, PYTHONPATH=str(EXAMPLES.parent / "src"))
+    ref = subprocess.run([sys.executable,
+                          str(EXAMPLES / "autoparallel_cluster.py")],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    got = _port("torch_autoparallel_cluster")["main"](CPU)
+    want, mine = _stages(ref.stdout), _stages(capsys.readouterr().out)
+    assert [mine[i] for i in (1, 2, 3)] == [want[i] for i in (1, 2, 3)]
+    assert mine[4][:2] == want[4][:2] and mine[5][0] == want[5][0]
+    counts = r"failures (\d+) \(recomputed (\d+) = lineage plan \[(\d+)\]\) " \
+        r"\| joins (\d+)"
+    assert re.search(counts, mine[4][2]).groups() == \
+        re.search(counts, want[4][2]).groups()
+    assert mine[4][2].endswith("matches sequential oracle ✓")
+    spmd = r"SPMD lowering on .*'data': (\d+), 'model': (\d+).*: output " \
+        r"matches sequential; (\d+) collectives"
+    assert re.search(spmd, mine[5][1]).groups() == \
+        re.search(spmd, want[5][1]).groups() == ("4", "2", "4")
+    assert mine[5][-1] == want[5][-1] == "all stages OK  ✓"
+    assert got["device"] == "cpu" and got["cluster_stats"]["failures"] == 1
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_serve_lm",
-                                  "torch_train_lm"])
+                                  "torch_train_lm",
+                                  "torch_autoparallel_cluster"])
 def test_examples_need_a_card_unless_the_cpu_is_named(name, monkeypatch,
                                                       tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

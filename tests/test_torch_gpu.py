@@ -1116,3 +1116,35 @@ def test_train_launcher_show_graph_on_spawned_workers(cuda):
     traced = float(out.split("traced-driver step loss:")[1].split()[0])
     step0 = float(out.split("step     0 loss")[1].split()[0])
     assert traced == pytest.approx(step0, rel=1e-4)
+
+
+def test_mesh_executor_runs_the_fig2_dag_on_a_world_of_one(cuda, tmp_path):
+    """Phase 15a at a small size: the Fig. 2 DAG through ``MeshExecutor`` on
+    a (1, 1) mesh of one NCCL rank equals the sequential oracle bit for
+    bit, with one matmul launch a ``mul`` on the route ``route()`` gives,
+    on each rank's local shard, and no collective."""
+    from repro_torch.core import (MeshExecutor, ValueInfo,
+                                  execute_sequential, standard_rules, trace)
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.parallel.mesh import (destroy_world, init_world,
+                                           make_mesh_for)
+    from repro_torch.workloads import matrix_driver
+    init_world(0, 1, str(tmp_path / "store"), device="cuda")
+    try:
+        graph, _ = trace(matrix_driver, 4, 256, device="cuda")
+        want = execute_sequential(graph)[graph.outputs[0]]
+        info = {t: ValueInfo((256, 256), 4, ("batch", "d_model"))
+                for t in graph.nodes}
+        ex = MeshExecutor(graph, make_mesh_for(1),
+                          standard_rules("dp_tp", pod_axis=None),
+                          value_info=info)
+        before = dict(mm.matmul.route_launches)
+        got = ex({})[0]
+        torch.cuda.synchronize()
+        path = mm.route(torch.float32, 256, 256)
+        assert mm.matmul.route_launches[path] - before[path] == 4
+        assert got == want
+        assert ex.cost_analysis()["collectives"] == 0
+        assert ex.cost_analysis()["flops"] == 4 * 2 * 256 ** 3
+    finally:
+        destroy_world()

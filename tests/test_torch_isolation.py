@@ -4,7 +4,8 @@
 ``repro`` (by an import statement or by ``importlib.import_module``), and
 neither a spawned cluster worker, a gateway client that sends it a traced
 serve request, nor training the encoder-decoder and the VLM (through
-``models.encdec`` and ``models.frontends``) loads them."""
+``models.encdec`` and ``models.frontends``), nor a spawned gloo rank that
+runs ``MeshExecutor``, loads them."""
 import os
 import re
 import subprocess
@@ -80,6 +81,35 @@ def test_a_spawned_cluster_worker_loads_no_jax_and_no_repro(tmp_path):
     assert code == "0" and bad == "", proc.stdout
 
 
+_NO_MESH_SCRIPT = r"""
+import sys
+import torch
+import repro_torch.cluster.worker  # noqa: F401
+import repro_torch.core  # noqa: F401
+import repro_torch.parallel  # noqa: F401
+from repro_torch.kernels import ops
+from repro_torch.launch import serve, train  # noqa: F401
+x = torch.ones((8, 8))
+assert torch.equal(ops.matmul(x, x), torch.full((8, 8), 8.0))
+print(",".join(sorted(m for m in ("torch.distributed.tensor",
+                                  "torch.utils.flop_counter")
+                      if m in sys.modules)))
+"""
+
+
+def test_a_process_that_runs_no_mesh_loads_no_dtensor_machinery():
+    """A cluster worker, the launchers and a plain matmul import neither
+    DTensor nor the FLOP counter: ``MeshExecutor`` is exported lazily and
+    the placement helpers import ``torch.distributed.tensor`` when called,
+    so a worker's start-up pays for none of it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _NO_MESH_SCRIPT],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", proc.stdout
+
+
 _BAD_IMPORT = re.compile(
     r"^\s*(?:import\s+(?:jax|repro)\b(?!_)|from\s+(?:jax|repro)\b(?!_))"
     r"|import_module\(\s*[\"'](?:jax|repro)\b(?!_)", re.MULTILINE)
@@ -87,7 +117,7 @@ _BAD_IMPORT = re.compile(
 
 def test_port_sources_name_no_jax_or_repro_import():
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(examples) == 3
+    assert len(examples) == 4
     scripts = [ROOT / name for name in ("chip_smoke.py", "kernel_ab.py",
                                         "train_check_causes.py")]
     files = sorted(PORT.rglob("*.py")) + scripts + examples
@@ -166,3 +196,39 @@ def test_training_the_encoder_decoder_and_the_vlm_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr
     losses, _, bad = proc.stdout.strip().splitlines()[-1].partition(" BAD")
     assert losses == "LOSSES 2" and bad.strip() == "", proc.stdout
+
+
+_MESH_RANK_SCRIPT = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.core import MeshExecutor, ValueInfo, standard_rules, trace
+from repro_torch.parallel.mesh import destroy_world, init_world, make_mesh_for
+from repro_torch.workloads import matrix_driver
+
+init_world(device="cpu")
+graph, _ = trace(matrix_driver, 2, 16, device="cpu")
+info = {t: ValueInfo((16, 16), 4, ("batch", "d_model")) for t in graph.nodes}
+ex = MeshExecutor(graph, make_mesh_for(1, device="cpu"),
+                  standard_rules("dp_tp", pod_axis=None), value_info=info)
+out = ex({})[0]
+destroy_world()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("OUT", out, "BAD", ",".join(bad))
+"""
+
+
+def test_a_spawned_gloo_rank_running_the_mesh_executor_loads_no_jax(
+        tmp_path):
+    """A rank of a world of one, started by ``parallel.mesh.spawn_world``,
+    lowers the Fig. 2 DAG onto its (1, 1) mesh with ``MeshExecutor``: it
+    imports the port's SPMD layer and ``torch.distributed``, never JAX or
+    the JAX package."""
+    from repro_torch.parallel.mesh import spawn_world
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, = spawn_world(["-c", _MESH_RANK_SCRIPT], 1, timeout_s=120.0,
+                       env=env, cwd=str(ROOT), workdir=str(tmp_path))
+    value, _, bad = out.strip().splitlines()[-1].partition(" BAD")
+    assert value.startswith("OUT ") and bad.strip() == "", out

@@ -101,7 +101,8 @@ def test_one_device_mesh_and_identity_constraint():
     assert ctx.spec(("batch", "seq", "heads")) == ("data", None, "model")
     x = torch.ones(2, 3)
     assert ctx.constrain(x, ("batch", None)) is x
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a world of one (none initialised) is too small, as in the reference
+    with pytest.raises(ValueError, match="need 4 devices for mesh"):
         make_mesh_for(4)
 
 
