@@ -214,7 +214,21 @@ Each phase prints one line; any failure raises and exits non-zero:
    ``dp_gradient_sync(..., compressor=)`` over the world of one the
    roundtrip's bits, and one leaf's codes and scales the CPU's bits, with
    ms per GB, the payload and the all-reduce's wire bytes against
-   ``compression_ratio(4)``, and the peak memory.
+   ``compression_ratio(4)``, and the peak memory;
+16. tensor parallelism in the launchers — a new world of one NCCL rank,
+   destroyed afterwards, and the launchers' world path (``--tp 1``: a
+   (1, 1) mesh, the parameters DTensors): (a) qwen2-7b at full width and
+   depth (seed 0) served by phase 9's argv: phase 9's tokens, 140 flash
+   launches (28 a prefill, all on phase 9's route, none a decode step),
+   every one through ``kernels/sharded.py``, with the serve wall, TTFT p50
+   and decode ms a step beside phase 9's; (b) 11f's cell (falcon-mamba-7b
+   at 16 layers, seed 0, 4 steps of 2 x 2048 tokens) laid out by
+   ``fsdp_tp`` and trained by ``make_train_step(cfg, opt, ctx)``: 11f's
+   kernel losses (each within TRAIN_LOSS_TOL; bit for bit expected), 32
+   forward and 16 backward scan launches a step through
+   ``kernels/sharded.py``, with the median step, tokens/s and peak memory
+   beside 11f's; (c) ``--tp 2`` in the world of one raises ``ValueError``
+   in both launchers.
 
 With ``--profile`` it also profiles one decode step and two prefills of
 each served model (zamba2-7b's and the MoE models' too) and one
@@ -225,12 +239,12 @@ device busy share, and the device time of the port's own kernels).
 Then one JSON line of the kernels (``matmul`` counts phase 15a's launches
 too; ``flash_attention``, headed by its
 wgmma kernel, counts the wrapper's launches on both routes, serving and
-training, the encoder-decoder's prefill and decode steps and phase 15b's
-pipeline too;
+training, the encoder-decoder's prefill and decode steps, phase 15b's
+pipeline and phase 16a's world path too;
 ``flash_attention_simt`` is the CUDA-core kernel and its
 launches; ``ssm_scan`` counts serving and training forwards, and
 ``ssm_scan_backward``, headed by the training shape, the backward kernel's
-launches in 11e and 11f), and
+launches in 11e and 11f; the scan's entries phase 16b's too), and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a card, or outside a checkout, it prints no result and exits 1.
@@ -1272,6 +1286,11 @@ def phase_params(torch, arch: str, n_params: int, layers: int = 0):
     return cfg, params
 
 
+# what later phases compare with: phase 9's served tokens and times
+# (("serve", arch)) and phase 11f's steps (("train_full", arch))
+RESULTS: dict = {}
+
+
 def _counters():
     from repro_torch.kernels import flash_attention as fa, matmul as mm
     from repro_torch.kernels import ssm_scan as scan
@@ -1382,6 +1401,10 @@ def phase_serve(torch, cfg, params) -> int:
              f"0's {finished[0].out}")
     if any(not 0 <= t < cfg.vocab_size for r in finished for t in r.out):
         fail("a served token lies outside the vocabulary")
+    RESULTS[("serve", cfg.name)] = {
+        "tokens": {r.rid: r.out for r in finished}, "wall_s": out["wall"],
+        "ttft_p50_s": out["ttft_p50"],
+        "decode_ms_per_step": 1e3 / out["decode_tok_s"]}
     line("serve", {
         "arch": cfg.name, "argv": argv, "requests": len(finished),
         "decode_steps": out["decode_steps"], "forwards": out["forwards"],
@@ -1566,12 +1589,12 @@ def _recording_routing(torch):
     from repro_torch.models import transformer as TF
     inner, calls = TF.moe_block, []
 
-    def recording(p, x, cfg):
+    def recording(p, x, cfg, ctx=None):
         r = moe.route(p, x, cfg)
         calls.append({"tokens": x.shape[0] * x.shape[1], "idx": r.idx,
                       "last_probs": r.probs[-1, -1],
                       "dropped": (~r.keep).sum()})
-        return inner(p, x, cfg)
+        return inner(p, x, cfg, ctx)
     TF.moe_block = recording
     try:
         yield calls
@@ -1635,7 +1658,7 @@ def phase_long_prefill(torch, cfg, params) -> dict:
         """Prefill, then LONG_DECODE greedy steps fed the run's own tokens
         or ``feed``'s; returns tokens, last-position logits, seconds, and
         the path kernel's device ms within the prefill."""
-        prefill = TF.make_prefill_step(cfg, LONG_MAX_LEN, impl=impl)
+        prefill = TF.make_prefill_step(cfg, max_len=LONG_MAX_LEN, impl=impl)
         decode = TF.make_decode_step(cfg, impl=impl)
         torch.cuda.synchronize()
         with (timed_launches(torch, module, counter.__name__)
@@ -1748,8 +1771,8 @@ def phase_profile(torch, cfg, params) -> None:
     decode step, one served-size prefill and one LONG_PROMPT prefill, each
     after a warm-up call, through :func:`profile_line`."""
     from repro_torch.models import transformer as TF
-    prefill = TF.make_prefill_step(cfg, SERVE_MAX_LEN)
-    prefill_long = TF.make_prefill_step(cfg, LONG_MAX_LEN)
+    prefill = TF.make_prefill_step(cfg, max_len=SERVE_MAX_LEN)
+    prefill_long = TF.make_prefill_step(cfg, max_len=LONG_MAX_LEN)
     decode = TF.make_decode_step(cfg)
     prompt = torch.randint(1, cfg.vocab_size, (1, LONG_PROMPT),
                            device="cuda", dtype=torch.int32)
@@ -2526,6 +2549,7 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         "peak_device_bytes_compare": compare_peak,
         "peak_device_bytes_plain_steps": plain_peak}
     line("train_full", out)
+    RESULTS[("train_full", cfg.name)] = out
     if not dense:
         f32 = (SCAN_F32_LOSS_TOL, SCAN_F32_NORM_TOL, SCAN_F32_COSINE_MIN)
         if not _within_limits(witness["float32"], *f32):
@@ -2902,6 +2926,169 @@ def phase_spmd(torch, seq_total: float):
     return mm_launches, flash_launches
 
 
+def phase_tp_serve(torch) -> collections.Counter:
+    """Phase 16a: qwen2-7b at full width and depth (seed 0) served by phase
+    9's argv with ``--tp 1`` in the world of one rank: the launcher's world
+    path, its parameters DTensors on the (1, 1) mesh.  Its tokens must be
+    phase 9's, and every flash launch (28 a prefill, all on phase 9's
+    route, none a decode step) must go through ``kernels/sharded.py``.
+    Returns the flash launches by route."""
+    import gc
+    from repro_torch.kernels import sharded
+    from repro_torch.launch import serve
+    ref = RESULTS[("serve", DENSE_ARCH)]
+    cfg, params = phase_params(torch, DENSE_ARCH, DENSE_N_PARAMS)
+    counters = _counters()
+    argv = ["--arch", cfg.name] + SERVE_ARGS + ["--tp", "1"]
+    for fn in counters.values():
+        _reset(fn)
+    sharded.local_calls.update(dict.fromkeys(sharded.local_calls, 0))
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(argv, params=params)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    routes = _check_routes(counters["flash_attention"], cfg, "16a serve")
+    want = dict.fromkeys(counters, 0)
+    want["flash_attention"] = _kernel_layers(cfg) * SERVE_PREFILLS
+    local = dict(sharded.local_calls)
+    if launches != want or local["flash_attention"] != \
+            want["flash_attention"]:
+        fail(f"16a: kernel launches {launches}, through kernels/sharded.py "
+             f"{local}, expected {want}, all through kernels/sharded.py")
+    tokens = {r.rid: r.out for r in out["finished"]}
+    if tokens != ref["tokens"] or \
+            out["traced_tokens"] != tokens[0][:3]:
+        fail(f"16a: tokens {tokens} (traced {out['traced_tokens']}), "
+             f"phase 9's {ref['tokens']}")
+    decode_ms = 1e3 / out["decode_tok_s"]
+    line("tp_serve", {
+        "arch": cfg.name, "argv": argv, "mesh": [1, 1], "tokens_equal": True,
+        "launches": launches, "launches_by_route": routes,
+        "through_sharded": local,
+        "wall_s": out["wall"], "ttft_p50_s": out["ttft_p50"],
+        "decode_ms_per_step": decode_ms,
+        "phase9": {k: ref[k] for k in ("wall_s", "ttft_p50_s",
+                                       "decode_ms_per_step")},
+        "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _launch_routes(counters["flash_attention"])
+
+
+def phase_tp_train(torch) -> dict:
+    """Phase 16b: 11f's cell (falcon-mamba-7b at MAMBA_TRAIN_LAYERS layers,
+    seed 0, TRAIN_STEPS steps of 2 x 2048 tokens) on the launchers' world
+    path: the parameters laid out on the (1, 1) mesh by ``fsdp_tp``
+    (``parallel.sharding.distribute_params``), ``make_train_step(cfg, opt,
+    ctx)``.  Its losses must be 11f's kernel run's (bit for bit expected,
+    each within TRAIN_LOSS_TOL of it at most), with 2 forward and 1
+    backward scan launches a layer a step, all through
+    ``kernels/sharded.py``.  Returns the scan's launches by wrapper."""
+    import gc
+    from repro_torch.core.placement import standard_rules
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels import sharded
+    from repro_torch.launch import steps
+    from repro_torch.models import model_module
+    from repro_torch.optim.schedules import cosine_schedule
+    from repro_torch.parallel.mesh import launcher_mesh
+    from repro_torch.parallel.sharding import (ShardingCtx,
+                                               distribute_params, is_dtensor)
+    from repro_torch.tree import tree_leaves
+    ref = RESULTS[("train_full", ARCH)]
+    cfg, n_params, _, n_batch, seq = _train_cell(ARCH)
+    M = model_module(cfg)
+    per_step = _train_kernels(cfg)
+    kernels = list(per_step)
+    ctx = ShardingCtx(launcher_mesh(1, "cuda"),
+                      standard_rules("fsdp_tp", pod_axis=None))
+    torch.cuda.reset_peak_memory_stats()
+    params = distribute_params(M.init_params(cfg, 0, "cuda"),
+                               M.logical_axes(cfg), ctx)
+    leaves = tree_leaves(params)
+    if not all(is_dtensor(t) for t in leaves) or \
+            sum(t.numel() for t in leaves) != n_params:
+        fail(f"16b: parameters not {n_params} DTensor entries")
+    ds = SyntheticLMDataset(cfg.vocab_size, seq, n_batch, seed=0)
+    opt = steps.make_optimizer(cfg, lr=cosine_schedule(TRAIN_LR, 1,
+                                                       TRAIN_STEPS))
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt, ctx)
+    for fn in kernels:
+        _reset(fn)
+    sharded.local_calls.update(dict.fromkeys(sharded.local_calls, 0))
+    losses, step_s = [], []
+    for s in range(TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in ds.batch_at(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(metrics["total_loss"].item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launched = {fn.__name__: fn.launches for fn in kernels}
+    want = {fn.__name__: k * TRAIN_STEPS for fn, k in per_step.items()}
+    local = dict(sharded.local_calls)
+    if launched != want or local["ssm_scan"] != want["ssm_scan"] or \
+            local["ssm_scan_backward"] != want["ssm_scan_backward"]:
+        fail(f"16b: launches {launched}, through kernels/sharded.py {local}, "
+             f"expected {want}, all through kernels/sharded.py")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    if max(rel) > TRAIN_LOSS_TOL:
+        fail(f"16b: losses {losses}, 11f's {ref['losses']}, relative "
+             f"differences {rel} (limit {TRAIN_LOSS_TOL})")
+    median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    line("tp_train", {
+        "arch": cfg.name, "layers": cfg.n_layers, "mesh": [1, 1],
+        "rules": "fsdp_tp", "batch": n_batch, "seq": seq,
+        "losses": losses, "losses_11f": ref["losses"],
+        "bit_equal": losses == ref["losses"], "losses_rel_diff": rel,
+        "loss_tol": TRAIN_LOSS_TOL, "launches": launched,
+        "through_sharded": local, "step_s": step_s,
+        "median_step_s": median_s, "tokens_per_s": n_batch * seq / median_s,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "phase11f": {"median_step_s": ref["median_step_s"],
+                     "tokens_per_s": ref["tokens_per_s"],
+                     "peak_device_bytes": ref["peak_device_bytes"]}})
+    out = {fn.__name__: _launch_routes(fn) for fn in kernels}
+    del params, state, metrics, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(torch):
+    """Phase 16: the launchers' world path (``--tp``) in a new world of one
+    NCCL rank, destroyed afterwards: 16a (``phase_tp_serve``), 16b
+    (``phase_tp_train``) and 16c: ``--tp 2`` in the world of one raises
+    ``ValueError`` in both launchers.  Returns the flash launches by route
+    and the scan's forward and backward launches by route."""
+    import tempfile
+    from repro_torch.launch import serve, train
+    from repro_torch.parallel.mesh import destroy_world, init_world
+    store = Path(tempfile.mkdtemp(prefix="chip-smoke-tp-")) / "store"
+    line("world", {"backend": init_world(0, 1, str(store), device="cuda"),
+                   "ranks": 1, "phase": 16})
+    try:
+        flash = phase_tp_serve(torch)
+        scan = phase_tp_train(torch)
+        refused = {}
+        for name, launcher in (("serve", serve), ("train", train)):
+            try:
+                launcher.main(["--arch", DENSE_ARCH, "--reduced", "--tp",
+                               "2"])
+            except ValueError as e:
+                refused[name] = str(e)
+        if set(refused) != {"serve", "train"}:
+            fail(f"16c: --tp 2 in a world of one raised only in "
+                 f"{sorted(refused)}")
+        line("tp_refusal", refused)
+    finally:
+        destroy_world()
+    return flash, scan
+
+
 def main() -> int:
     import gc
 
@@ -2964,6 +3151,13 @@ def main() -> int:
     spmd_matmul, spmd_flash = phase_spmd(torch, seq_total)
     launches += spmd_matmul
     flash_launches += spmd_flash
+    # phase 16: the launchers' world path (--tp 1) in a world of one rank
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_flash, tp_scan = phase_tp(torch)
+    flash_launches += tp_flash
+    scan_launches += tp_scan["ssm_scan"]
+    bwd_launches += tp_scan["ssm_scan_backward"]
 
     def entry(kernel, source, replaces, launches, routes, check, all_checks):
         return {"name": kernel, "route": "cuda",

@@ -208,7 +208,7 @@ def time_prefill(cfg, params):
     prompt = torch.randint(1, cfg.vocab_size, (1, cs.LONG_PROMPT),
                            generator=torch.Generator(device="cuda").manual_seed(1),
                            device="cuda", dtype=torch.int32)
-    step = TF.make_prefill_step(cfg, cs.LONG_MAX_LEN)
+    step = TF.make_prefill_step(cfg, max_len=cs.LONG_MAX_LEN)
     secs = []
     for _ in range(3):
         torch.cuda.synchronize()

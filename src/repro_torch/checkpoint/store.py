@@ -17,9 +17,18 @@ array, and read back through the same view, so neither ``jax`` nor
 in the other bit for bit.
 
 Restore rebuilds the tree on the host and puts each leaf on its target
-tensor's device, in the target's dtype.  :class:`AsyncCheckpointer`
-snapshots to host memory synchronously and writes on a background thread,
-keeping the save off the train step's critical path.
+tensor's device, in the target's dtype; with ``shardings`` (a tree of
+layouts: anything with ``device_mesh`` and ``placements``, such as
+``parallel.sharding.Sharding`` or a DTensor) each leaf is laid out on that
+mesh, each rank keeping its slice.  Checkpoints hold full values, so one
+written on a mesh restores onto another, or onto one device (the
+reference's elastic restore, ``repro/checkpoint/store.py:106-140``).
+:class:`AsyncCheckpointer` snapshots to host memory synchronously and
+writes on a background thread, keeping the save off the train step's
+critical path.  In a ``torch.distributed`` world every rank takes the full
+value of each DTensor leaf on the main thread (a collective), only rank 0
+writes, and all ranks meet at a barrier before the next save, at the end
+(``wait``) and before a restore through :class:`CheckpointManager`.
 """
 from __future__ import annotations
 
@@ -32,7 +41,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.sharding import is_dtensor
 from ..tree import tree_flatten_with_paths, tree_map, tree_unflatten
 
 
@@ -104,11 +115,35 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _place(t: torch.Tensor, ref: Any, layout: Any) -> torch.Tensor:
+    """The restored full value ``t`` in ``ref``'s dtype, laid out by
+    ``layout`` or on ``ref``'s device."""
+    if layout is None:
+        return t.to(device=ref.device, dtype=ref.dtype)
+    from torch.distributed.tensor import distribute_tensor
+    mesh = layout.device_mesh
+    return distribute_tensor(t.to(device=mesh.device_type, dtype=ref.dtype),
+                             mesh, list(layout.placements),
+                             src_data_rank=None)
+
+
 def restore_checkpoint(directory: str, step: Optional[int] = None,
-                       target: Any = None):
+                       target: Any = None, shardings: Any = None):
     """Returns ``(tree, extra)``.  Without ``target``, ``tree`` maps each
     leaf path to a CPU tensor; with it, it has ``target``'s structure, each
-    leaf in its target leaf's dtype on its device."""
+    leaf in its target leaf's dtype on its device, or, with ``shardings``
+    (a tree of ``target``'s structure whose leaves have ``device_mesh`` and
+    ``placements``), laid out by its leaf there: a DTensor of which each
+    rank keeps its slice of the full value."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -131,20 +166,26 @@ def restore_checkpoint(directory: str, step: Optional[int] = None,
     if target is None:
         return values, manifest["extra"]
 
+    flat = tree_flatten_with_paths(target)
+    lays = ([leaf for _, leaf in tree_flatten_with_paths(shardings)]
+            if shardings is not None else [None] * len(flat))
     out = []
-    for p, ref in tree_flatten_with_paths(target):
+    for (p, ref), layout in zip(flat, lays):
         if p not in values:
             raise KeyError(f"checkpoint missing leaf {p}")
         t = values[p]
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch for {p}: {tuple(t.shape)} vs "
                              f"{tuple(ref.shape)}")
-        out.append(t.to(device=ref.device, dtype=ref.dtype))
+        out.append(_place(t, ref, layout))
     return tree_unflatten(target, out), manifest["extra"]
 
 
 def _snapshot(leaf: Any) -> Any:
-    """A host copy of a leaf: the caller may change it after a save."""
+    """A host copy of a leaf (the full value of a DTensor): the caller may
+    change it after a save."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
@@ -160,14 +201,19 @@ class AsyncCheckpointer:
         self.saved_steps: list = []
 
     def wait(self) -> None:
+        """Until the save in flight is written; in a world, every rank
+        then meets the others."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
 
     def save(self, step: int, tree: Any,
              extra: Optional[Dict[str, Any]] = None) -> None:
         self.wait()                                  # one in flight at a time
-        host_tree = tree_map(_snapshot, tree)
+        host_tree = tree_map(_snapshot, tree)        # a collective in a world
+        if not _rank0():
+            return
 
         def work():
             save_checkpoint(self.directory, step, host_tree, extra)
@@ -202,11 +248,15 @@ class CheckpointManager:
         if self.async_save:
             self.ckpt.save(step, tree, extra)
         else:
-            save_checkpoint(self.directory, step, tree, extra)
+            host_tree = tree_map(_snapshot, tree)
+            if _rank0():
+                save_checkpoint(self.directory, step, host_tree, extra)
+            _barrier()
         return True
 
-    def restore_latest(self, target: Any):
-        return restore_checkpoint(self.directory, None, target)
+    def restore_latest(self, target: Any, shardings: Any = None):
+        self.ckpt.wait()
+        return restore_checkpoint(self.directory, None, target, shardings)
 
     def finish(self) -> None:
         self.ckpt.wait()

@@ -23,8 +23,9 @@ Port of ``repro/core/__init__.py``, exporting what is ported so far:
   ValueInfo, refine_placements, resharding_bytes          (auto-sharding:
       rule tables and the greedy placement refinement)
 
-Tensor parallelism inside the launchers (sharded parameters, flash on each
-rank's local heads, ``shard_grads``) is ROADMAP §1 item 8b.
+The rule tables also lay out the launchers' models under ``--tp``
+(``parallel.sharding``): DTensor parameters, the flash and scan kernels on
+each rank's local shard, ``shard_grads``.
 """
 from .graph import TaskGraph, TaskNode, TaskKind, GraphError
 from .tracing import (task, io_task, trace, placeholder, checkpoint_barrier,

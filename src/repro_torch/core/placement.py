@@ -174,6 +174,28 @@ def shard(x: torch.Tensor, mesh, spec: Spec):
     return distribute_tensor(x, mesh.device_mesh, want, src_data_rank=None)
 
 
+def fit_spec(shape: Sequence[int], spec: Spec, mesh) -> Spec:
+    """``spec`` without the mesh axes whose shard count does not divide
+    their dim of ``shape`` (the reference's ``_fit_sharding``,
+    ``repro/launch/steps.py:222-241``): every DTensor laid out by a fitted
+    spec has even shards.  E.g. whisper's vocab of 51865 cannot shard 16
+    ways; the embedding is replicated on that dim instead."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    out: List[MeshAxes] = []
+    for dim, part in zip(shape, parts):
+        if part is None:
+            out.append(None)
+            continue
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        out.append(part if dim % n == 0 else None)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
 def spec_shards(spec: Spec, mesh) -> int:
     """The number of pieces ``spec`` cuts a tensor into on ``mesh``."""
     n = 1

@@ -3,9 +3,9 @@
 Port of ``repro/kernels/ops.py``.  ``impl="kernel"`` (the default) calls the
 hand-written kernel's wrapper, which launches the kernel for CUDA tensors
 and uses the plain version for CPU tensors; ``impl="ref"`` calls the plain
-version on any device.  With a DTensor argument, ``matmul`` and
-``flash_attention`` run the wrapper on each rank's local shard
-(``kernels/sharded.py``).
+version on any device.  With a DTensor argument, ``matmul``,
+``flash_attention`` and ``ssm_scan`` run the wrapper (or its autograd
+Function) on each rank's local shard (``kernels/sharded.py``).
 """
 from __future__ import annotations
 
@@ -82,6 +82,12 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     if impl == "ref":
         return ref.ssm_scan(x, dt, B, C, A, h0, return_state=return_state)
     if impl == "kernel":
+        sharded = _sharded(x, dt, B, C, A, h0)
+        if sharded is not None:
+            y, h = sharded.ssm_scan(
+                x, dt, B, C, A, h0,
+                lambda *a: ssm_scan(*a, return_state=True))
+            return (y, h) if return_state else y
         if needs_grad(x, dt, B, C, A, h0):
             y, h = _ssm_scan.SSMScan.apply(x, dt, B, C, A, h0)
             return (y, h) if return_state else y

@@ -45,6 +45,21 @@ config's first N layers at its full width (a full-width model that does
 not fit the card whole).  One parameter set serves both the traced request
 and the main loop.
 
+Started as the N ranks of a ``torch.distributed`` world (the environment
+names it, as ``parallel.mesh.spawn_world`` sets it, or the caller has
+initialised a process group), it serves on the ``(N / --tp, --tp)`` (data,
+model) mesh of that world with the reference's ``dp_tp`` rules: the
+parameters are DTensors laid out by the rule table (also on a mesh of one
+rank), each slot's KV or SSM cache is laid out by ``cache_logical_axes``,
+the flash and scan kernels run on each rank's local heads and channels,
+rank 0 prints and every rank returns the same result.  With
+``--show-graph`` the traced request's tasks close over those DTensor
+parameters on the thread backend (every rank runs the same graph, so the
+collectives meet in one order); on ``--backend process`` and through a
+gateway the workers draw their own single-device runtime, as without a
+world.  Without a world it serves on one device with plain tensors;
+``--tp`` other than 1 then raises ``ValueError``.
+
 CPU example (reduced config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --reduced --device cpu --requests 6 --slots 2 --max-new 8
@@ -65,9 +80,12 @@ import torch
 
 from ..configs import ARCHS, get_config
 from ..core import task, trace
+from ..core.placement import standard_rules
 from ..interop import resolve_device
 from ..models import transformer as TF
 from ..models.config import cut_depth
+from ..parallel.mesh import launcher_mesh
+from ..parallel.sharding import ShardingCtx, distribute_params, full_value
 from .backend import add_backend_args, execute_traced, validate_backend_args
 
 
@@ -94,7 +112,9 @@ def synth_requests(n: int, vocab: int, lo: int = 4, hi: int = 12,
 
 
 def _greedy(logits: torch.Tensor) -> int:
-    return int(torch.argmax(logits[0]))
+    """The first row's argmax; a DTensor's full value is taken first (a
+    collective: every rank of its mesh calls it)."""
+    return int(torch.argmax(full_value(logits)[0]))
 
 
 # --------------------------------------------------------------------------
@@ -201,7 +221,8 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tp", type=int, default=1,
-                    help="model-parallel ways (only 1 on one device)")
+                    help="model-parallel ways: the mesh is (N / tp, tp) "
+                         "over a world of N ranks; only 1 without a world")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the CUDA card; "
                          "'cpu' runs the kernels' plain versions)")
@@ -220,10 +241,6 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     add_backend_args(ap)
     args = ap.parse_args(argv)
     validate_backend_args(args)
-    if args.tp != 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism in the launchers comes "
-            f"with ROADMAP §1 item 8b; the port serves on one device")
 
     cfg = _config(args.arch, args.reduced, args.layers)
     if cfg.is_encoder_decoder:
@@ -231,6 +248,11 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
                          "enc-dec serving is exercised in the dry-run cells")
     TF.check_supported(cfg)
     device = resolve_device(args.device)
+    mesh = launcher_mesh(args.tp, device, "repro_torch.launch.serve")
+    world = mesh is not None
+    say = (functools.partial(print, flush=True)
+           if not world or torch.distributed.get_rank() == 0
+           else lambda *a, **k: None)
     remote = args.gateway is not None or args.backend == "process"
     if args.show_graph and remote and params is not None:
         raise ValueError("--backend process and --gateway: the workers draw "
@@ -239,8 +261,12 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
 
     if params is None:
         params = TF.init_params(cfg, args.seed, device)
-    prefill = TF.make_prefill_step(cfg, max_len=args.max_len)
-    decode = TF.make_decode_step(cfg)
+    ctx = None
+    if world:
+        ctx = ShardingCtx(mesh, standard_rules("dp_tp", pod_axis=None))
+        params = distribute_params(params, TF.logical_axes(cfg), ctx)
+    prefill = TF.make_prefill_step(cfg, ctx, max_len=args.max_len)
+    decode = TF.make_decode_step(cfg, ctx)
 
     # ---- traced one-request driver executed on the chosen backend ----
     traced_tokens, demo_forwards, demo_prefills = None, 0, 0
@@ -271,7 +297,7 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
             return respond_t(*toks)
 
         g, _ = trace(req_driver)
-        print(g.summary())
+        say(g.summary())
         if args.gateway is not None:
             # tenant mode: the request DAG runs on a SHARED resident pool
             # next to other tenants' jobs, bit-identical to local
@@ -281,16 +307,16 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
                 fut = gc.submit(g, label="serve-request")
                 res = fut.result()
             graph_stats = fut.stats
-            print(f"[gateway {args.gateway}] executed {len(g.nodes)} "
-                  f"tasks as tenant {args.tenant} in "
-                  f"{fut.wall_time:.3f}s (stats {graph_stats})", flush=True)
+            say(f"[gateway {args.gateway}] executed {len(g.nodes)} "
+                f"tasks as tenant {args.tenant} in "
+                f"{fut.wall_time:.3f}s (stats {graph_stats})")
         else:
             res, graph_stats = execute_traced(g, args)
         traced_tokens = res[g.outputs[0]]
         demo_prefills = sum(1 for n in g if n.name == "prefill")
         demo_forwards = demo_prefills + sum(1 for n in g
                                             if n.name == "decode")
-        print(f"traced request tokens: {traced_tokens}", flush=True)
+        say(f"traced request tokens: {traced_tokens}")
 
     reqs = synth_requests(args.requests, cfg.vocab_size,
                           max_new=args.max_new, seed=args.seed)
@@ -336,13 +362,13 @@ def main(argv=None, *, params: Optional[Dict] = None) -> Dict[str, Any]:
     wall = time.time() - t0
     ttft = [r.t_first - r.t_submit for r in finished]
     lat = [r.t_done - r.t_submit for r in finished]
-    print(f"served {len(finished)} requests in {wall:.2f}s | "
-          f"decode steps {n_decode_steps} "
-          f"({n_decode_steps / wall:.1f} tok/s) | "
-          f"TTFT p50 {np.median(ttft) * 1e3:.0f} ms | "
-          f"latency p50 {np.median(lat) * 1e3:.0f} ms", flush=True)
+    say(f"served {len(finished)} requests in {wall:.2f}s | "
+        f"decode steps {n_decode_steps} "
+        f"({n_decode_steps / wall:.1f} tok/s) | "
+        f"TTFT p50 {np.median(ttft) * 1e3:.0f} ms | "
+        f"latency p50 {np.median(lat) * 1e3:.0f} ms")
     for r in finished[:3]:
-        print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.out}")
+        say(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.out}")
     return {"finished": finished, "wall": wall,
             "decode_steps": n_decode_steps,
             "forwards": demo_forwards + n_prefills + n_decode_steps,

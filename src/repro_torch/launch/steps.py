@@ -5,15 +5,14 @@ Port of ``repro/launch/steps.py`` (``make_optimizer`` :50, ``make_rules``
 :60, ``make_train_step`` :99, ``_fit_sharding`` and ``fit_case_shardings``
 :222-253, the latter two as functions of shapes, specs and a mesh).  The
 dry-run's cases (``Case``, ``build_case``, ``lower_case``) and
-``opt_state_shardings`` come with the dry-run (ROADMAP §1 item 9);
-``make_train_step``'s ``shard_grads`` with tensor parallelism in the
-launchers (item 8b).
+``opt_state_shardings`` come with the dry-run (ROADMAP §1 item 9), which
+can build its cases on ``make_train_step(cfg, optimizer, ctx)``.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Tuple
 
-from ..core.placement import Spec, standard_rules
+from ..core.placement import Spec, fit_spec, standard_rules
 from ..models import model_module
 from ..models import transformer as TF
 from ..models.config import ModelConfig
@@ -42,23 +41,9 @@ def make_rules(mesh, mode: str, global_batch: int):
 
 def _fit_sharding(shape: Tuple[int, ...], spec: Spec, mesh) -> Spec:
     """``spec`` without the mesh axes whose shard count does not divide
-    their dim of ``shape``: a jit's I/O shardings need exact divisibility in
-    the reference.  E.g. whisper's vocab of 51865 cannot shard 16 ways; the
-    embedding is replicated on that dim instead."""
-    parts = list(spec) + [None] * (len(shape) - len(spec))
-    out = []
-    for dim, part in zip(shape, parts):
-        if part is None:
-            out.append(None)
-            continue
-        axes = (part,) if isinstance(part, str) else tuple(part)
-        n = 1
-        for a in axes:
-            n *= mesh.shape[a]
-        out.append(part if dim % n == 0 else None)
-    while out and out[-1] is None:
-        out.pop()
-    return tuple(out)
+    their dim of ``shape`` (``core.placement.fit_spec``): a jit's I/O
+    shardings need exact divisibility in the reference."""
+    return fit_spec(shape, spec, mesh)
 
 
 def fit_case_shardings(shapes: Any, specs: Any, mesh) -> Any:
@@ -68,23 +53,53 @@ def fit_case_shardings(shapes: Any, specs: Any, mesh) -> Any:
                     shapes, specs)
 
 
+# the logical axes of each batch entry, laid out on the mesh as the
+# reference's batch is (its frames and patches by batch and sequence)
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "frames": ("batch", "seq", None),
+              "patch_embeds": ("batch", "seq", "d_model")}
+
+
+def _reduce_grad(g, p, shard_grads: bool):
+    """A gradient of the world path laid out for the update: with
+    ``shard_grads`` in its parameter's placements (a partial sum over the
+    batch becomes a reduce-scatter to the shard each rank owns), else each
+    partial sum all-reduced (replicated there)."""
+    from torch.distributed.tensor import Replicate
+    if shard_grads:
+        want = p.placements
+    else:
+        want = [Replicate() if q.is_partial() else q for q in g.placements]
+    return g.redistribute(g.device_mesh, want)
+
+
 def make_train_step(cfg: ModelConfig, optimizer,
                     ctx: Optional[ShardingCtx] = None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics), the
     parameters and optimizer state updated in place.
 
-    The reference pins the gradients to the parameters' layout when
-    ``cfg.shard_grads`` (a reduce-scatter instead of an all-reduce); on one
-    device there is no layout to pin, so ``ctx`` changes nothing here.
+    With ``ctx`` over a ``torch.distributed`` world (the launchers' world
+    path: DTensor parameters) the batch is laid out on its mesh
+    (``BATCH_AXES``), the loss constrains its activations by ``ctx``, and
+    each gradient is all-reduced where it is a partial sum, or, when
+    ``cfg.shard_grads``, redistributed to its parameter's placements: a
+    reduce-scatter instead of an all-reduce (the reference pins the
+    gradients to the parameters' layout, ``repro/launch/steps.py:99-124``).
     The loss is the encoder-decoder's (``models/encdec.py``; its batch
     carries ``frames``) or the decoder-only LM's (``models/transformer.py``;
     a VLM's carries ``patch_embeds``), as the reference dispatches it."""
     M = model_module(cfg)
     M.check_supported(cfg)
-    grad_fn = TF.value_and_grad(M.make_loss_fn(cfg))
+    grad_fn = TF.value_and_grad(M.make_loss_fn(cfg, ctx))
+    world = ctx is not None and ctx.distributed
 
     def train_step(params, opt_state, batch):
+        if world:
+            batch = {k: ctx.fit(v, BATCH_AXES[k]) for k, v in batch.items()}
         (total, metrics), grads = grad_fn(params, batch)
+        if world:
+            grads = tree_map(lambda g, p: _reduce_grad(g, p, cfg.shard_grads),
+                             grads, params)
         opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, dict(metrics, total_loss=total)
 

@@ -1,9 +1,22 @@
 """Training launcher.
 
 Port of ``repro/launch/train.py``: runs the ``launch.steps`` train step on
-one device, the card unless ``--device`` names another (with no card and
-no ``--device`` it raises).  ``--reduced`` gives the CPU-sized config of
-the same family.
+the card unless ``--device`` names another (with no card and no
+``--device`` it raises).  ``--reduced`` gives the CPU-sized config of the
+same family.
+
+Started as the N ranks of a ``torch.distributed`` world (the environment
+names it: ``RANK``, ``WORLD_SIZE``, ``REPRO_WORLD_STORE``, as
+``parallel.mesh.spawn_world`` sets them; or the caller has initialised a
+process group), it trains on the ``(N / --tp, --tp)`` (data, model) mesh of
+that world (``parallel.mesh.launcher_mesh``: NCCL on the card, gloo with
+``--device cpu``), with ``standard_rules(--mode)``: the parameters and
+optimizer state are DTensors laid out by the rule table, also on a mesh of
+one rank, the checkpoints resume onto the run's mesh whatever mesh wrote
+them, rank 0 prints and every rank returns the same result.  Without a
+world it trains on one device with plain tensors and never imports
+``torch.distributed.tensor``; ``--tp`` other than 1 then raises
+``ValueError`` (the reference ignores it on one device).
 
   * checkpoint/restart: async save every ``--ckpt-every`` steps;
     ``--resume`` restores params + optimizer state + data cursor onto the
@@ -30,15 +43,18 @@ transformer family, llava-next-34b (its batches carry ``patch_embeds``,
 backward kernel on the card), the Mamba2 hybrid and the encoder-decoder
 whisper-tiny (``models/encdec.py``; its batches carry ``frames``,
 ``frontends.synth_frames``).  As in the reference, every step takes the
-same patches or frames, drawn from seed 0 on the run's device.  ``--tp``
-takes only 1 (tensor parallelism in the launchers is ROADMAP §1 item
-8b).
+same patches or frames, drawn from seed 0 on the run's device.
 
 CPU example (reduced qwen2-family config; ``--arch falcon-mamba-7b`` for
 Mamba1, ``whisper-tiny`` for the encoder-decoder, ``llava-next-34b`` for
 the VLM, and without ``--device cpu`` on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --reduced --device cpu --steps 8 --batch 2 --seq 16
+and on a world of 4 gloo ranks at ``--tp 2``:
+  PYTHONPATH=src python -c "from repro_torch.parallel.mesh import \\
+      spawn_world; print(spawn_world(['-m', 'repro_torch.launch.train', \\
+      '--arch', 'qwen2-7b', '--reduced', '--device', 'cpu', '--tp', '2', \\
+      '--steps', '4', '--batch', '4', '--seq', '16'], 4)[0])"
 """
 from __future__ import annotations
 
@@ -59,8 +75,8 @@ from ..data.pipeline import Prefetcher, SyntheticLMDataset
 from ..interop import resolve_device
 from ..models import frontends, model_module
 from ..optim.schedules import cosine_schedule
-from ..parallel.mesh import single_device_mesh
-from ..parallel.sharding import ShardingCtx
+from ..parallel.mesh import Mesh, launcher_mesh, single_device_mesh
+from ..parallel.sharding import ShardingCtx, distribute_params, layouts
 from ..tree import tree_map
 from . import steps as steps_mod
 from .backend import add_backend_args, execute_traced, validate_backend_args
@@ -103,7 +119,8 @@ def _batch_on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 def _demo_runtime(arch, reduced, remat, mode, lr, warmup, steps, seed,
                   device):
     cfg = _config(arch, reduced, remat)
-    ctx = ShardingCtx(single_device_mesh(device),
+    # one device, also in a world: the traced demo's runtime is its own
+    ctx = ShardingCtx(Mesh(("data", "model"), (1, 1), resolve_device(device)),
                       standard_rules(mode, pod_axis=None))
     opt = steps_mod.make_optimizer(cfg, lr=cosine_schedule(lr, warmup, steps))
     step = steps_mod.make_train_step(cfg, opt, ctx)
@@ -146,19 +163,33 @@ demo_save = io_task(_demo_save, cost=0.05, name="save_ckpt")
 
 
 def build_runtime(args, device: torch.device) -> Dict[str, Any]:
+    """The config, mesh, context, optimizer, parameters, optimizer state and
+    train step of a run: on the world's mesh when this process is a rank
+    of one (the parameters DTensors, ``standard_rules(--mode)``), else on
+    one device (``--tp`` other than 1 raises ``ValueError``)."""
     cfg = _config(args.arch, args.reduced, args.remat)
-    if args.tp != 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism in the launchers comes "
-            f"with ROADMAP §1 item 8b; the port trains on one device")
-    mesh = single_device_mesh(device)
+    mesh = launcher_mesh(args.tp, device)
+    world = mesh is not None
+    if not world:
+        mesh = single_device_mesh(device)
     ctx = ShardingCtx(mesh, standard_rules(args.mode, pod_axis=None))
     opt = steps_mod.make_optimizer(cfg, lr=cosine_schedule(
         args.lr, args.warmup, args.steps))
     step_fn = steps_mod.make_train_step(cfg, opt, ctx)
-    params = model_module(cfg).init_params(cfg, args.seed, device)
+    M = model_module(cfg)
+    params = M.init_params(cfg, args.seed, device)
+    if world:
+        params = distribute_params(params, M.logical_axes(cfg), ctx)
     return dict(cfg=cfg, mesh=mesh, ctx=ctx, opt=opt, params=params,
-                opt_state=opt.init(params), step=step_fn)
+                opt_state=opt.init(params), step=step_fn, world=world)
+
+
+def _say(rt: Dict[str, Any]):
+    """``print`` on rank 0 of a world (or without one); a no-op
+    elsewhere."""
+    if rt["world"] and torch.distributed.get_rank() != 0:
+        return lambda *a, **k: None
+    return functools.partial(print, flush=True)
 
 
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
@@ -173,7 +204,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tp", type=int, default=1,
-                    help="model-parallel ways (only 1 on one device)")
+                    help="model-parallel ways: the mesh is (N / tp, tp) "
+                         "over a world of N ranks; only 1 without a world")
     ap.add_argument("--mode", default="fsdp_tp")
     ap.add_argument("--remat", default="selective",
                     choices=["none", "selective", "full"])
@@ -197,18 +229,20 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     cfg = rt["cfg"]
     params, opt_state = rt["params"], rt["opt_state"]
     step_fn = rt["step"]
+    say = _say(rt)
 
     start_step = 0
     mgr = None
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every, keep=3)
         if args.resume and latest_step(args.ckpt_dir) is not None:
+            tree = {"params": params, "opt": opt_state}
             restored, extra = mgr.restore_latest(
-                {"params": params, "opt": opt_state})
+                tree, shardings=layouts(tree) if rt["world"] else None)
             params, opt_state = restored["params"], restored["opt"]
             start_step = int(extra["step"]) + 1
-            print(f"resumed from step {extra['step']} "
-                  f"(data cursor {start_step})", flush=True)
+            say(f"resumed from step {extra['step']} "
+                f"(data cursor {start_step})")
 
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
                             seed=args.seed)
@@ -232,11 +266,11 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
             return checkpoint_barrier(canon.demo_save(loss))
 
         g, _ = trace(demo_driver)
-        print(g.summary())
-        print(g.to_dot())
+        say(g.summary())
+        say(g.to_dot())
         res, _ = execute_traced(g, args)
         traced_loss = res[g.outputs[0]]
-        print(f"traced-driver step loss: {traced_loss:.4f}", flush=True)
+        say(f"traced-driver step loss: {traced_loss:.4f}")
 
     losses = []
     ewma: Optional[float] = None
@@ -252,15 +286,14 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
         dt = time.time() - t0
         if ewma is not None and dt > args.straggler_x * ewma:
             stragglers += 1
-            print(f"[straggler] step {s}: {dt:.3f}s vs EWMA {ewma:.3f}s",
-                  flush=True)
+            say(f"[straggler] step {s}: {dt:.3f}s vs EWMA {ewma:.3f}s")
         ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
         losses.append(loss)
         final_step = s
         if s % args.log_every == 0:
-            print(f"step {s:5d} loss {loss:8.4f} "
-                  f"aux {float(metrics['aux']):7.4f} "
-                  f"{dt * 1e3:7.1f} ms", flush=True)
+            say(f"step {s:5d} loss {loss:8.4f} "
+                f"aux {float(metrics['aux']):7.4f} "
+                f"{dt * 1e3:7.1f} ms")
         if mgr is not None:
             mgr.maybe_save(s, {"params": params, "opt": opt_state},
                            {"step": s})
@@ -268,9 +301,9 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
         mgr.finish()
     pf.close()
     wall = time.time() - t_total
-    print(f"done: steps {start_step}..{final_step} in {wall:.1f}s | "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} | "
-          f"stragglers {stragglers}", flush=True)
+    say(f"done: steps {start_step}..{final_step} in {wall:.1f}s | "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} | "
+        f"stragglers {stragglers}")
     return {"losses": losses, "params": params, "wall": wall,
             "start_step": start_step, "traced_loss": traced_loss,
             "device": str(device)}

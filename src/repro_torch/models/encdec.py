@@ -27,6 +27,13 @@ says.  Gradients come from ``transformer.value_and_grad`` over
 and cache leaf's logical axis names, as the reference's do; its
 ``abstract_params`` is a dry-run helper and comes with the dry-run
 (ROADMAP §1 item 9).
+
+With a sharding context over a ``torch.distributed`` world (``ctx``) the
+parameters and the batch are DTensors and the activations are constrained
+where the reference's are: the encoder's input and each encoder layer's
+output, the decoder's embeddings and each decoder layer's output, to
+``("batch", "seq", "d_model")`` (``models.layers.shard_act``); the loss is
+``transformer.sharded_loss``'s.
 """
 from __future__ import annotations
 
@@ -35,12 +42,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..interop import Device, resolve_device
+from ..parallel.sharding import replicated_like
 from ..tree import tree_leaves, tree_map, unstack_layers
 from .config import ModelConfig
-from .layers import (apply_norm, attention_block, embed_tokens,
-                     init_attention, init_embed, init_mlp, init_norm,
-                     init_param, mlp_block, p, unembed)
-from .transformer import softmax_xent
+from .layers import (split_heads, apply_norm, attention_block,
+                     embed_tokens, init_attention, init_embed, init_mlp,
+                     init_norm, init_param, mlp_block, p, shard_act, unembed)
+from .transformer import lay_out, sharded_loss, softmax_xent
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -104,22 +112,25 @@ def count_params(cfg: ModelConfig) -> int:
 # forward
 # --------------------------------------------------------------------------
 
-def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig, *,
-           impl: str = "kernel") -> torch.Tensor:
+def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig, ctx=None,
+           *, impl: str = "kernel") -> torch.Tensor:
     """The encoder over frames (B, S, d_model): the frames and ``enc_pos``
     rows added in the compute type, ``n_enc_layers`` pre-norm blocks of
     non-causal self-attention and MLP, the final norm."""
     B, S, _ = frames.shape
     cd = cfg.cdtype
     x = frames.to(cd) + params["enc_pos"][:S].to(cd)
-    positions = torch.arange(S, device=frames.device).expand(B, S)
+    x = shard_act(x, ("batch", "seq", "d_model"), ctx)
+    positions = replicated_like(torch.arange(S, device=frames.device),
+                                frames).expand(B, S)
     for lp in unstack_layers(params["enc_layers"], cfg.n_enc_layers):
         h = apply_norm(x, lp["norm1"], cfg)
         h, _ = attention_block(lp["attn"], h, cfg, positions=positions,
-                               causal=False, impl=impl)
+                               causal=False, impl=impl, ctx=ctx)
         x = x + h
         h = apply_norm(x, lp["norm2"], cfg)
-        x = x + mlp_block(lp["mlp"], h, cfg)
+        x = x + mlp_block(lp["mlp"], h, cfg, ctx)
+        x = shard_act(x, ("batch", "seq", "d_model"), ctx)
     return apply_norm(x, params["enc_norm"], cfg)
 
 
@@ -128,8 +139,6 @@ def cross_kv(params: Dict, enc_out: torch.Tensor,
     """Each decoder layer's cross-attention k and v of the encoder output:
     ``{"k", "v"}``, each (L, B, enc_seq, KH, hd) in the compute type."""
     cd = cfg.cdtype
-    B, S, _ = enc_out.shape
-    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
     ks, vs = [], []
     for lp in unstack_layers(params["dec_layers"]["cross_attn"],
                              cfg.n_layers):
@@ -138,14 +147,15 @@ def cross_kv(params: Dict, enc_out: torch.Tensor,
         if "bk" in lp:
             k = k + lp["bk"].to(cd)
             v = v + lp["bv"].to(cd)
-        ks.append(k.reshape(shape))
-        vs.append(v.reshape(shape))
+        ks.append(split_heads(k, cfg.n_kv_heads, cfg.head_dim))
+        vs.append(split_heads(v, cfg.n_kv_heads, cfg.head_dim))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def decoder_forward(params: Dict, tokens: torch.Tensor,
                     xkv: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-                    cache: Optional[Dict] = None, impl: str = "kernel"
+                    ctx=None, cache: Optional[Dict] = None,
+                    impl: str = "kernel"
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (float32 logits, new_cache).
 
@@ -158,8 +168,11 @@ def decoder_forward(params: Dict, tokens: torch.Tensor,
     B, S = tokens.shape
     L = cfg.n_layers
     pos0 = int(cache["pos"]) if cache is not None else 0
-    positions = (torch.arange(S, device=tokens.device) + pos0).expand(B, S)
-    x = embed_tokens(params["embed"], tokens, cfg, positions)
+    positions = replicated_like(torch.arange(S, device=tokens.device)
+                                + pos0, tokens).expand(B, S)
+    positions = shard_act(positions, ("batch", "seq"), ctx)
+    x = shard_act(embed_tokens(params["embed"], tokens, cfg, positions),
+                  ("batch", "seq", "d_model"), ctx)
     caches = (unstack_layers(cache["layers"], L) if cache is not None
               else [None] * L)
     new_layers = []
@@ -168,16 +181,17 @@ def decoder_forward(params: Dict, tokens: torch.Tensor,
         h = apply_norm(x, lp["norm1"], cfg)
         h, nc = attention_block(lp["self_attn"], h, cfg, positions=positions,
                                 cache=lcache, cache_pos=pos0, causal=True,
-                                impl=impl)
+                                impl=impl, ctx=ctx)
         new_layers.append(nc)
         x = x + h
         h = apply_norm(x, lp["normx"], cfg)
         h, _ = attention_block(lp["cross_attn"], h, cfg, positions=positions,
                                kv_override=(lkv["k"], lkv["v"]),
-                               causal=False, impl=impl)
+                               causal=False, impl=impl, ctx=ctx)
         x = x + h
         h = apply_norm(x, lp["norm2"], cfg)
-        x = x + mlp_block(lp["mlp"], h, cfg)
+        x = x + mlp_block(lp["mlp"], h, cfg, ctx)
+        x = shard_act(x, ("batch", "seq", "d_model"), ctx)
     x = apply_norm(x, params["dec_norm"], cfg)
     logits = unembed(params["embed"], x, cfg)
     new_cache = None
@@ -220,45 +234,52 @@ def cache_logical_axes(cfg: ModelConfig) -> Dict:
 # step builders
 # --------------------------------------------------------------------------
 
-def make_loss_fn(cfg: ModelConfig, *, impl: str = "kernel"):
+def make_loss_fn(cfg: ModelConfig, ctx=None, *, impl: str = "kernel"):
     """(params, batch) -> (loss, {"loss", "aux"}): the next-token loss of
     ``batch["tokens"]`` decoded over ``batch["frames"]``; aux is zero."""
     check_supported(cfg)
 
     def loss_fn(params, batch):
-        enc_out = encode(params, batch["frames"], cfg, impl=impl)
+        enc_out = encode(params, batch["frames"], cfg, ctx, impl=impl)
         xkv = cross_kv(params, enc_out, cfg)
         logits, _ = decoder_forward(params, batch["tokens"], xkv, cfg,
-                                    impl=impl)
-        loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
+                                    ctx=ctx, impl=impl)
+        loss = sharded_loss(softmax_xent, logits[:, :-1],
+                            batch["labels"][:, 1:])
         return loss, {"loss": loss,
-                      "aux": torch.zeros((), dtype=torch.float32,
-                                         device=loss.device)}
+                      "aux": replicated_like(
+                          torch.zeros((), dtype=torch.float32,
+                                      device=loss.device), loss)}
     return loss_fn
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None, *,
+def make_prefill_step(cfg: ModelConfig, ctx=None,
+                      max_len: Optional[int] = None, *,
                       impl: str = "kernel"):
     """(params, tokens, frames) -> (next_token_logits, cache): the frames
     encoded, their cross k and v into the cache, the tokens decoded into a
     self-attention cache of ``max_len or cfg.max_cache_len or S`` slots."""
     def prefill(params, tokens, frames):
         B, S = tokens.shape
-        enc_out = encode(params, frames, cfg, impl=impl)
+        tokens = shard_act(tokens, ("batch", "seq"), ctx)
+        frames = shard_act(frames, ("batch", "seq", None), ctx)
+        enc_out = encode(params, frames, cfg, ctx, impl=impl)
         xkv = cross_kv(params, enc_out, cfg)
-        cache = init_cache(cfg, B, max_len or cfg.max_cache_len or S,
-                           device=tokens.device)
-        cache["xkv"] = xkv
-        logits, cache = decoder_forward(params, tokens, xkv, cfg,
-                                        cache=cache, impl=impl)
+        cache = lay_out(init_cache(cfg, B, max_len or cfg.max_cache_len or S,
+                                   device=tokens.device),
+                        cache_logical_axes(cfg), ctx)
+        cache["xkv"] = lay_out(xkv, cache_logical_axes(cfg)["xkv"], ctx)
+        logits, cache = decoder_forward(params, tokens, cache["xkv"], cfg,
+                                        ctx=ctx, cache=cache, impl=impl)
         return logits[:, -1, :], cache
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, *, impl: str = "kernel"):
+def make_decode_step(cfg: ModelConfig, ctx=None, *, impl: str = "kernel"):
     """(params, cache, token (B, 1)) -> (logits (B, V), cache)."""
     def decode(params, cache, token):
+        token = shard_act(token, ("batch", "seq"), ctx)
         logits, cache = decoder_forward(params, token, cache["xkv"], cfg,
-                                        cache=cache, impl=impl)
+                                        ctx=ctx, cache=cache, impl=impl)
         return logits[:, -1, :], cache
     return decode

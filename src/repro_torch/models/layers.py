@@ -6,9 +6,21 @@ Port of ``repro/models/layers.py``: the parameter initialisers of
 int8), the MLP (``swiglu`` or ``gelu``) and the token embedding and
 unembedding.  Prefill and cross-attention go through the flash-attention
 kernel (:func:`repro_torch.kernels.ops.flash_attention`); attention over a
-cache that already holds tokens stays torch ops.  The reference's sharding
-constraints (``shard_act``) have nothing to do on one device and are left
-out.
+cache that already holds tokens stays torch ops.
+
+On a mesh (the launchers' world path) the blocks run on DTensors: the
+parameters laid out by the rule table, and :func:`shard_act` at the
+reference's constraint sites (q by heads, the MLP's hidden by ``d_ff``).
+A packed ``(B, S, n * hd)`` projection is split into ``n`` heads only over
+the mesh dims that divide ``n`` (the rest replicated first), so a reduced
+model's 2 kv heads on a model axis of 4 are replicated there, where GSPMD
+pads and reshards.  The flash kernel runs on each rank's batch rows and
+heads (``kernels/sharded.py``), and so does a decode step's attention over
+the cache (:func:`attention_scores` on local shards).  An embedding table
+sharded by vocab is looked up on each rank's rows and the masked rows
+summed.  Plain tensors made here (RoPE frequencies, positions, masks)
+become replicated DTensors (``parallel.sharding.replicated_like``) before
+they meet the DTensors.
 
 Parameters are the reference's tree: nested dicts of tensors, keyed and
 shaped as ``repro.models.transformer.init_params`` makes them, so a tree
@@ -18,6 +30,7 @@ Compute runs in ``cfg.cdtype``; norm statistics and logits in float32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import zlib
 from typing import Dict, Optional, Tuple
@@ -26,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.sharding import is_dtensor, replicated_like
 from .config import ModelConfig
 
 
@@ -166,7 +180,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) integer.  Rotates the two halves
     of the head dim (not interleaved pairs), as the reference does."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    freqs = replicated_like(rope_freqs(x.shape[-1], theta, x.device),
+                            positions)                          # (D/2,)
     ang = positions[..., None].float() * freqs                  # (B, S, D/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -237,6 +252,11 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
     scale = D ** -0.5
+    if is_dtensor(q):
+        from ..kernels import sharded
+        return sharded.heads_call(functools.partial(
+            attention_scores, causal=causal, grouped=grouped),
+            q, k, v, 2, q_pos=q_pos, kv_len=kv_len)
     kpos = torch.arange(Sk, device=q.device)
     if grouped and G > 1:
         qg = q.reshape(B, Sq, KH, G, D)
@@ -264,12 +284,35 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def shard_act(x: torch.Tensor, axes: Tuple[Optional[str], ...],
+              ctx) -> torch.Tensor:
+    """An activation sharding constraint when a mesh context is active
+    (``ShardingCtx.fit``: even shards), else ``x``."""
+    if ctx is None or ctx.mesh is None:
+        return x
+    return ctx.fit(x, axes)
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """``t`` (B, S, n * hd) as (B, S, n, hd).  On a DTensor the packed dim
+    stays sharded only over the mesh dims that divide ``n``: a head is
+    never split between ranks."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = t.device_mesh
+        want = [Replicate() if pl == Shard(2) and n % mesh.size(i) else pl
+                for i, pl in enumerate(t.placements)]
+        if want != list(t.placements):
+            t = t.redistribute(mesh, want)
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
 def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, cache: Optional[Dict] = None,
                     cache_pos: int = 0, causal: bool = True,
                     kv_override: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
-                    impl: str = "kernel"
+                    impl: str = "kernel", ctx=None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention with an optional KV cache; returns (out, new_cache).
 
@@ -309,15 +352,15 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     q = torch.matmul(x, params["wq"].to(cd))
     if "bq" in params:
         q = q + params["bq"].to(cd)
-    q = q.reshape(B, S, H, hd)
+    q = split_heads(q, H, hd)
     if kv_override is None:
         k = torch.matmul(x, params["wk"].to(cd))
         v = torch.matmul(x, params["wv"].to(cd))
         if "bk" in params:
             k = k + params["bk"].to(cd)
             v = v + params["bv"].to(cd)
-        k = k.reshape(B, S, KH, hd)
-        v = v.reshape(B, S, KH, hd)
+        k = split_heads(k, KH, hd)
+        v = split_heads(v, KH, hd)
     else:
         k, v = kv_override
         cache = None
@@ -329,6 +372,7 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
+    q = shard_act(q, ("batch", "seq", "heads", None), ctx)
     new_cache = None
     if cache is not None:
         end = cache_pos + S
@@ -336,6 +380,9 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             raise ValueError(f"the cache holds {cache['k'].shape[1]} slots; "
                              f"writing {S} at {cache_pos} overruns it")
         new_cache = {name: t.clone() for name, t in cache.items()}
+        # the written rows laid out as the cache is
+        k = shard_act(k, ("batch", "seq", "kv_heads", None), ctx)
+        v = shard_act(v, ("batch", "seq", "kv_heads", None), ctx)
         if "k_scale" in cache:
             ks, ksc = _quantize_kv(k)
             vs, vsc = _quantize_kv(v)
@@ -360,7 +407,8 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             v[:, :Sk].transpose(1, 2).contiguous(), causal=causal, impl=impl)
         out = out.transpose(1, 2)
     else:
-        kv_len = torch.full((B,), cache_pos + S, device=x.device)
+        kv_len = replicated_like(torch.full((B,), cache_pos + S,
+                                            device=x.device), x)
         out = attention_scores(q, k, v, causal=causal,
                                q_pos=positions if causal else None,
                                kv_len=kv_len, grouped=cfg.gqa_grouped)
@@ -388,15 +436,18 @@ def init_mlp(name: str, cfg: ModelConfig, stacked: int = 0) -> Dict:
             "bo": p(f"{name}/bo", L + (d,), A + ("norm_dim",), "zeros")}
 
 
-def mlp_block(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx=None) -> torch.Tensor:
     cd = cfg.cdtype
     if "wi_gate" in params:
         g = torch.matmul(x, params["wi_gate"].to(cd))
         u = torch.matmul(x, params["wi_up"].to(cd))
-        return torch.matmul(F.silu(g) * u, params["wo"].to(cd))
+        h = shard_act(F.silu(g) * u, ("batch", "seq", "d_ff"), ctx)
+        return torch.matmul(h, params["wo"].to(cd))
     h = torch.matmul(x, params["wi"].to(cd)) + params["bi"].to(cd)
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(h, approximate="tanh")
+    h = shard_act(F.gelu(h, approximate="tanh"), ("batch", "seq", "d_ff"),
+                  ctx)
     return torch.matmul(h, params["wo"].to(cd)) + params["bo"].to(cd)
 
 
@@ -404,11 +455,27 @@ def mlp_block(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # embeddings
 # --------------------------------------------------------------------------
 
+def _lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)``.  On a DTensor table the shards of its
+    feature dim are gathered first (FSDP's gather before use) and those of
+    its rows (the vocab) kept: each rank looks up the ids in its rows, and
+    the masked partial rows are summed over the ranks."""
+    if not is_dtensor(table):
+        return F.embedding(ids, table)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = table.device_mesh
+    table = table.redistribute(mesh, [pl if pl == Shard(0) else Replicate()
+                                      for pl in table.placements])
+    out = F.embedding(replicated_like(ids, table), table)
+    return out.redistribute(mesh, [Replicate() if pl.is_partial() else pl
+                                   for pl in out.placements])
+
+
 def embed_tokens(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = F.embedding(tokens, params["tok"]).to(cfg.cdtype)
+    x = _lookup(tokens, params["tok"]).to(cfg.cdtype)
     if not cfg.use_rope and positions is not None:
-        x = x + F.embedding(positions, params["pos"]).to(cfg.cdtype)
+        x = x + _lookup(positions, params["pos"]).to(cfg.cdtype)
     return x
 
 

@@ -15,8 +15,19 @@ per-(token, expert, slot, feature) tensor; the largest tensors are the
 (G, gs, E·C) dispatch and combine weights.  The JAX package computes MoE
 outside any Pallas kernel (``repro.kernels.grouped_matmul``, named in its
 docstring, does not exist), so the products are ``torch.bmm`` in the
-compute type.  The reference's sharding constraints (``shard_act``) have
-nothing to do on one device and are left out.
+compute type.
+
+On a mesh (the launchers' world path) the routing has no DTensor
+sharding strategy to rely on (the stable sort, the capacity cumsum, the
+``scatter`` into the dispatch and combine weights), so it runs on plain
+tensors on each rank over a replicated value (``parallel.sharding
+.batch_call``: the router's input and weight gathered, every rank routing
+every group the same way; the reference's groups follow the batch, which a
+group of ``moe_group`` tokens rarely divides at the reduced sizes).  The
+dispatch weights are then constrained by expert (``("expert_group", None,
+"experts")``, whole experts a shard, as the reference's ``(G, gs, E, C)``
+constraint) and the expert products run on each rank's experts, the
+reference's three constraints in this module's layout.
 """
 from __future__ import annotations
 
@@ -25,8 +36,9 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import batch_call, is_dtensor
 from .config import ModelConfig
-from .layers import p
+from .layers import p, shard_act
 
 
 def init_moe(name: str, cfg: ModelConfig, stacked: int = 0) -> Dict:
@@ -105,9 +117,11 @@ def route(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> Routing:
     return Routing(G, gs, C, probs, idx, gates * keep.float(), pos, keep)
 
 
-def moe_block(params: Dict, x: torch.Tensor,
-              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output, aux_loss); x: (B, S, d) in the compute type.
+def _dispatch(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The routing of ``x`` (B, S, d) as :func:`moe_block` uses it: the
+    (G, gs, E·C) dispatch and combine weights in the compute type and the
+    float32 aux loss.
 
     The aux loss is the Switch load-balancing loss over all tokens, from
     the probabilities and the picks before any drop.  Each kept pick writes
@@ -115,12 +129,10 @@ def moe_block(params: Dict, x: torch.Tensor,
     its (expert, slot): a token's picks name distinct experts, so no two
     writes of a row meet, and the values are the reference's sums of
     one-hot products."""
-    B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
+    E = cfg.n_experts
     cd = cfg.cdtype
-    r = route(params, x, cfg)
+    r = route({"router": router}, x, cfg)
     G, gs, C = r.G, r.gs, r.C
-
     me = r.probs.mean(dim=(0, 1))                                # (E,)
     ce = F.one_hot(r.idx, E).float().sum(2).mean(dim=(0, 1))
     aux = cfg.router_aux_weight * E * torch.sum(me * ce)
@@ -129,11 +141,32 @@ def moe_block(params: Dict, x: torch.Tensor,
     zeros = torch.zeros((G, gs, E * C), dtype=cd, device=x.device)
     dispatch = zeros.scatter(2, slot, r.keep.to(cd))
     combine = zeros.scatter(2, slot, r.gates.to(cd))
+    return dispatch, combine, aux.float()
 
-    xt = x.reshape(G, gs, d).to(cd)
+
+def moe_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, aux_loss); x: (B, S, d) in the compute type; the
+    routing is :func:`_dispatch`'s."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    cd = cfg.cdtype
+    if is_dtensor(x):
+        dispatch, combine, aux = batch_call(
+            lambda router, x: _dispatch(router, x, cfg), None,
+            [params["router"], x], [None, None], [None, None, None])
+    else:
+        dispatch, combine, aux = _dispatch(params["router"], x, cfg)
+    G, gs = dispatch.shape[:2]
+    C = dispatch.shape[2] // E
+    dispatch = shard_act(dispatch, ("expert_group", None, "experts"), ctx)
+
+    xt = shard_act(x.reshape(G, gs, d).to(cd), ("expert_group", None, None),
+                   ctx)
     xe = torch.bmm(dispatch.transpose(1, 2), xt)                # (G, E*C, d)
     # experts as the batch: (E, G*C, d); a view when G == 1
     xe = xe.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    xe = shard_act(xe, ("experts", None, None), ctx)
     g = torch.bmm(xe, params["wi_gate"].to(cd))
     u = torch.bmm(xe, params["wi_up"].to(cd))
     ye = torch.bmm(F.silu(g) * u, params["wo"].to(cd))          # (E, G*C, d)
@@ -144,7 +177,7 @@ def moe_block(params: Dict, x: torch.Tensor,
         gsh = torch.matmul(xt, params["shared_wi_gate"].to(cd))
         ush = torch.matmul(xt, params["shared_wi_up"].to(cd))
         y = y + torch.matmul(F.silu(gsh) * ush, params["shared_wo"].to(cd))
-    return y.reshape(B, S, d), aux.float()
+    return y.reshape(B, S, d), aux
 
 
 def moe_flops_per_token(cfg: ModelConfig) -> int:

@@ -9,9 +9,17 @@ per head): the reference's chunked dual form in torch ops, a Python loop
 over chunks with the three contractions as batched products over (batch,
 head); it has no TPU kernel, so it has no CUDA kernel either.  Decode is
 the same call with ``S == 1`` from the cached state.
+
+On a mesh (the launchers' world path) both blocks constrain the scan's
+input ``xs`` to ``("batch", "seq", "ssm_inner")``, as the reference does.
+Mamba1's scan then runs on each rank's batch rows and channels
+(``kernels/sharded.py::ssm_scan``); Mamba2's SSD runs on each rank's batch
+rows, over all its heads (``parallel.sharding.batch_call``): its chunked
+torch ops are run on a value replicated over the model axis.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -19,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.sharding import batch_call, is_dtensor
 from .config import ModelConfig
-from .layers import p, rmsnorm
+from .layers import p, rmsnorm, shard_act
 
 
 def dt_rank(cfg: ModelConfig) -> int:
@@ -65,9 +74,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     Bsz, S, C = x.shape
     k = w.shape[0]
     if state is None:
-        state = torch.zeros((Bsz, k - 1, C), dtype=x.dtype, device=x.device)
+        state = torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1)
     xp = torch.cat([state, x], dim=1)                   # (B, S+k-1, C)
-    out = torch.zeros((Bsz, S, C), dtype=x.dtype, device=x.device)
+    out = torch.zeros_like(x)
     for i in range(k):                                   # k is 4: unrolled
         out = out + xp[:, i:i + S, :] * w[i].to(x.dtype)
     return out + b.to(x.dtype), xp[:, -(k - 1):, :].clone()
@@ -95,8 +104,8 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
 
 
 def mamba1_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                 cache: Optional[Dict] = None, impl: str = "kernel"
-                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                 cache: Optional[Dict] = None, impl: str = "kernel",
+                 ctx=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, S, d).  cache = {"conv": (B,k-1,di), "h": (B,di,N)} for decode."""
     di, N = cfg.d_inner, cfg.ssm_state
     R = dt_rank(cfg)
@@ -104,6 +113,7 @@ def mamba1_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     xz = torch.matmul(x, params["in_proj"].to(cd))
     xs, z = torch.split(xz, di, dim=-1)
+    xs = shard_act(xs, ("batch", "seq", "ssm_inner"), ctx)
 
     conv_state = cache["conv"] if cache is not None else None
     xs, new_conv = _causal_conv(xs, params["conv_w"], params["conv_b"],
@@ -222,7 +232,7 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
 
 
 def mamba2_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                 cache: Optional[Dict] = None
+                 cache: Optional[Dict] = None, ctx=None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, S, d).  cache = {"conv": (B,k-1,conv_dim), "h": (B,H,P,N)}."""
     Bsz, S, _ = x.shape
@@ -238,15 +248,21 @@ def mamba2_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                                  conv_state)
     xbc = F.silu(xbc)
     xs, Bc, Cc = torch.split(xbc, [di, N, N], dim=-1)
+    xs = shard_act(xs, ("batch", "seq", "ssm_inner"), ctx)
 
     dt = F.softplus(dt.float() + params["dt_bias"].float())     # (B,S,H)
     A = -torch.exp(params["A_log"].float())                     # (H,)
 
     xh = xs.reshape(Bsz, S, H, P)
     h0 = cache["h"] if cache is not None else None
-    y, h = ssd_chunked(xh, dt, Bc, Cc, A, h0, cfg.ssm_chunk,
-                       io_dtype=(torch.bfloat16 if cfg.ssd_bf16
-                                 else torch.float32))
+    ssd = functools.partial(
+        ssd_chunked, chunk=cfg.ssm_chunk,
+        io_dtype=torch.bfloat16 if cfg.ssd_bf16 else torch.float32)
+    if is_dtensor(xh):
+        y, h = batch_call(ssd, xh, [xh, dt, Bc, Cc, A, h0],
+                          [0, 0, 0, 0, None, 0], [0, 0])
+    else:
+        y, h = ssd(xh, dt, Bc, Cc, A, h0)
     y = y + xh.float() * params["D"].float()[:, None]
     y = y.reshape(Bsz, S, di).to(cd)
     y = y * F.silu(z)

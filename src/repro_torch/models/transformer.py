@@ -34,6 +34,16 @@ vision frontend), the MoE family (dbrx-132b, llama4-maverick-400b-a17b),
 the attention-free Mamba1 family (falcon-mamba-7b) and the Mamba2 hybrid
 (zamba2-7b).  The encoder-decoder (whisper-tiny) is ``models/encdec.py``'s:
 here it raises ``NotImplementedError`` naming that module.
+
+With a sharding context over a ``torch.distributed`` world (``ctx``, the
+launchers' world path) the parameters and the batch are DTensors, and
+``forward`` constrains the activations where the reference's
+``_layer_body`` and ``forward`` do: the embeddings and each layer's output
+to ``("batch", "seq", "d_model")``, the logits to ``("batch", "seq",
+"vocab")``.  The positions are a DTensor laid out with the tokens.  The
+loss runs on each rank's batch rows over the whole vocabulary (the logits
+gathered by vocab first; ``parallel.sharding.batch_call``), each rank's
+mean a share of the batch's, summed over the ranks.
 """
 from __future__ import annotations
 
@@ -45,11 +55,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..interop import Device, resolve_device
+from ..parallel.sharding import (batch_call, batch_dims, is_dtensor,
+                                 replicated_like)
 from ..tree import tree_leaves, tree_map, tree_unflatten, unstack_layers
 from .config import ModelConfig
 from .layers import (apply_norm, attention_block, embed_tokens,
                      init_attention, init_embed, init_mlp, init_norm,
-                     init_param, mlp_block, unembed)
+                     init_param, mlp_block, shard_act, unembed)
 from .moe import init_moe, moe_block, moe_flops_per_token
 from .ssm import (init_mamba1, init_mamba2, mamba1_block, mamba1_decode_cache,
                   mamba2_block, mamba2_decode_cache, ssm_flops_per_token)
@@ -332,7 +344,7 @@ def layer_stack(layers: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, caches: Optional[List] = None,
                 cache_pos: int = 0, shared: Optional[Dict] = None,
                 site_caches: Optional[List[Dict]] = None,
-                impl: str = "kernel", train: bool = False
+                impl: str = "kernel", train: bool = False, ctx=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, List]:
     """Run the stacked layers ``layers`` (each leaf with a leading layer
     dim, as ``params["layers"]`` holds them, or a contiguous slice of them)
@@ -346,7 +358,9 @@ def layer_stack(layers: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     from ``shared`` (a tree with ``shared_attn``, ``shared_norm``,
     ``shared_mlp`` and ``shared_norm2``, such as ``params``) and its KV
     caches from ``site_caches``, which it updates in place.  ``train``
-    applies ``cfg.remat`` to each layer (no caches then).  Returns ``x``,
+    applies ``cfg.remat`` to each layer (no caches then).  ``ctx`` is the
+    sharding context of the blocks' constraints; each layer's output is
+    constrained to ``("batch", "seq", "d_model")``.  Returns ``x``,
     the sum of the MoE layers' aux losses in layer order (float32 zero
     without experts) and each layer's new cache (``None``s without
     caches)."""
@@ -362,12 +376,12 @@ def layer_stack(layers: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         h, nc = attention_block(
             shared["shared_attn"], h, cfg, positions=positions,
             cache=None if site_caches is None else site_caches[site],
-            cache_pos=cache_pos, causal=True, impl=impl)
+            cache_pos=cache_pos, causal=True, impl=impl, ctx=ctx)
         if nc is not None:
             site_caches[site] = nc
         x = x + h
         h = apply_norm(x, shared["shared_norm2"], cfg)
-        return x + mlp_block(shared["shared_mlp"], h, cfg)
+        return x + mlp_block(shared["shared_mlp"], h, cfg, ctx)
 
     def body(x, lp, lcache, idx):
         """One layer: returns x, the layer's new cache and its MoE aux loss
@@ -376,27 +390,28 @@ def layer_stack(layers: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         if kind == "attn":
             h, nc = attention_block(lp["mixer"], h, cfg, positions=positions,
                                     cache=lcache, cache_pos=cache_pos,
-                                    causal=True, impl=impl)
+                                    causal=True, impl=impl, ctx=ctx)
         elif kind == "mamba1":
             h, nc = mamba1_block(lp["mixer"], h, cfg, cache=lcache,
-                                 impl=impl)
+                                 impl=impl, ctx=ctx)
         else:
-            h, nc = mamba2_block(lp["mixer"], h, cfg, cache=lcache)
+            h, nc = mamba2_block(lp["mixer"], h, cfg, cache=lcache, ctx=ctx)
         x = x + h
         a = None
         if "ffn" in lp:
             h = apply_norm(x, lp["norm2"], cfg)
             if "router" in lp["ffn"]:           # MoE vs dense by structure
-                h, a = moe_block(lp["ffn"], h, cfg)
+                h, a = moe_block(lp["ffn"], h, cfg, ctx)
             else:
-                h = mlp_block(lp["ffn"], h, cfg)
+                h = mlp_block(lp["ffn"], h, cfg, ctx)
             x = x + h
         if every and (idx + 1) % every == 0:
             x = shared_block(x, (idx + 1) // every - 1)
-        return x, nc, a
+        return shard_act(x, ("batch", "seq", "d_model"), ctx), nc, a
 
     new_caches = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicated_like(torch.zeros((), dtype=torch.float32,
+                                      device=x.device), x)
     if train:
         if caches is not None:
             raise ValueError("a training forward takes no cache")
@@ -421,7 +436,7 @@ def layer_stack(layers: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             cache: Optional[Dict] = None,
             patch_embeds: Optional[torch.Tensor] = None,
-            impl: str = "kernel", train: bool = False
+            impl: str = "kernel", train: bool = False, ctx=None
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (logits, new_cache, aux_loss).
 
@@ -442,7 +457,9 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``(idx + 1) // every - 1`` of ``cache["shared"]``; in training it runs
     inside that layer's remat, its index bound by closure.  The aux loss is
     the sum of the MoE layers' load-balancing losses in layer order (zero
-    without experts).
+    without experts).  ``ctx`` constrains the activations (module
+    docstring); the tokens, the patch embeddings and the cache are then
+    DTensors laid out on its mesh.
     """
     kind = check_supported(cfg)
     if train and cache is not None:
@@ -451,11 +468,14 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     L = cfg.n_layers
     pos0 = (int(cache["pos"]) if cache is not None
             and kind in ("attn", "mamba2_shared") else 0)
-    positions = (torch.arange(S, device=tokens.device) + pos0).expand(B, S)
+    positions = replicated_like(torch.arange(S, device=tokens.device)
+                                + pos0, tokens).expand(B, S)
+    positions = shard_act(positions, ("batch", "seq"), ctx)
     x = embed_tokens(params["embed"], tokens, cfg, positions)
     if patch_embeds is not None:
         P = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(x.dtype), x[:, P:, :]], dim=1)
+    x = shard_act(x, ("batch", "seq", "d_model"), ctx)
 
     site_caches = None
     if kind == "mamba2_shared" and cache is not None:
@@ -468,10 +488,11 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 else None),
         cache_pos=pos0,
         shared=params if kind == "mamba2_shared" else None,
-        site_caches=site_caches, impl=impl, train=train)
+        site_caches=site_caches, impl=impl, train=train, ctx=ctx)
 
     x = apply_norm(x, params["final_norm"], cfg)
-    logits = unembed(params["embed"], x, cfg)
+    logits = shard_act(unembed(params["embed"], x, cfg),
+                       ("batch", "seq", "vocab"), ctx)
 
     new_cache = None
     if cache is not None:
@@ -525,9 +546,28 @@ def xent_with_bwd_dtype(logits: torch.Tensor, labels: torch.Tensor,
     return _XentWithBwdDtype.apply(logits, labels, dtype)
 
 
-def make_loss_fn(cfg: ModelConfig, *, impl: str = "kernel"):
+def sharded_loss(xent: Callable, logits: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """``xent(logits, labels)``, a mean over the batch.  On DTensors it
+    runs on each rank's batch rows over the whole vocabulary (the logits
+    gathered by vocab), each rank's mean divided by the number of batch
+    shards and summed over them (a replicated scalar)."""
+    if not is_dtensor(logits):
+        return xent(logits, labels)
+    from torch.distributed.tensor import Replicate
+    mesh = logits.device_mesh
+    n = 1
+    for i in batch_dims(logits):
+        n *= mesh.size(i)
+    loss, = batch_call(lambda z, y: (xent(z, y) / n,), logits,
+                       [logits, labels], [0, 0], ["partial"])
+    return loss.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+def make_loss_fn(cfg: ModelConfig, ctx=None, *, impl: str = "kernel"):
     """(params, batch) -> (total loss, {"loss", "aux"}), the loss of the
-    next-token labels under ``forward(train=True)``."""
+    next-token labels under ``forward(train=True)``, its activations
+    constrained by ``ctx``."""
     if cfg.grad_dtype == "float32":
         xent = softmax_xent
     else:
@@ -537,8 +577,9 @@ def make_loss_fn(cfg: ModelConfig, *, impl: str = "kernel"):
     def loss_fn(params, batch):
         logits, _, aux = forward(
             params, batch["tokens"], cfg,
-            patch_embeds=batch.get("patch_embeds"), impl=impl, train=True)
-        loss = xent(logits[:, :-1], batch["labels"][:, 1:])
+            patch_embeds=batch.get("patch_embeds"), impl=impl, train=True,
+            ctx=ctx)
+        loss = sharded_loss(xent, logits[:, :-1], batch["labels"][:, 1:])
         return loss + aux, {"loss": loss, "aux": aux}
     return loss_fn
 
@@ -564,22 +605,37 @@ def value_and_grad(loss_fn: Callable):
     return fn
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None, *,
+def lay_out(tree, axes, ctx):
+    """Each leaf of ``tree`` constrained to its logical axes in ``axes``
+    (a tree of the same structure) by ``ctx``; ``tree`` without one."""
+    if ctx is None or ctx.mesh is None:
+        return tree
+    return tree_map(lambda t, a: shard_act(t, a, ctx), tree, axes)
+
+
+def make_prefill_step(cfg: ModelConfig, ctx=None,
+                      max_len: Optional[int] = None, *,
                       impl: str = "kernel"):
-    """(params, tokens) -> (next_token_logits, cache)."""
+    """(params, tokens) -> (next_token_logits, cache); with ``ctx`` the
+    tokens and the new cache are laid out on its mesh (the cache by
+    :func:`cache_logical_axes`)."""
     def prefill(params, tokens):
         B, S = tokens.shape
-        cache = init_cache(cfg, B, max_len or cfg.max_cache_len or S,
-                           device=tokens.device)
+        tokens = shard_act(tokens, ("batch", "seq"), ctx)
+        cache = lay_out(init_cache(cfg, B, max_len or cfg.max_cache_len or S,
+                                   device=tokens.device),
+                        cache_logical_axes(cfg), ctx)
         logits, cache, _ = forward(params, tokens, cfg, cache=cache,
-                                   impl=impl)
+                                   impl=impl, ctx=ctx)
         return logits[:, -1, :], cache
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, *, impl: str = "kernel"):
+def make_decode_step(cfg: ModelConfig, ctx=None, *, impl: str = "kernel"):
     """(params, cache, token (B,1)) -> (logits (B, V), cache)."""
     def decode(params, cache, token):
-        logits, cache, _ = forward(params, token, cfg, cache=cache, impl=impl)
+        token = shard_act(token, ("batch", "seq"), ctx)
+        logits, cache, _ = forward(params, token, cfg, cache=cache,
+                                   impl=impl, ctx=ctx)
         return logits[:, -1, :], cache
     return decode

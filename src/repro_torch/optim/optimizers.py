@@ -17,6 +17,15 @@ trees (at qwen2-7b's 2.95 B parameters of 8 layers, 35 GB on top of the
 step's 47 GB).  Each leaf's update is computed with at most two temporaries
 of its size.  The per-step scalars (learning rate, bias corrections) stay
 0-d float32 tensors on the device: no host sync.
+
+On DTensor parameters (the launchers' world path) the state takes each
+parameter's layout: ``m`` and ``v`` are ``zeros_like`` it, Adafactor's
+factored ``vr`` and ``vc`` keep the placements of the dims they keep (a
+shard of the dim they average over becomes a replica), and every update
+runs in place on each rank's shard; the per-step scalars stay plain 0-d
+tensors, which DTensor takes as replicated.  Adafactor's row and column
+means over a sharded dim are sums over the ranks (DTensor's ``Partial``),
+reduced where they meet the state.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..parallel.sharding import is_dtensor
 from ..tree import tree_leaves, tree_map
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
@@ -42,8 +52,21 @@ def _step_counter(params: Any) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
-def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(shape, dtype=torch.float32, device=like.device)
+def _zeros(like: torch.Tensor, drop: Optional[int] = None) -> torch.Tensor:
+    """float32 zeros of ``like``'s shape, or of it without dim ``drop``, in
+    ``like``'s layout when it is a DTensor (without the dropped dim)."""
+    if drop is None:
+        return torch.zeros_like(like, dtype=torch.float32)
+    drop %= like.dim()
+    shape = like.shape[:drop] + like.shape[drop + 1:]
+    z = torch.zeros(shape, dtype=torch.float32, device=like.device)
+    if not is_dtensor(like):
+        return z
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    pl = [Replicate() if q == Shard(drop)
+          else Shard(q.dim - 1) if isinstance(q, Shard) and q.dim > drop
+          else q for q in like.placements]
+    return distribute_tensor(z, like.device_mesh, pl, src_data_rank=None)
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -78,8 +101,8 @@ class AdamW:
 
     def init(self, params: Any) -> Dict:
         return {"step": _step_counter(params),
-                "m": tree_map(lambda p: _zeros(p.shape, p), params),
-                "v": tree_map(lambda p: _zeros(p.shape, p), params)}
+                "m": tree_map(_zeros, params),
+                "v": tree_map(_zeros, params)}
 
     @torch.no_grad()
     def update(self, grads: Any, state: Dict, params: Any) -> Dict:
@@ -124,9 +147,8 @@ class Adafactor:
     def init(self, params: Any) -> Dict:
         def one(p):
             if self._factored(p.shape):
-                return {"vr": _zeros(p.shape[:-1], p),
-                        "vc": _zeros(p.shape[:-2] + p.shape[-1:], p)}
-            return {"v": _zeros(p.shape, p)}
+                return {"vr": _zeros(p, -1), "vc": _zeros(p, -2)}
+            return {"v": _zeros(p)}
         return {"step": _step_counter(params), "v": tree_map(one, params)}
 
     @torch.no_grad()
@@ -168,7 +190,7 @@ class SGD:
     def init(self, params: Any) -> Dict:
         st = {"step": _step_counter(params)}
         if self.momentum:
-            st["m"] = tree_map(lambda p: _zeros(p.shape, p), params)
+            st["m"] = tree_map(_zeros, params)
         return st
 
     @torch.no_grad()

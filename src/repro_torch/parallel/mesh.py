@@ -229,6 +229,46 @@ def make_mesh_for(n_devices: int, model_parallel: int = 1, pods: int = 1,
     return _make((data, model_parallel), ("data", "model"), device)
 
 
+def join_launcher_world(device: Optional[Device] = None) -> int:
+    """The size of the ``torch.distributed`` world this process is a rank
+    of, 0 when it is in none.  A process group already initialised (by the
+    caller) is used as it is; else, when the environment names a world
+    (``RANK``, ``WORLD_SIZE`` and ``REPRO_WORLD_STORE``, as
+    :func:`spawn_world` sets them), the process joins it through
+    :func:`init_world` on ``device``'s backend (NCCL for the card, gloo for
+    the CPU).  The counterpart of the reference's ``len(jax.devices())``."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if all(k in os.environ for k in (RANK_ENV, WORLD_ENV, STORE_ENV)):
+        init_world(device=device)
+        return dist.get_world_size()
+    return 0
+
+
+def launcher_mesh(tp: int, device: Optional[Device] = None,
+                  entry: str = "repro_torch.launch.train") -> Optional[Mesh]:
+    """The launchers' ``(N / tp, tp)`` (data, model) mesh over the world of
+    N ranks this process is in (:func:`join_launcher_world`), or ``None``
+    without a world, where only ``tp == 1`` runs (on one device).  A ``tp``
+    that does not divide the world, or any ``tp > 1`` without one, raises
+    ``ValueError`` naming the world's size and how to start one: the
+    reference ignores ``--tp`` on one device, the port does not."""
+    n = join_launcher_world(device)
+    how = (f"start a world of N ranks, e.g. parallel.mesh.spawn_world("
+           f"['-m', '{entry}', ..., '--tp', '{tp}'], N), or set {RANK_ENV}, "
+           f"{WORLD_ENV} and {STORE_ENV} in each rank's environment")
+    if not n:
+        if tp != 1:
+            raise ValueError(f"--tp {tp} needs a torch.distributed world of "
+                             f"a multiple of {tp} ranks, and this process is "
+                             f"in none (a world of size 0): {how}")
+        return None
+    if tp < 1 or n % tp:
+        raise ValueError(f"--tp {tp} does not divide the world of {n} "
+                         f"ranks: {how}")
+    return make_mesh_for(n, model_parallel=tp, device=device)
+
+
 def single_device_mesh(device: Optional[Device] = None) -> Mesh:
     """The (1, 1) mesh over ("data", "model") on ``device`` (the card
     unless another is named)."""

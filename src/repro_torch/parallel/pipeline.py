@@ -31,7 +31,6 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..kernels import needs_grad
-from ..models import transformer as TF
 from ..models.config import ModelConfig
 from ..tree import tree_leaves, tree_map
 from .collectives import psum, ring_permute
@@ -59,6 +58,7 @@ def pipelined_forward(cfg: ModelConfig, mesh, *, n_microbatch: int,
     the microbatches.  ``train`` runs the layers as a training forward
     (``cfg.remat``), as the reference's stage body does.
     """
+    from ..models import transformer as TF     # models import this package
     n = mesh.shape[stage_axis]
 
     def stage_fn(layer_params, x):

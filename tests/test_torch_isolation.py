@@ -198,6 +198,53 @@ def test_training_the_encoder_decoder_and_the_vlm_loads_no_jax_and_no_repro():
     assert losses == "LOSSES 2" and bad.strip() == "", proc.stdout
 
 
+_ONE_DEVICE_TRAIN_SCRIPT = r"""
+import sys
+from repro_torch.launch import train
+losses = train.main(["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
+                     "--steps", "2", "--batch", "2", "--seq", "16",
+                     "--remat", "none"])["losses"]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro.")
+             or m == "torch.distributed.tensor")
+print("LOSSES", len(losses), "BAD", ",".join(bad))
+"""
+
+
+def test_one_device_training_loads_no_jax_no_repro_and_no_dtensor():
+    """The training launcher without a world (one device) runs on plain
+    tensors: it loads neither JAX, the JAX package nor
+    ``torch.distributed.tensor``.  ``--remat none``: the selective remat
+    policy's ``torch.utils.checkpoint`` imports ``torch._dynamo``, which
+    imports FSDP and with it DTensor (torch's own import, not the
+    port's)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _ONE_DEVICE_TRAIN_SCRIPT],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    losses, _, bad = proc.stdout.strip().splitlines()[-1].partition(" BAD")
+    assert losses == "LOSSES 2" and bad.strip() == "", proc.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.layers",
+                                    "repro_torch.models.ssm",
+                                    "repro_torch.optim",
+                                    "repro_torch.checkpoint.store"])
+def test_a_model_module_imported_first_imports(module):
+    """The model, optimizer and checkpoint modules use
+    ``parallel.sharding``, whose package's pipeline runs the model's layer
+    stack: imported first in a fresh process, each must not meet that
+    cycle half-initialised (``parallel/pipeline.py`` imports the
+    transformer when called)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", f"import {module}"],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 _MESH_RANK_SCRIPT = r"""
 import sys
 import torch

@@ -92,8 +92,10 @@ def test_dense_arch_serves_on_the_cpu_without_kernel_launches():
 @pytest.mark.parametrize("tp", ["1", "2"])
 def test_serve_takes_the_references_tp_flag(tp):
     """The reference's ``--tp`` (``repro/launch/serve.py:114``): ``--tp 1``,
-    its default, serves as before; more ways raise, naming the item that
-    brings intra-op SPMD, as the training launcher does."""
+    its default, serves as before; more ways without a world raise
+    ``ValueError`` naming the world's size and how to start one, as the
+    training launcher does (the reference ignores ``--tp`` on one device;
+    tests/test_torch_tp.py serves at ``--tp 2`` in a world of 4)."""
     argv = ["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
             "--requests", "1", "--max-new", "2"]
     if tp == "1":
@@ -103,7 +105,7 @@ def test_serve_takes_the_references_tp_flag(tp):
         assert [r.out for r in got["finished"]] == \
             [r.out for r in want["finished"]]
     else:
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="world of size 0.*spawn_world"):
             serve.main(argv + ["--tp", tp])
 
 

@@ -250,12 +250,13 @@ def test_launcher_show_graph_executes_on_backend(capsys, backend):
 def test_launcher_refuses_what_it_cannot_train(monkeypatch):
     # the encoder-decoder and the VLM train since their port
     # (tests/test_torch_encdec.py, tests/test_torch_vlm.py hold their
-    # losses to the JAX launcher's): one step of each; --tp 2 still raises
+    # losses to the JAX launcher's): one step of each; --tp 2 without a
+    # world raises (tests/test_torch_tp.py trains at --tp 2 in a world)
     for arch in ("whisper-tiny", "llava-next-34b"):
         r = train_mod.main(["--arch", arch, "--reduced", "--steps", "1",
                             "--batch", "2", "--seq", "16"] + CPU)
         assert len(r["losses"]) == 1 and np.isfinite(r["losses"]).all()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="world of size 0.*spawn_world"):
         train_mod.main(["--arch", "qwen2-7b", "--reduced", "--tp", "2"] + CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
