@@ -203,8 +203,8 @@ Each phase prints one line; any failure raises and exits non-zero:
    ("batch", "d_model") under ``standard_rules("dp_tp")``, twice: each
    call's ``reduce`` phase 4's sequential value bit for bit, 16 matmul
    launches on ``route()``'s route (the kernel on each rank's local shard
-   of the DTensors), no collective (``CommDebugMode``) and the DAG's
-   2 x 16 x 4096^3 FLOPs (``FlopCounterMode``); the refinement's changed
+   of the DTensors), no collective and the DAG's 2 x 16 x 4096^3 FLOPs
+   (``launch.costs.Counter``, the rank's own); the refinement's changed
    specs and resharding bytes; (b) qwen2-7b at 11c's 8 layers (seed 0,
    bf16 compute, no grad) through ``pipelined_forward``, one stage, 4
    microbatches of 1 x 2048 embedded tokens, against ``layer_stack`` on
@@ -228,7 +228,22 @@ Each phase prints one line; any failure raises and exits non-zero:
    forward and 16 backward scan launches a step through
    ``kernels/sharded.py``, with the median step, tokens/s and peak memory
    beside 11f's; (c) ``--tp 2`` in the world of one raises ``ValueError``
-   in both launchers.
+   in both launchers;
+17. dry-run — beside phases 11a and 11b, ``python -m
+   repro_torch.launch.dryrun`` in processes of their own (a ``fake``
+   process group is one a process): (a) qwen2-7b ``train_4k`` on the
+   (16, 16) mesh of 256 fake ranks, its fake tensors once on the card and
+   once on the CPU, whose records must be equal in every key but time and
+   device (the ``dryrun_production`` line: per-device FLOPs by dtype,
+   bytes, peak memory, collectives, NVLink and InfiniBand wire bytes, the
+   seconds); (b) 11c's cell and (c) 11f's on the (1, 1) mesh: step 0 of
+   11c and of 11f is counted by ``launch.costs.Counter`` and must equal
+   the dry-run's FLOPs by dtype to the FLOP, the steps' measured peak must
+   lie within 0.8-1.2 times the predicted peak, and the roofline bound
+   (the larger of the compute and memory terms at the H100's data-sheet
+   rates) must not exceed the measured median step; the MFU (6 N D over
+   the median step at the bf16 peak) is printed (``dryrun`` in the
+   ``train_full`` lines).
 
 With ``--profile`` it also profiles one decode step and two prefills of
 each served model (zamba2-7b's and the MoE models' too) and one
@@ -269,10 +284,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA
-# cores, bf16 on the tensor cores; HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-HBM_BYTES_PER_S = 3.35e12
 # tests/test_kernels.py's matmul tolerances, applied to out / sqrt(K): the
 # inputs are standard normal, so the products grow like sqrt(K)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -462,12 +473,25 @@ SPMD_MICRO = 4
 SPMD_PIPE_TOL = TOL["bfloat16"]
 # phase 15c: the leaf whose int8 codes and scales are held to the CPU's
 SPMD_BITS_LEAF = "layers/mixer/wk"
+# phase 17: the dry-runs' time limit, and the band the measured peak of
+# 11c and 11f must lie in, as a share of the dry-run's prediction
+DRYRUN_TIMEOUT = 300.0
+DRYRUN_PEAK_BAND = (0.8, 1.2)
 # the training cells: (layers, parameters at that depth, batch, sequence)
 TRAIN_CELLS = {
     DENSE_ARCH: (TRAIN_LAYERS, TRAIN_N_PARAMS, TRAIN_BATCH, TRAIN_SEQ),
     ARCH: (MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_N_PARAMS, TRAIN_BATCH, TRAIN_SEQ),
     ENCDEC_ARCH: (ENCDEC_LAYERS, ENCDEC_N_PARAMS, ENCDEC_BATCH, ENCDEC_SEQ),
     VLM_ARCH: (VLM_LAYERS, VLM_N_PARAMS, VLM_BATCH, VLM_SEQ)}
+
+
+def _costs():
+    """``repro_torch.launch.costs``: the H100's constants and the kernels'
+    bounds (``bound``, ``scan_bound``, ``flash_bound``,
+    ``scan_grad_bound``), one piece of arithmetic with the dry-run's
+    counts."""
+    from repro_torch.launch import costs
+    return costs
 
 
 def fail(msg: str) -> None:
@@ -581,14 +605,6 @@ def events_ms(torch, events) -> float:
     return sum(start.elapsed_time(end) for start, end in events)
 
 
-def bound(M: int, N: int, K: int, dtype: str, itemsize: int):
-    """Least time the card could take: operations at the dtype's peak or
-    each input read and the output written once at HBM bandwidth."""
-    ops_ms = 2.0 * M * N * K / PEAK_FLOPS[dtype] * 1e3
-    bytes_ms = (M * K + K * N + M * N) * itemsize / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
 def close(torch, got, want, K: int, dtype: str):
     """(max abs error, max error of out/sqrt(K), within tolerance?)"""
     g, w = got.float(), want.float()
@@ -625,7 +641,7 @@ def phase_kernels(torch) -> list:
             # the library call against the same plain version, so a zero
             # error above can be read beside one the comparison does see
             lib_err = close(torch, torch.matmul(x, y), want, K, dname)[0]
-            b_ms, b_by = bound(M, N, K, dname, x.element_size())
+            b_ms, b_by = _costs().bound(M, N, K, dname, x.element_size())
             checks.append({
                 "shape": [M, N, K], "dtype": dname, "route": path,
                 "variant": loads, "max_abs_err": err,
@@ -1043,19 +1059,6 @@ def phase_gateway_path(torch, graph, seq) -> int:
     return total
 
 
-def scan_bound(Bsz: int, S: int, D: int, N: int, itemsize: int,
-               with_h0: bool):
-    """Least time the card could take for one scan: x, dt, B, C (and h0)
-    read once, y and h_final written once, A read once, at HBM bandwidth;
-    or 7 float32 operations per state element and step (the exp counted
-    as one) at the CUDA cores' float32 peak, whatever the input type."""
-    nbytes = (itemsize * (3 * Bsz * S * D + 2 * Bsz * S * N) + 4 * D * N
-              + 4 * Bsz * D * N * (2 if with_h0 else 1))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 7.0 * Bsz * S * D * N / PEAK_FLOPS["float32"] * 1e3
-    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
-
-
 def phase_scan_kernels(torch) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref, ssm_scan as scan
@@ -1103,7 +1106,8 @@ def phase_scan_kernels(torch) -> list:
                 fail(f"ssm_scan {dname} {(Bsz, S, D, N)} h0={with_h0}: "
                      f"kernel disagrees with the plain version, max |err| "
                      f"y {err_y}, h_final {err_h}, states {err_s}")
-            b_ms, b_by = scan_bound(Bsz, S, D, N, dtype.itemsize, with_h0)
+            b_ms, b_by = _costs().scan_bound(Bsz, S, D, N, dtype.itemsize,
+                                             with_h0)
             checks.append({
                 "shape": [Bsz, S, D, N], "h0": with_h0, "dtype": dname,
                 "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
@@ -1125,29 +1129,6 @@ def phase_scan_kernels(torch) -> list:
             del args, y, h, states, want_y, want_h, want_states
     line("ssm_scan_vs_plain", checks)
     return checks
-
-
-def flash_bound(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
-                causal: bool, dtype: str, itemsize: int,
-                backward: bool = False):
-    """Least time the card could take for one attention: 4 * D operations
-    (the two products) per visible (query, key) pair at the input type's
-    peak, or q, k, v read once and the output written once at HBM
-    bandwidth.  Under the top-left causal mask query i sees min(i + 1, Sk)
-    keys.  With ``backward``, forward and backward: 10 * D more operations
-    a pair (S recomputed, dV, dP, dQ, dK), and q, k, v, dO read and out,
-    dq, dk, dv written."""
-    if causal:
-        n = min(Sq, Sk)
-        pairs = n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
-    else:
-        pairs = Sq * Sk
-    ops_ms = (14.0 if backward else 4.0) * D * pairs * B * H \
-        / PEAK_FLOPS[dtype] * 1e3
-    nbytes = itemsize * (4 if backward else 2) * (B * H * Sq * D
-                                                  + B * KH * Sk * D)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def _misaligned(torch, t):
@@ -1206,8 +1187,8 @@ def phase_flash_kernels(torch) -> list:
             # the library call against the same plain version, so the
             # kernel's error can be read beside one it does not make
             lib_err = (library().float() - want.float()).abs().max().item()
-            b_ms, b_by = flash_bound(B, H, KH, Sq, Sk, D, causal, dname,
-                                     dtype.itemsize)
+            b_ms, b_by = _costs().flash_bound(B, H, KH, Sq, Sk, D, causal,
+                                              dname, dtype.itemsize)
             checks.append({
                 "shape": [B, H, KH, Sq, Sk, D], "causal": causal,
                 "dtype": dname, "route": path, "aligned": aligned,
@@ -1928,8 +1909,9 @@ def phase_train_grads(torch) -> list:
                 fail(f"{what}: gradients {errs} relative to the plain "
                      f"version's largest, tolerance {TOL[dname]}")
             del got, want
-            b_ms, b_by = flash_bound(B, H, KH, Sq, Sk, D, causal, dname,
-                                     dtype.itemsize, backward=True)
+            b_ms, b_by = _costs().flash_bound(B, H, KH, Sq, Sk, D, causal,
+                                              dname, dtype.itemsize,
+                                              backward=True)
             checks.append({
                 "shape": [B, H, KH, Sq, Sk, D], "causal": causal,
                 "dtype": dname, "route": path,
@@ -1947,22 +1929,6 @@ def phase_train_grads(torch) -> list:
             del q, k, v, dout
     line("train_grads", checks)
     return checks
-
-
-def scan_grad_bound(Bsz: int, S: int, D: int, N: int, with_states: bool,
-                    given_states: bool = False):
-    """Least time the card could take for one scan backward in float32:
-    x, dt, dy, B, C, A (and h0, dh_final; with ``given_states`` the
-    forward's states, one every 16 steps) read once and dx, ddt, dB, dC,
-    dA, dh0 written once at HBM bandwidth; or 20 float32 operations per
-    state element and step (the recomputed forward's 7, the exp counted as
-    one, and the backward's 13) at the CUDA cores' float32 peak."""
-    nbytes = 4 * (5 * Bsz * S * D + 4 * Bsz * S * N + 2 * D * N
-                  + (3 if with_states else 1) * Bsz * D * N
-                  + (Bsz * -(-S // 16) * D * N if given_states else 0))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 20.0 * Bsz * S * D * N / PEAK_FLOPS["float32"] * 1e3
-    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
 
 
 def _plain_scan_autograd(torch, x, dt, B, C, A, h0, dy, dh):
@@ -2049,8 +2015,9 @@ def phase_scan_grads(torch) -> list:
                 else ((y,), (dy,))
             return torch.autograd.grad(
                 outs, leaves + ([state] if state is not None else []), grads)
-        b_ms, b_by = scan_grad_bound(Bsz, S, D, N, with_states, True)
-        alone_ms, alone_by = scan_grad_bound(Bsz, S, D, N, with_states)
+        b_ms, b_by = _costs().scan_grad_bound(Bsz, S, D, N, with_states, True)
+        alone_ms, alone_by = _costs().scan_grad_bound(Bsz, S, D, N,
+                                                      with_states)
         checks.append({
             "shape": [Bsz, S, D, N], "states": with_states,
             "dtype": "float32",
@@ -2292,6 +2259,142 @@ def _loss_over_draws(torch, cfg, params, n_batch: int, seq: int) -> dict:
                                   zip(losses["kernel"], losses["ref"])]}
 
 
+def _dryrun_args(arch: str, layers: int, batch: int, seq: int) -> list:
+    """The dry-run's arguments for a training cell of the checkout's own
+    shape: ``arch`` at ``layers`` on batches of ``batch`` x ``seq``, on
+    the (1, 1) mesh, its fake tensors on the card."""
+    return ["--arch", arch, "--shape", f"train_cell:{seq}:{batch}:train",
+            "--mesh", "one", "--override", f"n_layers={layers}",
+            "--device", "cuda"]
+
+
+def phase_dryrun_start():
+    """Phase 17's dry-runs, started as processes of their own (a ``fake``
+    process group is one a process) beside phases 11a and 11b: 17a's
+    production cell (qwen2-7b train_4k on the (16, 16) mesh of 256 fake
+    ranks) with the mesh's fake tensors on the card and on the CPU, and
+    11c's and 11f's cells on the (1, 1) mesh.  Returns what
+    :func:`phase_dryrun_join` reads."""
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    prod = ["--arch", DENSE_ARCH, "--shape", "train_4k", "--mesh", "single"]
+    runs = {"production_cuda": prod + ["--device", "cuda"],
+            "production_cpu": prod + ["--device", "cpu"]}
+    for arch in (DENSE_ARCH, ARCH):
+        layers, _, batch, seq = TRAIN_CELLS[arch]
+        runs[arch] = _dryrun_args(arch, layers, batch, seq)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for name, args in runs.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--no-probes", "--out", str(out / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=str(ROOT))
+    return out, procs, time.perf_counter()
+
+
+def phase_dryrun_join(pending) -> None:
+    """Phase 17a, and 17b's and 17c's predictions: wait for the dry-runs
+    (each within DRYRUN_TIMEOUT, all killed on a failure), read their
+    records, fail unless the production cell's records from the card's
+    and the CPU's fake tensors are equal in every key but time and device,
+    and keep 11c's and 11f's in RESULTS for phase_train_full."""
+    out, procs, t0 = pending
+    recs = {}
+    try:
+        for name, p in procs.items():
+            try:
+                stdout, stderr = p.communicate(
+                    timeout=max(1.0, DRYRUN_TIMEOUT
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"dry-run {name} did not end within {DRYRUN_TIMEOUT} s")
+            path, = (out / name).glob("*.json")
+            recs[name] = json.loads(path.read_text())
+            if p.returncode != 0:
+                fail(f"dry-run {name} exited {p.returncode}:\n"
+                     f"{stdout[-2000:]}\n{recs[name].get('traceback')}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    timed = ("compile_seconds", "device")
+    cuda, cpu = recs["production_cuda"], recs["production_cpu"]
+    same = {k: v for k, v in cuda.items() if k not in timed} == \
+        {k: v for k, v in cpu.items() if k not in timed}
+    coll = cuda.get("collectives", {})
+    line("dryrun_production", {
+        "arch": cuda["arch"], "shape": cuda["shape"], "chips": cuda["chips"],
+        "status": cuda["status"],
+        "flops_per_device": cuda.get("flops_per_device"),
+        "flops_by_dtype": cuda.get("flops_by_dtype"),
+        "bytes_per_device": cuda.get("bytes_per_device"),
+        "peak_memory_in_bytes": cuda.get("peak_memory_in_bytes"),
+        "collective_ops": coll.get("_n_ops"),
+        "collective_bytes": {k: v for k, v in coll.items()
+                             if not k.startswith("_")},
+        "wire_nvlink_bytes": coll.get("_wire_nvlink_bytes"),
+        "wire_ib_bytes": coll.get("_wire_ib_bytes"),
+        "compile_seconds": {"cuda": cuda["compile_seconds"],
+                            "cpu": cpu["compile_seconds"]},
+        "cuda_equals_cpu": same, "wall_s": wall})
+    if cuda["status"] != "OK" or not same:
+        diff = sorted(k for k in set(cuda) | set(cpu) if k not in timed
+                      and cuda.get(k) != cpu.get(k))
+        fail(f"17a: the production cell's records differ between the "
+             f"card's and the CPU's fake tensors in {diff} "
+             f"(status {cuda['status']}, {cuda.get('traceback')}; "
+             f"{cpu.get('traceback')})")
+    for arch in (DENSE_ARCH, ARCH):
+        if recs[arch]["status"] != "OK":
+            fail(f"dry-run of {arch}'s training cell: {recs[arch]}")
+        RESULTS[("dryrun", arch)] = recs[arch]
+
+
+def _against_dryrun(dry: dict, counted: dict, peak: int, median_s: float,
+                    n_params: int, tokens: int) -> dict:
+    """Phase 17b and 17c: the dry-run's prediction for a training cell
+    beside the cell's own run: step 0's FLOPs counted by
+    ``launch.costs.Counter`` on the card, the steps' peak memory and
+    median step.  Returns the readings; the checks read them."""
+    costs = _costs()
+    t_comp = costs.compute_seconds(dry["flops_by_dtype"])
+    t_mem = dry["bytes_per_device"] / costs.HBM_BYTES_PER_S
+    model_flops = 6 * n_params * tokens
+    return {
+        "flops_by_dtype_step0": counted,
+        "flops_by_dtype_dryrun": {k: int(v) for k, v in
+                                  dry["flops_by_dtype"].items()},
+        "flops_equal": counted == {k: int(v) for k, v in
+                                   dry["flops_by_dtype"].items()},
+        "peak_predicted": dry["peak_memory_in_bytes"], "peak_measured": peak,
+        "peak_ratio": peak / dry["peak_memory_in_bytes"],
+        "bytes_per_device": dry["bytes_per_device"],
+        "t_compute_s": t_comp, "t_memory_s": t_mem,
+        "bound_s": max(t_comp, t_mem), "median_step_s": median_s,
+        "bound_share_of_step": max(t_comp, t_mem) / median_s,
+        "model_flops": model_flops,
+        "mfu": model_flops / median_s / costs.PEAK_FLOPS["bfloat16"],
+        "dryrun_compile_seconds": dry["compile_seconds"]}
+
+
+def _check_against_dryrun(name: str, got: dict) -> None:
+    if not got["flops_equal"]:
+        fail(f"{name}: step 0 counted {got['flops_by_dtype_step0']} FLOPs, "
+             f"the dry-run {got['flops_by_dtype_dryrun']}")
+    lo, hi = DRYRUN_PEAK_BAND
+    if not lo <= got["peak_ratio"] <= hi:
+        fail(f"{name}: peak {got['peak_measured']} B is "
+             f"{got['peak_ratio']:.3f} x the dry-run's "
+             f"{got['peak_predicted']} B, outside {DRYRUN_PEAK_BAND}")
+    if got["bound_s"] > got["median_step_s"]:
+        fail(f"{name}: the roofline bound {got['bound_s']} s exceeds the "
+             f"measured median step {got['median_step_s']} s: a miscount")
+
+
 def phase_train_full(torch, arch: str = DENSE_ARCH,
                      profile: bool = False) -> dict:
     """Phase 11c (qwen2-7b at TRAIN_LAYERS layers), 11f (falcon-mamba-7b
@@ -2420,6 +2523,9 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
     state = opt.init(params)
     step = steps.make_train_step(cfg, opt)
     step_losses, step_s, fwd_ms, bwd_ms = [], [], [], []
+    # phase 17b/17c: step 0 counted (launch/costs.py), against the dry-run
+    dry = RESULTS.get(("dryrun", cfg.name))
+    count = None
     for fn in kernels:
         _reset(fn)
     for s in range(TRAIN_STEPS):
@@ -2430,6 +2536,8 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
                 timed_function_calls(torch, fn_cls))
             bwd = (None if dense else timing.enter_context(
                 timed_function_calls(torch, fn_cls, "backward")))
+            if dry is not None and s == 0:
+                count = timing.enter_context(_costs().Counter())
             t0 = time.perf_counter()
             params, state, metrics = step(params, state, batch)
             step_losses.append(metrics["total_loss"].item())
@@ -2548,8 +2656,15 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         "peak_device_bytes": steps_peak,
         "peak_device_bytes_compare": compare_peak,
         "peak_device_bytes_plain_steps": plain_peak}
+    if dry is not None:
+        out["dryrun"] = _against_dryrun(
+            dry, dict(count.flops_by_dtype), steps_peak, median_s, n,
+            n_batch * seq)
     line("train_full", out)
     RESULTS[("train_full", cfg.name)] = out
+    if dry is not None:
+        _check_against_dryrun(f"17{'b' if dense else 'c'} {cfg.name}",
+                              out["dryrun"])
     if not dense:
         f32 = (SCAN_F32_LOSS_TOL, SCAN_F32_NORM_TOL, SCAN_F32_COSINE_MIN)
         if not _within_limits(witness["float32"], *f32):
@@ -3121,9 +3236,12 @@ def main() -> int:
     scan_launches = phase_model(torch, ARCH, N_PARAMS, profile)
     flash_checks = phase_flash_kernels(torch)
     flash_launches = phase_model(torch, DENSE_ARCH, DENSE_N_PARAMS, profile)
-    # phase 11, training: qwen2-7b's serving parameters are freed by now
+    # phase 11, training: qwen2-7b's serving parameters are freed by now;
+    # phase 17's dry-runs run beside 11a and 11b, on the host's cores
+    dryruns = phase_dryrun_start()
     phase_train_grads(torch)
     flash_launches += phase_train_launcher(torch)["flash_attention"]
+    phase_dryrun_join(dryruns)
     flash_launches += phase_train_full(torch, profile=profile)[
         "flash_attention"]
     # 11d-11f: Mamba1 training, through the scan's backward kernel

@@ -17,8 +17,9 @@ lowering.
 
 The task values are tensors on ``--device``: the CUDA card unless another
 device is named (without a card it raises unless ``--device cpu`` is
-passed).  Stage 5's collectives are counted by ``CommDebugMode`` where the
-reference counts the partitioned HLO's.
+passed).  Stage 5's collectives are counted by ``launch.costs.Counter``
+(``MeshExecutor.cost_analysis``) where the reference counts the
+partitioned HLO's.
 
 Run: PYTHONPATH=src python examples/torch_autoparallel_cluster.py [--device cpu]
 """
@@ -105,7 +106,7 @@ def spmd_rank(device: str) -> None:
         if torch.distributed.get_rank() == 0:
             print(f"   SPMD lowering on {mesh.shape}: output matches "
                   f"sequential; {coll} collectives in the run "
-                  f"(CommDebugMode)", flush=True)
+                  f"(launch.costs.Counter)", flush=True)
     finally:
         destroy_world()
 

@@ -23,12 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.debug import CommDebugMode
-from torch.utils.flop_counter import FlopCounterMode
 
-# kernels.sharded defines repro_torch::matmul and its FLOP formula, which
-# FlopCounterMode reads when it is made: import it before any count
-from ..kernels import sharded  # noqa: F401
 from .graph import TaskGraph
 from .placement import (Rule, Spec, ValueInfo, logical_to_spec,
                         refine_placements, shard)
@@ -74,7 +69,7 @@ class MeshExecutor:
         self._order = graph.topo_order()
         self._inputs = {n.meta["input"]: tid for tid, n in graph.nodes.items()
                         if "input" in n.meta}
-        self._cost: Optional[Dict[str, Any]] = None
+        self._counter = None
 
     def input_spec(self, name: str) -> Spec:
         return logical_to_spec(self.input_axes.get(name, ()), self.rules,
@@ -115,43 +110,54 @@ class MeshExecutor:
 
     def __call__(self, inputs: Optional[Dict[str, Any]] = None) -> List[Any]:
         """The graph's outputs, each DTensor gathered to its full value (the
-        same on every rank).  The first call counts FLOPs
-        (``FlopCounterMode``) and collectives (``CommDebugMode``) for
-        :meth:`cost_analysis`; the final gather is not counted."""
+        same on every rank).  The first call runs under
+        ``launch.costs.Counter``, which counts this rank's FLOPs, bytes,
+        collectives and memory for :meth:`cost_analysis`,
+        :meth:`memory_analysis` and :meth:`hlo_text`; the final gather is
+        not counted."""
         inputs = dict(inputs or {})
         missing = set(self._inputs) - set(inputs)
         if missing:
             raise ValueError(f"missing graph inputs: {sorted(missing)}")
-        if self._cost is None:
-            with CommDebugMode() as comm, \
-                    FlopCounterMode(display=False) as flops:
+        if self._counter is None:
+            from ..launch.costs import Counter
+            with Counter(log=True) as counter:
+                counter.hold(inputs)
                 outs = self._run(inputs)
-            self._cost = {
-                "flops": float(flops.get_total_flops()),
-                "flops_by_op": {str(op): n for op, n in
-                                flops.get_flop_counts()["Global"].items()},
-                "collectives": comm.get_total_counts(),
-                "collectives_by_op": {str(op): n for op, n in
-                                      comm.get_comm_counts().items()}}
+                counter.outputs(outs)
+            self._counter = counter
         else:
             outs = self._run(inputs)
         return [o.full_tensor() if isinstance(o, DTensor) else o
                 for o in outs]
 
     # -- introspection used by the roofline benchmarks -------------------
-    def cost_analysis(self) -> Dict[str, Any]:
-        """FLOPs (this rank's, as XLA's cost analysis of a partitioned
-        program gives them) and collectives of the first call."""
-        if self._cost is None:
+    def _counted(self):
+        if self._counter is None:
             raise RuntimeError("call the executor once first")
-        return dict(self._cost)
+        return self._counter
+
+    def cost_analysis(self) -> Dict[str, Any]:
+        """This rank's FLOPs (``flops``, ``flops_by_dtype``,
+        ``flops_by_op``: its local operations', as XLA's cost analysis of a
+        partitioned program gives them per device), bytes
+        (``bytes accessed``), collectives (``collectives``: their count;
+        ``collectives_by_op``; ``collective_events``, each with its group)
+        and memory in the first call (``launch.costs.Counter.cost``)."""
+        return self._counted().cost()
 
     def memory_analysis(self):
-        raise NotImplementedError(
-            "memory_analysis has no counterpart yet: it comes with the "
-            "dry-run (ROADMAP §1 item 9)")
+        """The first call's memory on this rank, as the reference's
+        ``memory_analysis()`` attributes: ``argument_size_in_bytes``,
+        ``output_size_in_bytes``, ``temp_size_in_bytes`` and
+        ``peak_memory_in_bytes``."""
+        import types
+        return types.SimpleNamespace(**self._counted().memory())
 
     def hlo_text(self) -> str:
-        raise NotImplementedError(
-            "hlo_text has no counterpart yet: it comes with the dry-run "
-            "(ROADMAP §1 item 9)")
+        """The first call's op log on this rank, the counterpart of the
+        partitioned HLO: one line a dispatched operation, a DTensor
+        operation's line with its global shapes and placements, a
+        collective's with its kind, bytes and group
+        (``launch.dryrun.parse_collectives`` reads them)."""
+        return self._counted().text()

@@ -32,6 +32,22 @@ def refuse_grad(name: str, *tensors, remedy: str) -> None:
             f"gives no gradient; {remedy}")
 
 
+def operator_route(*tensors):
+    """``torch.ops.repro_torch`` (``kernels/operators.py``: the kernels as
+    operators, which a count sees) when a count is running or one of
+    ``tensors`` is a fake tensor, else ``None``: the caller then calls the
+    wrapper directly.  Loads nothing in a process that counts nothing and
+    has no fake tensor (``torch`` itself imports the fake tensor class)."""
+    import torch
+    ops = sys.modules.get(f"{__name__}.operators")
+    if ops is None or not ops.counting:
+        fake = torch._subclasses.fake_tensor.FakeTensor
+        if not any(isinstance(t, fake) for t in tensors):
+            return None
+        from . import operators  # noqa: F401
+    return torch.ops.repro_torch
+
+
 def launch_counts() -> Dict[str, int]:
     """This process's kernel launches so far: ``name`` for each wrapper that
     has been imported (``ssm_scan_backward`` for the scan's backward

@@ -29,7 +29,7 @@ import threading
 
 import torch
 
-from . import _build, ref, refuse_grad
+from . import _build, operator_route, ref, refuse_grad
 
 _ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
           ("simt", torch.bfloat16): "repro_flash_attention_bf16",
@@ -167,11 +167,16 @@ class FlashAttention(torch.autograd.Function):
     backward :func:`attention_backward`.  The JAX package's flash kernel
     has no backward kernel, so neither has this.  It saves q, k, v and the
     output; under activation checkpointing the forward runs again in the
-    recompute, so each launch counts there too."""
+    recompute, so each launch counts there too.  While a count runs, or
+    for fake tensors, the forward goes through the operator
+    ``repro_torch::flash_attention`` (``kernels/operators.py``), which calls
+    the same wrapper; the backward's torch ops are counted as they run."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out = flash_attention(q, k, v, causal=causal)
+        op = operator_route(q, k, v)
+        out = (op.flash_attention(q, k, v, causal) if op is not None
+               else flash_attention(q, k, v, causal=causal))
         ctx.save_for_backward(q, k, v, out)
         ctx.causal = causal
         return out

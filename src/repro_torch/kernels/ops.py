@@ -5,7 +5,11 @@ hand-written kernel's wrapper, which launches the kernel for CUDA tensors
 and uses the plain version for CPU tensors; ``impl="ref"`` calls the plain
 version on any device.  With a DTensor argument, ``matmul``,
 ``flash_attention`` and ``ssm_scan`` run the wrapper (or its autograd
-Function) on each rank's local shard (``kernels/sharded.py``).
+Function) on each rank's local shard (``kernels/sharded.py``), and
+``impl="ref"`` the plain version there.  While a
+count runs (``launch.costs.Counter``), or for fake tensors, a call goes
+through the kernel's operator (``kernels/operators.py``), which calls the
+same wrapper and which the count sees (``kernels.operator_route``).
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 
 from . import flash_attention as _flash
 from . import matmul as _matmul
-from . import needs_grad, ref
+from . import needs_grad, operator_route, ref
 from . import ssm_scan as _ssm_scan
 
 
@@ -39,6 +43,9 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
         sharded = _sharded(x, y)
         if sharded is not None:
             return sharded.matmul(x, y)
+        op = operator_route(x, y)
+        if op is not None and not needs_grad(x, y):
+            return op.matmul(x, y)
         return _matmul.matmul(x, y)
     raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")
 
@@ -53,6 +60,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :class:`~repro_torch.kernels.flash_attention.FlashAttention` (the same
     kernel forward, a backward in torch ops)."""
     if impl == "ref":
+        sharded = _sharded(q, k, v)
+        if sharded is not None:
+            return sharded.heads_call(
+                lambda q, k, v: ref.attention(q, k, v, causal=causal),
+                q, k, v, 1)
         return ref.attention(q, k, v, causal=causal)
     if impl == "kernel":
         sharded = _sharded(q, k, v)
@@ -62,6 +74,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                                          causal=causal))
         if needs_grad(q, k, v):
             return _flash.FlashAttention.apply(q, k, v, causal)
+        op = operator_route(q, k, v)
+        if op is not None:
+            return op.flash_attention(q, k, v, causal)
         return _flash.flash_attention(q, k, v, causal=causal)
     raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")
 
@@ -80,6 +95,12 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     same kernel forward, the backward kernel); ``impl="ref"`` is autograd
     of the plain scan."""
     if impl == "ref":
+        sharded = _sharded(x, dt, B, C, A, h0)
+        if sharded is not None:
+            y, h = sharded.ssm_scan(
+                x, dt, B, C, A, h0,
+                lambda *a: ref.ssm_scan(*a, return_state=True))
+            return (y, h) if return_state else y
         return ref.ssm_scan(x, dt, B, C, A, h0, return_state=return_state)
     if impl == "kernel":
         sharded = _sharded(x, dt, B, C, A, h0)
@@ -90,6 +111,10 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
             return (y, h) if return_state else y
         if needs_grad(x, dt, B, C, A, h0):
             y, h = _ssm_scan.SSMScan.apply(x, dt, B, C, A, h0)
+            return (y, h) if return_state else y
+        op = operator_route(x, dt, B, C, A, h0)
+        if op is not None:
+            y, h, _ = op.ssm_scan(x, dt, B, C, A, h0, False)
             return (y, h) if return_state else y
         return _ssm_scan.ssm_scan(x, dt, B, C, A, h0,
                                   return_state=return_state)

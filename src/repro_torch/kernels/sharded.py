@@ -39,11 +39,11 @@ every rank.  ``local_calls`` counts the kernels' calls made here (and the
 scan's backward passes, by a hook on each local output), so a run can
 show that its launches went through this module.
 
-The local matmul goes through the operator ``repro_torch::matmul`` (the
-kernel's wrapper, defined with this module), whose FLOP formula (2 M N K
-of the local shapes) lets ``torch.utils.flop_counter.FlopCounterMode``
-count the kernel's work on each rank, as ``MeshExecutor.cost_analysis``
-does.  Calls of ``ops.matmul`` on plain tensors never reach it.
+The local matmul goes through the operator ``repro_torch::matmul``
+(``kernels/operators.py``: the kernel's wrapper), whose FLOPs (2 M N K of
+the local shapes) ``launch.costs.Counter`` counts on each rank, as
+``MeshExecutor.cost_analysis`` does; the attention and the scan reach
+their operators through ``ops`` when a count runs.
 """
 from __future__ import annotations
 
@@ -51,27 +51,11 @@ from typing import Callable, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.utils.flop_counter import register_flop_formula
 
 from ..parallel.sharding import local_call
-from . import matmul as _matmul
-from . import needs_grad, refuse_grad
+from . import needs_grad, operators, refuse_grad
 
 local_calls = {"flash_attention": 0, "ssm_scan": 0, "ssm_scan_backward": 0}
-
-if not hasattr(torch.ops.repro_torch, "matmul"):
-    @torch.library.custom_op("repro_torch::matmul", mutates_args=())
-    def _matmul_op(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return _matmul.matmul(x, y)
-
-    @_matmul_op.register_fake
-    def _(x, y):
-        return x.new_empty((x.shape[0], y.shape[1]))
-
-    @register_flop_formula(torch.ops.repro_torch.matmul)
-    def _flops(x_shape, y_shape, *args, out_shape=None, **kwargs):
-        return 2 * x_shape[0] * x_shape[1] * y_shape[1]
-
 
 def _as_dtensor(t: torch.Tensor, mesh) -> DTensor:
     if isinstance(t, DTensor):
@@ -92,7 +76,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> DTensor:
     mesh = _mesh(x, y)
     x, y = _as_dtensor(x, mesh), _as_dtensor(y, mesh)
     xp = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
-    return local_call(lambda x, y: (torch.ops.repro_torch.matmul(x, y),),
+    return local_call(lambda x, y: (operators.matmul(x, y),),
                       [x, y], [xp, [Replicate()] * mesh.ndim], [xp],
                       shapes=[(x.shape[0], y.shape[1])])[0]
 

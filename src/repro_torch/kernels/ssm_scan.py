@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, ref, refuse_grad
+from . import _build, operator_route, ref, refuse_grad
 
 _ENTRY = {torch.float32: "repro_ssm_scan_f32",
           torch.bfloat16: "repro_ssm_scan_bf16"}
@@ -231,12 +231,17 @@ class SSMScan(torch.autograd.Function):
     backward kernel starts its chunks; under activation checkpointing the
     forward runs again in the recompute, so each forward launch counts
     there too and the states live from the recompute to the backward.
+    While a count runs, or for fake tensors, both go through the operators
+    ``repro_torch::ssm_scan`` and ``repro_torch::ssm_scan_backward``
+    (``kernels/operators.py``), which call the same wrappers.
     """
 
     @staticmethod
     def forward(ctx, x, dt, B, C, A, h0):
-        y, h_final, states = ssm_scan(x, dt, B, C, A, h0,
-                                      return_states=True)
+        op = operator_route(x, dt, B, C, A, h0)
+        y, h_final, states = (
+            op.ssm_scan(x, dt, B, C, A, h0, True) if op is not None
+            else ssm_scan(x, dt, B, C, A, h0, return_states=True))
         ctx.save_for_backward(x, dt, B, C, A, h0, states)
         return y, h_final
 
@@ -244,8 +249,11 @@ class SSMScan(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy, dh_final):
         x, dt, B, C, A, h0, states = ctx.saved_tensors
-        dx, ddt, dB, dC, dA, dh0 = ssm_scan_backward(
-            *(t.float().contiguous() for t in (x, dt, B, C)), A, h0,
-            dy.float().contiguous(), dh_final.contiguous(), states=states)
+        args = (*(t.float().contiguous() for t in (x, dt, B, C)), A, h0,
+                dy.float().contiguous(), dh_final.contiguous())
+        op = operator_route(x, dy)
+        dx, ddt, dB, dC, dA, dh0 = (
+            op.ssm_scan_backward(*args, states) if op is not None
+            else ssm_scan_backward(*args, states=states))
         return (dx.to(x.dtype), ddt.to(dt.dtype), dB.to(B.dtype),
                 dC.to(C.dtype), dA, None if h0 is None else dh0)

@@ -24,9 +24,9 @@ says.  Gradients come from ``transformer.value_and_grad`` over
 :func:`make_loss_fn`.
 
 :func:`logical_axes` and :func:`cache_logical_axes` give each parameter's
-and cache leaf's logical axis names, as the reference's do; its
-``abstract_params`` is a dry-run helper and comes with the dry-run
-(ROADMAP §1 item 9).
+and cache leaf's logical axis names, as the reference's do, and
+:func:`abstract_params` the parameters as fake tensors, which the dry-run
+builds its cases on.
 
 With a sharding context over a ``torch.distributed`` world (``ctx``) the
 parameters and the batch are DTensors and the activations are constrained
@@ -48,7 +48,7 @@ from .config import ModelConfig
 from .layers import (split_heads, apply_norm, attention_block,
                      embed_tokens, init_attention, init_embed, init_mlp,
                      init_norm, init_param, mlp_block, p, shard_act, unembed)
-from .transformer import lay_out, sharded_loss, softmax_xent
+from .transformer import lay_out, sharded_loss, softmax_xent, write_cursor
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -92,6 +92,18 @@ def logical_axes(cfg: ModelConfig) -> Dict:
     """The parameter tree of ``cfg`` with each leaf's logical axis names,
     the reference's ``logical_axes`` (``encdec.py:52``)."""
     return tree_map(lambda s: s.axes, param_specs(cfg))
+
+
+def abstract_params(cfg: ModelConfig, fake_mode,
+                    device: Optional[Device] = "cpu") -> Dict:
+    """The parameter tree of ``cfg`` as fake tensors of ``fake_mode`` (a
+    ``FakeTensorMode``: shapes and dtypes, no memory) on ``device``, in
+    ``cfg.pdtype``: the reference's ``abstract_params``, which the dry-run
+    builds its cases on (``launch/steps.py::build_case``)."""
+    with fake_mode:
+        return tree_map(lambda s: torch.empty(s.shape, dtype=cfg.pdtype,
+                                              device=device),
+                        param_specs(cfg))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -218,8 +230,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     def kv(length):
         return {n: torch.zeros((L, batch, length, KH, hd), dtype=dt,
                                device=device) for n in ("k", "v")}
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": kv(max_len), "xkv": kv(cfg.enc_seq)}
+    return {"pos": write_cursor(0, device), "layers": kv(max_len),
+            "xkv": kv(cfg.enc_seq)}
 
 
 def cache_logical_axes(cfg: ModelConfig) -> Dict:

@@ -161,6 +161,16 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def apply_norm(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    """The config's norm of ``x``.  A DTensor that is a partial sum (the
+    residual stream after a row-parallel projection's output was added)
+    is summed first, as Megatron all-reduces there: a norm needs the whole
+    value, and DTensor would otherwise sum only its variance and keep the
+    normed output partial, which the next projection can take only by
+    gathering its weight whole and all-reducing its output."""
+    if is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        from torch.distributed.tensor import Replicate
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                           else p for p in x.placements])
     if cfg.norm_type == "layernorm":
         return layernorm(x, params["scale"], params["bias"], cfg.norm_eps)
     return rmsnorm(x, params["scale"], cfg.norm_eps)
@@ -412,8 +422,30 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = attention_scores(q, k, v, causal=causal,
                                q_pos=positions if causal else None,
                                kv_len=kv_len, grouped=cfg.gqa_grouped)
-    out = out.reshape(B, S, H * hd)
+    out = _grad_as_forward(out.reshape(B, S, H * hd))
     return torch.matmul(out, params["wo"].to(cd)), new_cache
+
+
+class _GradAsForward(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient is redistributed to the
+    placements the forward had.  After a heads merge, the projection by
+    ``wo`` hands back a gradient sharded on the merged dim; where the
+    heads do not divide the mesh dim (qwen2-7b's 28 on 16), the merge's
+    backward, a view that splits that dim, cannot take it (torch 2.11's
+    DTensor raises there; later ones redistribute inside the view)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def _grad_as_forward(x: torch.Tensor) -> torch.Tensor:
+    return _GradAsForward.apply(x) if is_dtensor(x) else x
 
 
 # --------------------------------------------------------------------------

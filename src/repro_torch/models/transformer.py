@@ -180,6 +180,18 @@ def logical_axes(cfg: ModelConfig) -> Dict:
     return tree_map(lambda s: s.axes, param_specs(cfg))
 
 
+def abstract_params(cfg: ModelConfig, fake_mode,
+                    device: Optional[Device] = "cpu") -> Dict:
+    """The parameter tree of ``cfg`` as fake tensors of ``fake_mode`` (a
+    ``FakeTensorMode``: shapes and dtypes, no memory) on ``device``, in
+    ``cfg.pdtype``: the reference's ``abstract_params``, which the dry-run
+    builds its cases on (``launch/steps.py::build_case``)."""
+    with fake_mode:
+        return tree_map(lambda s: torch.empty(s.shape, dtype=cfg.pdtype,
+                                              device=device),
+                        param_specs(cfg))
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Optional[Device] = None) -> Dict:
     """Draw the parameters of ``cfg`` on ``device`` (the card unless another
@@ -277,14 +289,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         c = make(cfg, batch, dt, device)
         layers = {k: v.expand((L,) + v.shape).contiguous()
                   for k, v in c.items()}
-    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
-             "layers": layers}
+    cache = {"pos": write_cursor(0, device), "layers": layers}
     if kind == "mamba2_shared":
         shape = (_n_shared_sites(cfg), batch, max_len, cfg.n_kv_heads,
                  cfg.head_dim)
         cache["shared"] = {"k": torch.zeros(shape, dtype=dt, device=device),
                            "v": torch.zeros(shape, dtype=dt, device=device)}
     return cache
+
+
+def write_cursor(pos: int, device) -> torch.Tensor:
+    """A cache's ``pos``: the 0-d int32 write position.  Under
+    ``FakeTensorMode`` (the dry-run's cases) it is made from a Python int,
+    which fake tensor mode keeps as a constant, so the forward's one host
+    read of it still gets the value; on real tensors it is filled on the
+    device, as before, without a copy from the host."""
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return torch.tensor(pos, dtype=torch.int32, device=device)
+    return torch.full((), pos, dtype=torch.int32, device=device)
 
 
 def cache_logical_axes(cfg: ModelConfig) -> Dict:
@@ -616,17 +639,22 @@ def lay_out(tree, axes, ctx):
 def make_prefill_step(cfg: ModelConfig, ctx=None,
                       max_len: Optional[int] = None, *,
                       impl: str = "kernel"):
-    """(params, tokens) -> (next_token_logits, cache); with ``ctx`` the
-    tokens and the new cache are laid out on its mesh (the cache by
+    """(params, tokens[, patch_embeds]) -> (next_token_logits, cache);
+    with ``ctx`` the tokens (and a VLM's patch embeddings) and the new
+    cache are laid out on its mesh (the cache by
     :func:`cache_logical_axes`)."""
-    def prefill(params, tokens):
+    def prefill(params, tokens, patch_embeds=None):
         B, S = tokens.shape
         tokens = shard_act(tokens, ("batch", "seq"), ctx)
+        if patch_embeds is not None:
+            patch_embeds = shard_act(patch_embeds,
+                                     ("batch", "seq", "d_model"), ctx)
         cache = lay_out(init_cache(cfg, B, max_len or cfg.max_cache_len or S,
                                    device=tokens.device),
                         cache_logical_axes(cfg), ctx)
         logits, cache, _ = forward(params, tokens, cfg, cache=cache,
-                                   impl=impl, ctx=ctx)
+                                   patch_embeds=patch_embeds, impl=impl,
+                                   ctx=ctx)
         return logits[:, -1, :], cache
     return prefill
 

@@ -88,17 +88,21 @@ class ShardingCtx:
 
     def fitted(self, shape: Sequence[int],
                axes: Tuple[Optional[str], ...]) -> Spec:
-        """The spec of ``axes`` fitted to ``shape``, also without the mesh
-        axes of size 1: they shard nothing, and DTensor refuses to view
-        away a singleton dim that is sharded, even over one rank."""
+        """The spec of ``axes`` fitted to ``shape`` (:meth:`fit_spec`)."""
+        return self.fit_spec(shape, self.spec(axes))
+
+    def fit_spec(self, shape: Sequence[int], spec: Spec) -> Spec:
+        """``spec`` fitted to ``shape`` (``core.placement.fit_spec``), also
+        without the mesh axes of size 1: they shard nothing, and DTensor
+        refuses to view away a singleton dim that is sharded, even over
+        one rank."""
         ones = {a for a, n in self.mesh.shape.items() if n == 1}
 
         def keep(part):
             kept = tuple(a for a in ((part,) if isinstance(part, str)
                                      else part or ()) if a not in ones)
             return kept[0] if len(kept) == 1 else kept or None
-        return fit_spec(tuple(shape), tuple(map(keep, self.spec(axes))),
-                        self.mesh)
+        return fit_spec(tuple(shape), tuple(map(keep, spec)), self.mesh)
 
     def constrain(self, x: torch.Tensor,
                   axes: Tuple[Optional[str], ...]) -> torch.Tensor:

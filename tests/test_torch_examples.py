@@ -123,7 +123,7 @@ def test_autoparallel_cluster_prints_the_references_stages(capsys):
     reference's lines exactly; stage 4 (the real cluster with a SIGKILL and
     a join) its counts; stage 5 (the DAG on an 8-device mesh: 8 gloo ranks
     here, 8 forced host devices there) the same mesh and the same number of
-    collectives, counted by CommDebugMode where the reference counts its
+    collectives, counted by launch.costs.Counter where the reference counts its
     partitioned HLO's."""
     env = dict(os.environ, PYTHONPATH=str(EXAMPLES.parent / "src"))
     ref = subprocess.run([sys.executable,

@@ -11,7 +11,9 @@ layer scan) are computed here and handed over as numpy files.
 
 - ``MeshExecutor`` on the (4, 2) mesh against ``execute_sequential`` at
   rtol and atol 1e-5 (``tests/test_spmd.py:37-77``), its ``mul`` bodies
-  the port's matmul on each rank's rows;
+  the port's matmul on each rank's rows; its op log (``hlo_text``) gives
+  the counted collectives, its memory record a peak; a task of
+  ``torch.matmul`` on DTensors counts the rank's local FLOPs;
 - the pipeline (``pods=4, model_parallel=2``) on yi-9b reduced to 4 layers
   in float32, B 8, S 16, 4 microbatches, with the JAX package's parameters,
   against the JAX ``_layer_body`` scan at 2e-4 (:80-110); and on dbrx-132b
@@ -107,18 +109,54 @@ def mesh_executor():
     out = ex({"x": x})[0]
     again = ex({"x": x})[0]
     cost = ex.cost_analysis()
-    try:
-        ex.hlo_text()
-        no_hlo = False
-    except NotImplementedError:
-        no_hlo = True
+    from repro_torch.launch.dryrun import parse_collectives
+    log = ex.hlo_text()
+    # the op log's collectives are the counted ones, with their groups
+    logged = parse_collectives(log) == parse_collectives(
+        cost["collective_events"]) and sum(
+            line.startswith("collective ") for line in
+            log.splitlines()) == cost["collectives"]
+    peak = ex.memory_analysis().peak_memory_in_bytes
     close = torch.allclose(out, want, rtol=1e-5, atol=1e-5)
-    return {"ok": bool(close and torch.equal(out, again) and no_hlo
-                       and cost["flops"] > 0 and mesh.shape ==
+    return {"ok": bool(close and torch.equal(out, again) and logged
+                       and peak > 0 and cost["flops"] > 0 and mesh.shape ==
                        {"data": 4, "model": 2}),
             "max_err": float((out - want).abs().max()),
             "flops": cost["flops"], "collectives": cost["collectives"],
+            "peak": peak, "logged": logged,
             "specs": {str(t): list(s) for t, s in ex.specs.items()}}
+
+
+@check
+def mesh_executor_torch_matmul():
+    """A task that multiplies DTensors with torch.matmul: the count is the
+    rank's local product (x's 16 rows of 64 on the (4, 2) mesh by the
+    replicated 64 x 64 w), not the global one FlopCounterMode sees."""
+    from repro_torch.core import (task, trace, placeholder, MeshExecutor,
+                                  standard_rules)
+    from repro_torch.parallel.mesh import make_mesh_for
+
+    @task(cost=1.0)
+    def tmm(a, b):
+        return torch.matmul(a, b)
+
+    def driver():
+        return tmm(placeholder("x"), placeholder("w"))
+
+    graph, _ = trace(driver)
+    g = torch.Generator().manual_seed(3)
+    x, w = torch.randn((64, 64), generator=g), torch.randn((64, 64),
+                                                           generator=g)
+    mesh = make_mesh_for(8, model_parallel=2)
+    ex = MeshExecutor(graph, mesh, standard_rules("dp_tp", pod_axis=None),
+                      input_axes={"x": ("batch", "d_model"), "w": ()})
+    out = ex({"x": x, "w": w})[0]
+    cost = ex.cost_analysis()
+    local = 2 * (64 // 4) * 64 * 64
+    return {"ok": bool(cost["flops"] == local
+                       and torch.allclose(out, x @ w, rtol=1e-5, atol=1e-5)),
+            "flops": cost["flops"], "local": local,
+            "global": 2 * 64 * 64 * 64}
 
 
 def _pipeline(arch, npz):
@@ -317,7 +355,7 @@ def no_jax():
 destroy_world()
 '''
 
-CHECKS = ["mesh_executor", "pipeline", "pipeline_moe", "collectives", "dp_gradient_sync",
+CHECKS = ["mesh_executor", "mesh_executor_torch_matmul", "pipeline", "pipeline_moe", "collectives", "dp_gradient_sync",
           "fit_sharding", "mesh_sizes", "dtensor_kernels", "no_jax"]
 
 
