@@ -105,28 +105,36 @@ Each phase prints one line; any failure raises and exits non-zero:
    decode ms/step, peak device memory, and the path kernel's own device time
    within the prefill (CUDA events around each launch);
 11. train — qwen2-7b's serving parameters freed: (a) the flash-attention
-   Function's gradient (the kernel's forward, a backward in torch ops)
-   against autograd of the plain version at the training step's attention
-   (q 2x28x2048x128, k, v 2x4x2048x128, causal), a ragged shape
-   (2x8x1000x64, 2 kv heads), and whisper-tiny's encoder (16x6x1500x64,
-   not causal) and cross-attention (q 16x6x448x64 over 1500 keys), in
-   float32 (simt) and bf16 (wgmma): dq, dk,
-   dv within the forward's tolerance of the largest reference entry, with
-   forward + backward CUDA-event times of the Function, the plain version
-   and SDPA; (b) the training launcher at ``--reduced`` on the card: the
+   gradient at the training step's attention (q 2x28x2048x128, k, v
+   2x4x2048x128, causal), a ragged shape (2x8x1000x64, 2 kv heads),
+   whisper-tiny's encoder (16x6x1500x64, not causal), cross-attention (q
+   16x6x448x64 over 1500 keys) and decoder (16x6x448x64, causal), and
+   llava-next-34b's training attention (q 2x56x2048x128 over 8 kv heads),
+   in float32 (simt) and bf16 (wgmma): the backward kernel alone
+   (``flash_attention_backward``), given the forward kernel's out and row
+   log-sum-exp, against the plain backward given the same, two launches
+   the same bits; then the Function (the forward kernel, then the
+   backward kernel) against autograd of the plain version: dq, dk, dv
+   within the forward's tolerance of the largest reference entry, one
+   launch of each kernel on the row's route, with CUDA-event times of the
+   backward kernel alone, the plain backward and SDPA's backward, and of
+   forward + backward for the Function, the plain version and SDPA;
+   (b) the training launcher at ``--reduced`` on the card: the
    resume check of tests/test_launchers.py (the resumed losses equal the
    uninterrupted run's at rtol 1e-4) and ``--show-graph --backend thread``
    (the traced step's loss equals the loop's step-0 loss), every flash
-   launch simt (float32 compute); (c) qwen2-7b at full width cut to 8
+   launch, forward and backward, simt (float32 compute); (c) qwen2-7b at
+   full width cut to 8
    layers (2,954,460,672 float32 parameters from seed 0, bf16 compute,
    selective remat) on batches of 2 x 2048 tokens: one loss-and-gradient
    with the kernel and one with the plain attention (global gradient norm
    and each leaf's cosine within TRAIN_*_TOL) and the loss with each over
    FIRST_STEP_DRAWS batches (within TRAIN_LOSS_TOL), then 4 steps of
-   launch/steps.py's train step with AdamW: finite, falling losses and 16
-   wgmma flash launches a step (the forward and the remat recompute), with
-   the step seconds, tokens/s, peak device memory and the flash forwards'
-   device ms in each step; then the same 4 steps from the same draw with
+   launch/steps.py's train step with AdamW: finite, falling losses, 16
+   wgmma flash launches a step (the forward and the remat recompute) and
+   8 wgmma backward launches, with the step seconds, tokens/s, peak device
+   memory and the flash forwards' and backwards' device ms in each step
+   (the Function's, CUDA events); then the same 4 steps from the same draw with
    the plain attention, whose losses the kernel's must meet within
    TRAIN_TRAJ_TOL at every step; then Mamba1: (d) the scan's backward
    kernel against the plain gradient (autograd of the plain scan, or
@@ -186,7 +194,8 @@ Each phase prints one line; any failure raises and exits non-zero:
    step), trained as 11c (each of the FIRST_STEP_DRAWS loss batches with
    its own frames): the first step against the plain attention, 4 AdamW
    steps with 12 wgmma flash launches each (4 encoder, 4 decoder, 4
-   cross), the same steps with the plain attention; then a prefill of 447
+   cross) and as many backward launches, the same steps with the plain
+   attention; then a prefill of 447
    tokens (12 launches) and one decode step (4: the cross-attention, one
    query over 1500 keys), in bf16 and in float32 compute: in bf16 the
    kernel's prefill and decode logits must meet the plain attention's on
@@ -195,8 +204,8 @@ Each phase prints one line; any failure raises and exits non-zero:
    LOGIT_TOL; (d) llava-next-34b at full width cut to 4 of its 60 layers
    (3,148,938,240 float32 parameters) on batches of 2 x 2048 tokens, the
    first 576 positions patch embeddings (seed 0; each loss batch its own),
-   trained as 11c at VLM_LR with 8 wgmma flash launches a step.  Phase
-   14a's kernel checks run in phases 8 and 11a;
+   trained as 11c at VLM_LR with 8 wgmma flash launches and 4 backward
+   launches a step.  Phase 14a's kernel checks run in phases 8 and 11a;
 15. intra-op SPMD — a world of one NCCL rank (``parallel.mesh.init_world``
    on a fresh file store), destroyed afterwards: (a) phase 4's Fig. 2 DAG
    through ``MeshExecutor`` on a (1, 1) ("data", "model") mesh, every node
@@ -259,7 +268,12 @@ pipeline and phase 16a's world path too;
 ``flash_attention_simt`` is the CUDA-core kernel and its
 launches; ``ssm_scan`` counts serving and training forwards, and
 ``ssm_scan_backward``, headed by the training shape, the backward kernel's
-launches in 11e and 11f; the scan's entries phase 16b's too), and
+launches in 11e and 11f; the scan's entries phase 16b's too;
+``flash_attention_backward``, headed by the wgmma backward kernel at 11c's
+attention (its numbers the backward kernel's alone), the backward's
+launches on both routes in 11b, 11c and 14b-d, and
+``flash_attention_backward_simt``, the CUDA-core backward kernel and its
+own launches), and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a card, or outside a checkout, it prints no result and exits 1.
@@ -274,6 +288,7 @@ import math
 import os
 import re
 import secrets
+import statistics
 import subprocess
 import sys
 import threading
@@ -373,12 +388,18 @@ LONG_MAX_LEN = LONG_PROMPT + LONG_DECODE + 1     # the long run's KV cache
 LOGIT_TOL = 0.5
 # phase 11a: (B, H, KH, Sq, Sk, D, causal) of the flash gradient checks:
 # the full-width training step's attention, a ragged shape, and phase 14's
-# whisper-tiny encoder (not causal) and cross-attention (Sq != Sk)
+# whisper-tiny encoder (not causal), cross-attention (Sq != Sk) and decoder
+# (causal), and llava-next-34b's training attention (GQA 7)
 TRAIN_GRAD_SHAPES = [(2, 28, 4, 2048, 2048, 128, True),
                      (2, 8, 2, 1000, 1000, 64, True),
                      (16, 6, 6, 1500, 1500, 64, False),
-                     (16, 6, 6, 448, 1500, 64, False)]
-GRAD_REPS = 5
+                     (16, 6, 6, 448, 1500, 64, False),
+                     (16, 6, 6, 448, 448, 64, True),
+                     (2, 56, 8, 2048, 2048, 128, True)]
+# phase 11a's times: the median of 20 calls, each between its own CUDA
+# events, after 3 warm-ups (a mean of 5 moved SDPA's backward up to 2.3x
+# between two runs)
+GRAD_REPS, GRAD_WARMUPS = 20, 3
 # phase 11b: the training launcher on the card at --reduced
 TRAIN_LAUNCHER_ARGS = ["--arch", "qwen2-7b", "--reduced", "--device", "cuda",
                        "--batch", "2", "--seq", "16", "--log-every", "100"]
@@ -546,7 +567,8 @@ def phase_build() -> None:
     sources = {k["source"] for k in kernels}
     if sources != {"matmul.cu", "matmul_wgmma.cu", "ssm_scan.cu",
                    "ssm_scan_bwd.cu", "flash_attention.cu",
-                   "flash_attention_wgmma.cu"} or \
+                   "flash_attention_wgmma.cu", "flash_attention_bwd.cu",
+                   "flash_attention_bwd_wgmma.cu"} or \
             any("registers" not in k for k in kernels):
         fail(f"no ptxas report for every kernel:\n{_build.ptxas_report()}")
     line("build", {"seconds": seconds, "cached": cached,
@@ -566,6 +588,40 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_median_ms(torch, fn, reps: int = GRAD_REPS,
+                   warmups: int = GRAD_WARMUPS) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, each between its
+    own CUDA events, after ``warmups`` calls."""
+    for _ in range(warmups):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_busy_ms(torch, fn, reps: int = GRAD_REPS) -> float:
+    """Device time of one call of ``fn``: the self device times of the
+    device's entries under ``torch.profiler`` over ``reps`` calls, after a
+    warm-up, divided by ``reps``; unlike CUDA events it leaves out the time
+    the device waits for the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 @contextlib.contextmanager
@@ -1290,8 +1346,8 @@ def _reset(fn) -> None:
 
 # the port's kernels among a profile's device entries
 PORT_KERNEL = re.compile(r"\b(matmul|matmul_wgmma|ssm_scan|ssm_scan_bwd|"
-                         r"flash_attention|"
-                         r"flash_wgmma)_kernel\b")
+                         r"flash_attention|flash_wgmma|flash_bwd_dkdv|"
+                         r"flash_bwd_dq|delta)_kernel\b")
 
 def expected_route(cfg):
     """The route every launch of a model path's kernel must take, or None
@@ -1863,12 +1919,23 @@ def _grad_inputs(torch, gen, B, H, KH, Sq, Sk, D, dtype):
 
 
 def phase_train_grads(torch) -> list:
-    """Phase 11a: the flash Function's gradient (kernel forward, backward
-    in torch ops) against autograd of the plain version, at each
-    TRAIN_GRAD_SHAPES row in float32 (simt) and bf16 (wgmma): dq, dk, dv
-    within TOL of the largest reference entry, with CUDA-event times of
-    forward + backward for the Function, the plain version and SDPA (a
-    yardstick only)."""
+    """Phase 11a: the flash gradient at each TRAIN_GRAD_SHAPES row in
+    float32 (simt) and bf16 (wgmma).  First the backward kernel alone,
+    given the forward kernel's out and lse, against the plain backward
+    (``attention_backward``) given the same: dq, dk, dv within TOL of the
+    largest plain entry, two launches the same bits, one launch on the
+    row's route each.  Then the flash Function (the forward kernel, then
+    the backward kernel) against autograd of the plain version: within TOL
+    of the largest reference entry, one forward and one backward launch on
+    the route.  Medians of CUDA-event times (``cuda_median_ms``) of the
+    backward kernel alone, of the plain backward given the lse and of
+    SDPA's backward alone (autograd of one retained SDPA output: a
+    yardstick only), and of forward + backward for the Function, the plain
+    version and SDPA, beside the card's bounds; and the device times
+    (``device_busy_ms``) of the backward kernel, of SDPA's backward (the
+    backward's ``library_ms``) and of forward + backward for the Function
+    and SDPA, since an event time of autograd is its host dispatch
+    wherever the host is slower than the device."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1878,11 +1945,44 @@ def phase_train_grads(torch) -> list:
             dname = str(dtype).removeprefix("torch.")
             (q, k, v), dout = _grad_inputs(torch, gen, B, H, KH, Sq, Sk, D,
                                            dtype)
-            for t in (q, k, v):
-                t.requires_grad_()
             path = fa.route(dtype, D)
             what = (f"flash gradient {dname} {(B, H, KH, Sq, Sk, D)} "
                     f"({path})")
+            bwd = fa.flash_attention_backward
+
+            # the backward kernel alone, given the forward kernel's out and
+            # lse, against the plain backward given the same
+            out, lse = fa.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+            before = bwd.route_launches[path]
+            got = bwd(q, k, v, out, dout, lse, causal=causal)
+            again = bwd(q, k, v, out, dout, lse, causal=causal)
+            torch.cuda.synchronize()
+            if bwd.route_launches[path] != before + 2:
+                fail(f"{what}: the backward made no {path} launch")
+            if not all(_same(torch, g, a) for g, a in zip(got, again)):
+                fail(f"{what}: two backward launches gave different bits")
+            want = fa.attention_backward(q, k, v, out, dout, causal=causal,
+                                         lse=lse)
+            kernel_errs = {n: _rel_err(g, w)
+                           for n, g, w in zip("qkv", got, want)}
+            kernel_abs = max((g.float() - w.float()).abs().max().item()
+                             for g, w in zip(got, want))
+            if any(g.dtype != dtype for g in got) or \
+                    max(kernel_errs.values()) > TOL[dname]:
+                fail(f"{what}: the backward kernel's gradients "
+                     f"{kernel_errs} relative to the plain backward's "
+                     f"largest, tolerance {TOL[dname]}")
+            del got, again, want
+            bwd_ms = cuda_median_ms(torch, lambda: bwd(
+                q, k, v, out, dout, lse, causal=causal))
+            bwd_dev_ms = device_busy_ms(torch, lambda: bwd(
+                q, k, v, out, dout, lse, causal=causal))
+            plain_bwd_ms = cuda_median_ms(torch, lambda: fa.attention_backward(
+                q, k, v, out, dout, causal=causal, lse=lse))
+            del out, lse
+            for t in (q, k, v):
+                t.requires_grad_()
 
             def fwd_bwd(attn):
                 return torch.autograd.grad(attn(q, k, v), (q, k, v), dout)
@@ -1897,11 +1997,15 @@ def phase_train_grads(torch) -> list:
                 return F.scaled_dot_product_attention(
                     *a, is_causal=causal, enable_gqa=True)
 
-            before = fa.flash_attention.route_launches[path]
+            before = (fa.flash_attention.route_launches[path],
+                      bwd.route_launches[path])
             got = fwd_bwd(kernel)
             torch.cuda.synchronize()
-            if fa.flash_attention.route_launches[path] != before + 1:
-                fail(f"{what}: the Function made no {path} launch")
+            if (fa.flash_attention.route_launches[path],
+                    bwd.route_launches[path]) != (before[0] + 1,
+                                                  before[1] + 1):
+                fail(f"{what}: the Function made no {path} forward and "
+                     f"backward launch")
             want = fwd_bwd(plain)
             errs = {n: _rel_err(g, w) for n, g, w in zip("qkv", got, want)}
             if any(g.dtype != dtype for g in got) or \
@@ -1909,23 +2013,51 @@ def phase_train_grads(torch) -> list:
                 fail(f"{what}: gradients {errs} relative to the plain "
                      f"version's largest, tolerance {TOL[dname]}")
             del got, want
+            lib_out = library(q, k, v)
+            def sdpa_bwd():
+                return torch.autograd.grad(lib_out, (q, k, v), dout,
+                                           retain_graph=True)
+            sdpa_bwd_ms = cuda_median_ms(torch, sdpa_bwd)
+            sdpa_bwd_dev_ms = device_busy_ms(torch, sdpa_bwd)
+            del lib_out
             b_ms, b_by = _costs().flash_bound(B, H, KH, Sq, Sk, D, causal,
                                               dname, dtype.itemsize,
                                               backward=True)
+            bb_ms, bb_by = _costs().flash_backward_bound(
+                B, H, KH, Sq, Sk, D, causal, dname, dtype.itemsize)
             checks.append({
                 "shape": [B, H, KH, Sq, Sk, D], "causal": causal,
                 "dtype": dname, "route": path,
                 "rel_err": errs, "tol": TOL[dname],
                 "bound_ms": b_ms, "bound_by": b_by,
-                "ms": cuda_ms(torch, lambda: fwd_bwd(kernel), GRAD_REPS),
-                "plain_ms": cuda_ms(torch, lambda: fwd_bwd(plain), GRAD_REPS),
-                "library_ms": cuda_ms(torch, lambda: fwd_bwd(library),
-                                      GRAD_REPS)})
+                "ms": cuda_median_ms(torch, lambda: fwd_bwd(kernel)),
+                "plain_ms": cuda_median_ms(torch, lambda: fwd_bwd(plain)),
+                "library_ms": cuda_median_ms(torch, lambda: fwd_bwd(library)),
+                "device_ms": device_busy_ms(torch, lambda: fwd_bwd(kernel)),
+                "library_device_ms": device_busy_ms(
+                    torch, lambda: fwd_bwd(library)),
+                # SDPA's backward by its device time: its event time is
+                # autograd's host dispatch wherever the host is slow
+                "backward": {
+                    "rel_err": kernel_errs, "max_abs_err": kernel_abs,
+                    "same_bits": True, "ms": bwd_ms,
+                    "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_dev_ms,
+                    "library_event_ms": sdpa_bwd_ms,
+                    "device_ms": bwd_dev_ms,
+                    "bound_ms": bb_ms, "bound_by": bb_by}})
             c = checks[-1]
-            print(f"{what}: rel err {max(errs.values()):.3g} (tol "
-                  f"{TOL[dname]}) | fwd+bwd {c['ms']:.3f} ms | plain "
-                  f"{c['plain_ms']:.3f} ms | sdpa {c['library_ms']:.3f} ms | "
-                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+            print(f"{what}: backward kernel vs plain rel err "
+                  f"{max(kernel_errs.values()):.3g}, {bwd_ms:.4f} ms, device "
+                  f"{bwd_dev_ms:.4f} ms (plain {plain_bwd_ms:.3f} ms, sdpa "
+                  f"backward device {sdpa_bwd_dev_ms:.4f} ms, events "
+                  f"{sdpa_bwd_ms:.4f} ms, bound {bb_ms:.4f} ms, {bb_by}) "
+                  f"| Function vs "
+                  f"autograd rel err {max(errs.values()):.3g} (tol "
+                  f"{TOL[dname]}) | fwd+bwd {c['ms']:.3f} ms, device "
+                  f"{c['device_ms']:.3f} ms | plain {c['plain_ms']:.3f} ms | "
+                  f"sdpa {c['library_ms']:.3f} ms, device "
+                  f"{c['library_device_ms']:.3f} ms | bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
             del q, k, v, dout
     line("train_grads", checks)
     return checks
@@ -2048,17 +2180,19 @@ def phase_scan_grads(torch) -> list:
 
 def _train_kernels(cfg) -> dict:
     """A model path's training kernels: each wrapper and its launches a
-    step.  Under selective remat flash attention's forward runs twice a
-    layer (the forward and the recompute); so does the scan's, and its
+    step, the forward kernel first.  Under selective remat each kernel
+    forward runs twice a layer (the forward and the recompute) and its
     backward kernel once.  The encoder-decoder is not checkpointed (nor is
     the reference's): flash runs once an encoder layer and twice a decoder
-    layer (self- and cross-attention)."""
+    layer (self- and cross-attention), and its backward as often."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as scan
     if cfg.is_encoder_decoder:
-        return {fa.flash_attention: cfg.n_enc_layers + 2 * cfg.n_layers}
+        sites = cfg.n_enc_layers + 2 * cfg.n_layers
+        return {fa.flash_attention: sites, fa.flash_attention_backward: sites}
     if _path_kernel(cfg) == "flash_attention":
-        return {fa.flash_attention: 2 * cfg.n_layers}
+        return {fa.flash_attention: 2 * cfg.n_layers,
+                fa.flash_attention_backward: cfg.n_layers}
     return {scan.ssm_scan: 2 * cfg.n_layers,
             scan.ssm_scan_backward: cfg.n_layers}
 
@@ -2070,9 +2204,9 @@ def phase_train_launcher(torch, arch: str = DENSE_ARCH) -> dict:
     5, an uninterrupted run to 12, a run resumed from step 5), then
     ``--show-graph --backend thread`` (the traced step's loss equals the
     loop's step-0 loss).  The reduced configs compute in float32, so every
-    flash launch is simt.  Every path kernel launches its ``_train_kernels``
-    count a step.  Returns each path kernel's launches by route, by wrapper
-    name."""
+    flash launch, forward and backward, is simt.  Every path kernel
+    launches its ``_train_kernels`` count a step.  Returns each path
+    kernel's launches by route, by wrapper name."""
     import shutil
     import tempfile
     from repro_torch.configs import get_config
@@ -2112,7 +2246,9 @@ def phase_train_launcher(torch, arch: str = DENSE_ARCH) -> dict:
     train._demo_runtime.cache_clear()
     steps_run = 8 + 12 + 6 + 1 + 1          # the last run: loop + traced
     path = next(iter(kernels))
-    routes = _check_routes(path, cfg, "reduced train launcher")
+    for fn in kernels:
+        _check_routes(fn, cfg, "reduced train launcher")
+    routes = getattr(path, "route_launches", None)
     for fn, per_step in kernels.items():
         want = per_step * steps_run
         if fn.launches != want:
@@ -2129,7 +2265,9 @@ def phase_train_launcher(torch, arch: str = DENSE_ARCH) -> dict:
         **({"flash_launches": path.launches}
            if _path_kernel(cfg) == "flash_attention" else {}),
         "launches": {fn.__name__: fn.launches for fn in kernels},
-        "launches_by_route": routes})
+        "launches_by_route": routes,
+        "launches_by_route_by_kernel": {
+            fn.__name__: dict(_launch_routes(fn)) for fn in kernels}})
     return {fn.__name__: _launch_routes(fn) for fn in kernels}
 
 
@@ -2534,8 +2672,8 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         with contextlib.ExitStack() as timing:
             fwd = timing.enter_context(
                 timed_function_calls(torch, fn_cls))
-            bwd = (None if dense else timing.enter_context(
-                timed_function_calls(torch, fn_cls, "backward")))
+            bwd = timing.enter_context(
+                timed_function_calls(torch, fn_cls, "backward"))
             if dry is not None and s == 0:
                 count = timing.enter_context(_costs().Counter())
             t0 = time.perf_counter()
@@ -2544,13 +2682,14 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         fwd_ms.append(events_ms(torch, fwd))
-        if bwd is not None:
-            bwd_ms.append(events_ms(torch, bwd))
+        bwd_ms.append(events_ms(torch, bwd))
         want = {fn.__name__: k * (s + 1) for fn, k in per_step.items()}
         if len(fwd) != per_step[counter] or launched() != want:
             fail(f"train step {s}: {len(fwd)} {fn_cls.__name__} forwards, "
                  f"launches so far {launched()}, expected {want}")
-    routes = dict(_check_routes(counter, cfg, f"{cfg.name} train steps")
+    for fn in kernels:
+        _check_routes(fn, cfg, f"{cfg.name} train steps")
+    routes = dict(getattr(counter, "route_launches", None)
                   or {"simt": counter.launches})
     if not all(math.isfinite(x) for x in step_losses) or \
             (dense and not step_losses[-1] < step_losses[0]):
@@ -2624,8 +2763,13 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
              **({"patches": cfg.n_patches} if cfg.family == "vlm" else {})}
             if dense else {"d_inner": cfg.d_inner, "state": cfg.ssm_state})
     timings = ({"flash_launches": step_launches["flash_attention"],
+                "flash_backward_launches":
+                    step_launches["flash_attention_backward"],
                 "launches_by_route": routes,
-                "flash_forward_ms_per_step": fwd_ms}
+                "backward_launches_by_route":
+                    dict(launches["flash_attention_backward"]),
+                "flash_forward_ms_per_step": fwd_ms,
+                "flash_backward_ms_per_step": bwd_ms}
                if dense else
                {"launches": step_launches,
                 "scan_forward_ms_per_step": fwd_ms,
@@ -2798,24 +2942,26 @@ def phase_encdec_decode(torch) -> collections.Counter:
     return launches
 
 
-def phase_encdec(torch, profile: bool) -> collections.Counter:
+def phase_encdec(torch, profile: bool) -> tuple:
     """Phase 14 (after 14a, which runs in phases 8 and 11a): for
     whisper-tiny, then llava-next-34b, (b) the training launcher at
     ``--reduced`` on the card and (c, d) training at full width
     (``phase_train_full``; with ``profile``, one profiled step), and for
     whisper-tiny its prefill and decode step (``phase_encdec_decode``);
-    each model freed before the next.  Returns the flash launches by
-    route."""
+    each model freed before the next.  Returns the flash forward's and
+    backward's launches by route."""
     import gc
-    launches = collections.Counter()
+    launches, bwd_launches = collections.Counter(), collections.Counter()
     for arch in (ENCDEC_ARCH, VLM_ARCH):
-        launches += phase_train_launcher(torch, arch)["flash_attention"]
-        launches += phase_train_full(torch, arch, profile)["flash_attention"]
+        for run in (phase_train_launcher(torch, arch),
+                    phase_train_full(torch, arch, profile)):
+            launches += run["flash_attention"]
+            bwd_launches += run["flash_attention_backward"]
         if arch == ENCDEC_ARCH:
             launches += phase_encdec_decode(torch)
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    return launches, bwd_launches
 
 
 def phase_mesh_executor(torch, seq_total: float) -> int:
@@ -3239,11 +3385,13 @@ def main() -> int:
     # phase 11, training: qwen2-7b's serving parameters are freed by now;
     # phase 17's dry-runs run beside 11a and 11b, on the host's cores
     dryruns = phase_dryrun_start()
-    phase_train_grads(torch)
-    flash_launches += phase_train_launcher(torch)["flash_attention"]
+    grad_checks = phase_train_grads(torch)
+    launcher = phase_train_launcher(torch)
     phase_dryrun_join(dryruns)
-    flash_launches += phase_train_full(torch, profile=profile)[
-        "flash_attention"]
+    flash_bwd_launches = collections.Counter()
+    for run in (launcher, phase_train_full(torch, profile=profile)):
+        flash_launches += run["flash_attention"]
+        flash_bwd_launches += run["flash_attention_backward"]
     # 11d-11f: Mamba1 training, through the scan's backward kernel
     scan_grad_checks = phase_scan_grads(torch)
     bwd_launches = collections.Counter()
@@ -3262,7 +3410,9 @@ def main() -> int:
     # phase 14: the encoder-decoder and the VLM, trained at full width
     gc.collect()
     torch.cuda.empty_cache()
-    flash_launches += phase_encdec(torch, profile)
+    encdec_flash, encdec_bwd = phase_encdec(torch, profile)
+    flash_launches += encdec_flash
+    flash_bwd_launches += encdec_bwd
     # phase 15: intra-op SPMD in a world of one NCCL rank
     gc.collect()
     torch.cuda.empty_cache()
@@ -3304,6 +3454,20 @@ def main() -> int:
     # the backward kernel's headline: falcon-mamba-7b's training step
     train_scan_check = next(c for c in scan_grad_checks
                             if c["shape"][:2] == [TRAIN_BATCH, TRAIN_SEQ])
+    # the flash backward kernels' headline: qwen2-7b's training attention
+    # (11c) in bf16 (tensor cores) and float32 (CUDA cores); each entry's
+    # numbers are the backward kernel's alone
+    flash_bwd_checks = [
+        {**{k: c[k] for k in ("shape", "causal", "dtype", "route")},
+         **c["backward"],
+         **{f"function_{k}": c[k] for k in ("rel_err", "ms", "plain_ms",
+                                            "library_ms", "device_ms",
+                                            "library_device_ms",
+                                            "bound_ms")}}
+        for c in grad_checks]
+    train_flash = {c["route"]: c for c in flash_bwd_checks
+                   if c["shape"] == [TRAIN_BATCH, 28, 4, TRAIN_SEQ,
+                                     TRAIN_SEQ, 128]}
     # flash_attention: the wrapper's launches on both routes, headed by the
     # tensor-core kernel of the bf16 long prefill, as in earlier runs;
     # flash_attention_simt: the CUDA-core kernel and its own launches
@@ -3324,7 +3488,17 @@ def main() -> int:
               long_checks["wgmma"], flash_checks),
         entry("flash_attention_simt", "flash_attention.cu", flash,
               flash_launches["simt"], {"simt": flash_launches["simt"]},
-              long_checks["simt"], flash_checks)]
+              long_checks["simt"], flash_checks),
+        # the TPU kernel has no backward: the JAX package differentiates
+        # its attention, attention_scores, through XLA
+        entry("flash_attention_backward", "flash_attention_bwd_wgmma.cu",
+              "src/repro/models/layers.py:166",
+              sum(flash_bwd_launches.values()), flash_bwd_launches,
+              train_flash["wgmma"], flash_bwd_checks),
+        entry("flash_attention_backward_simt", "flash_attention_bwd.cu",
+              "src/repro/models/layers.py:166", flash_bwd_launches["simt"],
+              {"simt": flash_bwd_launches["simt"]}, train_flash["simt"],
+              flash_bwd_checks)]
     if not all(k["launches"] for k in kernels):
         fail(f"a kernel of the main path never launched: "
              f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -11,7 +11,8 @@ from typing import Dict
 #: the kernel wrappers: (module, function name)
 KERNELS = (("matmul", "matmul"), ("ssm_scan", "ssm_scan"),
            ("ssm_scan", "ssm_scan_backward"),
-           ("flash_attention", "flash_attention"))
+           ("flash_attention", "flash_attention"),
+           ("flash_attention", "flash_attention_backward"))
 
 
 def needs_grad(*tensors) -> bool:
@@ -50,10 +51,11 @@ def operator_route(*tensors):
 
 def launch_counts() -> Dict[str, int]:
     """This process's kernel launches so far: ``name`` for each wrapper that
-    has been imported (``ssm_scan_backward`` for the scan's backward
-    kernel), and ``name/route`` (``matmul/simt``, ``flash_attention/wgmma``,
-    ...) and ``name/variant`` (``matmul/vector``) for its counts by route
-    and load variant.  Imports nothing: a process that never loaded a
+    has been imported (``ssm_scan_backward`` and
+    ``flash_attention_backward`` for the backward kernels), and
+    ``name/route`` (``matmul/simt``, ``flash_attention/wgmma``, ...) and
+    ``name/variant`` (``matmul/vector``) for its counts by route and load
+    variant.  Imports nothing: a process that never loaded a
     wrapper launched none of its kernel."""
     counts: Dict[str, int] = {}
     for module, name in KERNELS:

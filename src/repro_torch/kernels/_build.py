@@ -47,9 +47,12 @@ _SIGNATURES = {
     "repro_ssm_scan_f32": [_P] * 9 + [_I] * 5 + [_P],
     "repro_ssm_scan_bf16": [_P] * 9 + [_I] * 5 + [_P],
     "repro_ssm_scan_bwd_f32": [_P] * 17 + [_I] * 5 + [_P],
-    "repro_flash_attention_f32": [_P] * 4 + [_I] * 8 + [_P],
-    "repro_flash_attention_bf16": [_P] * 4 + [_I] * 8 + [_P],
-    "repro_flash_attention_bf16_wgmma": [_P] * 4 + [_I] * 8 + [_P],
+    "repro_flash_attention_f32": [_P] * 5 + [_I] * 8 + [_P],
+    "repro_flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_P],
+    "repro_flash_attention_bf16_wgmma": [_P] * 5 + [_I] * 8 + [_P],
+    "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 8 + [_P],
+    "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 8 + [_P],
+    "repro_flash_attention_bwd_bf16_wgmma": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

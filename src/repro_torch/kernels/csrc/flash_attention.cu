@@ -102,6 +102,11 @@
 // key (Sk = 0) has l = 0 and is written as 0, as the TPU kernel's
 // `l == 0 -> 1` gives.  Rows past Sq are not written.  Every output
 // element is summed in one fixed order, so two launches give the same bits.
+// For training the kernel also writes, where the caller passes an lse
+// tensor (float32 (B,H,Sq)), each row's log-sum-exp lse = log sum_j
+// exp(scale q.k_j) in natural-log units, (m + log2 l) * ln 2 from the
+// row's log2 statistics (-inf with no visible key), which the backward
+// (flash_attention_bwd.cu) reads back; serving passes null.
 // float32 stays IEEE float32 FMA on the CUDA cores, never TF32.
 
 #include "simt.cuh"
@@ -217,8 +222,8 @@ template <typename T, Load L, int DP>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
-                           int H, int KH, int Sq, int Sk, int D, int causal,
-                           float scale_log2) {
+                           float* __restrict__ lse, int H, int KH, int Sq,
+                           int Sk, int D, int causal, float scale_log2) {
   using LY = Layout<DP>;
   constexpr int PITCH = LY::PITCH, NJ = LY::NJ;
   using QRows = Rows<T, L == Load::kRegs ? L : Load::kScalar, DP, BQ, true>;
@@ -424,6 +429,12 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int r = 16 * warp + rg + 4 * i;
     if (r >= rows) continue;
     const size_t row = row_base + r;
+    if (lse != nullptr && kg == 0) {
+      // natural-log units from the log2 statistics; -inf without a key
+      lse[row] = l[i] == 0.0f
+                     ? -INFINITY
+                     : (m[i] + log2f(l[i])) * 0.6931471805599453f;
+    }
     const float inv = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
@@ -469,30 +480,30 @@ cudaError_t prepare(int device) {
 }
 
 template <typename T, Load L, int DP>
-cudaError_t launch_dp(const T* q, const T* k, const T* v, T* out, int B,
-                      int H, int KH, int Sq, int Sk, int D, int causal,
-                      int device, cudaStream_t s) {
+cudaError_t launch_dp(const T* q, const T* k, const T* v, T* out, float* lse,
+                      int B, int H, int KH, int Sq, int Sk, int D,
+                      int causal, int device, cudaStream_t s) {
   cudaError_t err = prepare<T, L, DP>(device);
   if (err != cudaSuccess) return err;
   const float scale_log2 =
       static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(D)));
   const dim3 grid((Sq - 1) / BQ + 1, H, B);   // Sq > 0
   flash_attention_kernel<T, L, DP><<<grid, THREADS, Layout<DP>::SMEM_BYTES,
-                                     s>>>(q, k, v, out, H, KH, Sq, Sk, D,
-                                          causal, scale_log2);
+                                     s>>>(q, k, v, out, lse, H, KH, Sq, Sk,
+                                          D, causal, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T, Load L>
-cudaError_t launch_load(const T* q, const T* k, const T* v, T* out, int B,
-                        int H, int KH, int Sq, int Sk, int D, int causal,
-                        int device, cudaStream_t s) {
+cudaError_t launch_load(const T* q, const T* k, const T* v, T* out,
+                        float* lse, int B, int H, int KH, int Sq, int Sk,
+                        int D, int causal, int device, cudaStream_t s) {
   if (D <= 64) {
-    return launch_dp<T, L, 64>(q, k, v, out, B, H, KH, Sq, Sk, D, causal,
-                               device, s);
+    return launch_dp<T, L, 64>(q, k, v, out, lse, B, H, KH, Sq, Sk, D,
+                               causal, device, s);
   }
-  return launch_dp<T, L, 128>(q, k, v, out, B, H, KH, Sq, Sk, D, causal,
-                              device, s);
+  return launch_dp<T, L, 128>(q, k, v, out, lse, B, H, KH, Sq, Sk, D,
+                              causal, device, s);
 }
 
 bool aligned16(const void* p) {
@@ -500,9 +511,9 @@ bool aligned16(const void* p) {
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KH, int Sq, int Sk, int D, int causal, int device,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int B, int H, int KH, int Sq, int Sk, int D, int causal,
+           int device, void* stream) {
   if (B < 0 || H < 1 || KH < 1 || H % KH != 0 || Sq < 0 || Sk < 0 ||
       D < 1 || D > MAX_D || B > 65535 || H > 65535) {
     return cudaErrorInvalidValue;
@@ -514,18 +525,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const auto* kp = static_cast<const T*>(k);
   const auto* vp = static_cast<const T*>(v);
   auto* op = static_cast<T*>(out);
+  auto* lp = static_cast<float*>(lse);
   const auto s = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same<T, float>::value) {
     if (D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
         aligned16(out)) {
-      return launch_load<T, Load::kVector>(qp, kp, vp, op, B, H, KH, Sq, Sk,
-                                           D, causal, device, s);
+      return launch_load<T, Load::kVector>(qp, kp, vp, op, lp, B, H, KH, Sq,
+                                           Sk, D, causal, device, s);
     }
-    return launch_load<T, Load::kScalar>(qp, kp, vp, op, B, H, KH, Sq, Sk,
-                                         D, causal, device, s);
+    return launch_load<T, Load::kScalar>(qp, kp, vp, op, lp, B, H, KH, Sq,
+                                         Sk, D, causal, device, s);
   } else {
-    return launch_load<T, Load::kRegs>(qp, kp, vp, op, B, H, KH, Sq, Sk, D,
-                                       causal, device, s);
+    return launch_load<T, Load::kRegs>(qp, kp, vp, op, lp, B, H, KH, Sq, Sk,
+                                       D, causal, device, s);
   }
 }
 
@@ -533,22 +545,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers of
 // contiguous row-major tensors q (B,H,Sq,D), k, v (B,KH,Sk,D) and out
-// (B,H,Sq,D); `causal` is 0 or 1; `stream` is the caller's cudaStream_t.
-// The call only queues the kernel and returns the launch's cudaError_t.
+// (B,H,Sq,D); lse is null or a float32 (B,H,Sq) tensor that receives each
+// row's log-sum-exp (see the header); `causal` is 0 or 1; `stream` is the
+// caller's cudaStream_t.  The call only queues the kernel and returns the
+// launch's cudaError_t.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* out, int B,
-                                         int H, int KH, int Sq, int Sk, int D,
-                                         int causal, int device,
+                                         const void* v, void* out, void* lse,
+                                         int B, int H, int KH, int Sq, int Sk,
+                                         int D, int causal, int device,
                                          void* stream) {
-  return launch<float>(q, k, v, out, B, H, KH, Sq, Sk, D, causal, device,
-                       stream);
+  return launch<float>(q, k, v, out, lse, B, H, KH, Sq, Sk, D, causal,
+                       device, stream);
 }
 
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* out, int B,
-                                          int H, int KH, int Sq, int Sk,
-                                          int D, int causal, int device,
-                                          void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, H, KH, Sq, Sk, D, causal,
-                               device, stream);
+                                          const void* v, void* out, void* lse,
+                                          int B, int H, int KH, int Sq,
+                                          int Sk, int D, int causal,
+                                          int device, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, lse, B, H, KH, Sq, Sk, D,
+                               causal, device, stream);
 }

@@ -57,7 +57,13 @@
 // folded in by log2(e).
 //
 // Numbers.  P is rounded to bf16 before P V, as the JAX model does at bf16
-// compute; l sums the float32 probabilities.  Every output element is
+// compute; l sums the float32 probabilities.  For training the kernel also
+// writes, where the caller passes an lse tensor (float32 (B,H,Sq)), each
+// row's log-sum-exp lse = log sum_j exp(scale q.k_j) in natural-log units:
+// (m + log2 l) * ln 2 from the row's statistics, which run in log2 units
+// of the scaled scores; -inf for a row with no visible key.  The backward
+// (flash_attention_bwd_wgmma.cu) reads it back times log2 e.  Serving
+// passes null and the kernel writes nothing more.  Every output element is
 // summed in one fixed order (no split-KV, no atomics), so two launches give
 // the same bits.
 //
@@ -121,13 +127,21 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// A row's log-sum-exp in natural-log units from its statistics in log2
+// units (m the scaled max, l the sum of exp2 against it); -inf for a row
+// that saw no key
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l == 0.0f ? -INFINITY : (m + log2f(l)) * 0.6931471805599453f;
+}
+
 // ND: boxes of 64 along D (1 when D <= 64, else 2).
 template <int ND>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       __nv_bfloat16* __restrict__ out, int H, int KH, int Sq,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int H, int KH, int Sq,
                        int Sk, int D, int causal, float scale_log2) {
   using L = Smem<ND>;
   extern __shared__ uint8_t smem_raw[];
@@ -320,6 +334,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     const float inv_a = 1.0f / (l_a == 0.0f ? 1.0f : l_a);
     const float inv_b = 1.0f / (l_b == 0.0f ? 1.0f : l_b);
+    if (lse != nullptr && lane % 4 == 0) {
+      // the quad's four lanes hold the same m and l
+      float* lp = lse + static_cast<size_t>(b * H + h) * Sq;
+      if (row_a < Sq) lp[row_a] = row_lse(m_a, l_a);
+      if (row_b < Sq) lp[row_b] = row_lse(m_b, l_b);
+    }
     __nv_bfloat16* op = out + static_cast<size_t>(b * H + h) * Sq * D;
 #pragma unroll
     for (int c = 0; c < ND; ++c)
@@ -355,9 +375,9 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int heads, int S,
 
 template <int ND>
 cudaError_t launch_nd(const CUtensorMap& qmap, const CUtensorMap& kmap,
-                      const CUtensorMap& vmap, __nv_bfloat16* out, int B,
-                      int H, int KH, int Sq, int Sk, int D, int causal,
-                      cudaStream_t stream) {
+                      const CUtensorMap& vmap, __nv_bfloat16* out,
+                      float* lse, int B, int H, int KH, int Sq, int Sk,
+                      int D, int causal, cudaStream_t stream) {
   const size_t bytes = Smem<ND>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -366,7 +386,7 @@ cudaError_t launch_nd(const CUtensorMap& qmap, const CUtensorMap& kmap,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const double log2e = 1.4426950408889634;
   flash_wgmma_kernel<ND><<<grid, THREADS, bytes, stream>>>(
-      qmap, kmap, vmap, out, H, KH, Sq, Sk, D, causal,
+      qmap, kmap, vmap, out, lse, H, KH, Sq, Sk, D, causal,
       static_cast<float>(log2e / std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
@@ -375,14 +395,17 @@ cudaError_t launch_nd(const CUtensorMap& qmap, const CUtensorMap& kmap,
 
 // Plain C interface, loaded with ctypes.  q (B,H,Sq,D), k, v (B,KH,Sk,D)
 // and out (B,H,Sq,D) are contiguous bf16 device tensors, 16-byte aligned,
-// with D % 8 == 0 and D <= 128 (TMA needs 16-byte row strides); `causal`
-// is 0 or 1; `stream` is the caller's cudaStream_t.  The call only queues
-// the kernel and returns the launch's cudaError_t.
+// with D % 8 == 0 and D <= 128 (TMA needs 16-byte row strides); lse is
+// null or a float32 (B,H,Sq) device tensor that receives each row's
+// log-sum-exp (see the header); `causal` is 0 or 1; `stream` is the
+// caller's cudaStream_t.  The call only queues the kernel and returns the
+// launch's cudaError_t.
 extern "C" int repro_flash_attention_bf16_wgmma(const void* q, const void* k,
                                                 const void* v, void* out,
-                                                int B, int H, int KH, int Sq,
-                                                int Sk, int D, int causal,
-                                                int device, void* stream) {
+                                                void* lse, int B, int H,
+                                                int KH, int Sq, int Sk, int D,
+                                                int causal, int device,
+                                                void* stream) {
   if (B < 0 || H < 1 || KH < 1 || H % KH != 0 || Sq < 0 || Sk < 0 ||
       D < 8 || D > MAX_D || D % 8 != 0 || B > 65535 || H > 65535) {
     return cudaErrorInvalidValue;
@@ -400,9 +423,12 @@ extern "C" int repro_flash_attention_bf16_wgmma(const void* q, const void* k,
     if (err != cudaSuccess) return err;
   }
   auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* lp = static_cast<float*>(lse);
   const auto s = static_cast<cudaStream_t>(stream);
   if (D <= 64) {
-    return launch_nd<1>(qmap, kmap, vmap, op, B, H, KH, Sq, Sk, D, causal, s);
+    return launch_nd<1>(qmap, kmap, vmap, op, lp, B, H, KH, Sq, Sk, D, causal,
+                        s);
   }
-  return launch_nd<2>(qmap, kmap, vmap, op, B, H, KH, Sq, Sk, D, causal, s);
+  return launch_nd<2>(qmap, kmap, vmap, op, lp, B, H, KH, Sq, Sk, D, causal,
+                      s);
 }

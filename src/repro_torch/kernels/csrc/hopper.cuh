@@ -1,5 +1,5 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core kernels,
-// matmul_wgmma.cu and flash_attention_wgmma.cu.
+// matmul_wgmma.cu, flash_attention_wgmma.cu and flash_attention_bwd_wgmma.cu.
 //
 // Host side: 2-D and 3-D TMA tensor maps over bf16 tensors, with a 128-byte
 // swizzle and zero fill out of bounds.  cuTensorMapEncodeTiled is a driver
@@ -11,8 +11,8 @@
 // Device side, in inline PTX: mbarrier init / arrive / expect_tx / parity
 // wait, TMA tile loads (cp.async.bulk.tensor) that complete on an mbarrier,
 // named barriers, wgmma matrix descriptors for 128B-swizzled tiles, wgmma
-// fence / commit / wait, and two wgmma shapes, bf16 in and float32 out:
-//   m64n128k16 with A and B from shared memory (SS),
+// fence / commit / wait, and three wgmma shapes, bf16 in and float32 out:
+//   m64n128k16 and m64n64k16 with A and B from shared memory (SS),
 //   m64n64k16 with A from registers and B from shared memory (RS).
 //
 // Shared-memory layout that TMA writes and wgmma reads.  A 128B-swizzled box
@@ -216,6 +216,32 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (64x64 f32) = A (64x16, desc da) * B (16x64, desc db) + (scale_d ? d :
+// 0).  TRANS_B as above.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 

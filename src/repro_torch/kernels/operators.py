@@ -1,9 +1,11 @@
 """The kernels as ``torch.library`` operators, with fake implementations and
 the FLOPs each one does.
 
-``repro_torch::matmul``, ``repro_torch::flash_attention``,
-``repro_torch::ssm_scan`` (with the states it keeps for training, when
-asked) and ``repro_torch::ssm_scan_backward`` call the kernels' wrappers
+``repro_torch::matmul``, ``repro_torch::flash_attention`` (with the rows'
+log-sum-exp it keeps for training, when asked),
+``repro_torch::flash_attention_backward``, ``repro_torch::ssm_scan`` (with
+the states it keeps for training, when asked) and
+``repro_torch::ssm_scan_backward`` call the kernels' wrappers
 (looked up in their modules at each call), so on the card they launch the
 kernels and count the launches as the wrappers always do, and for CPU
 tensors they give the plain versions.  Their fake implementations give the
@@ -65,6 +67,19 @@ def flash_flops(B: int, H: int, Sq: int, Sk: int, D: int,
     return 4 * D * flash_pairs(Sq, Sk, causal) * B * H
 
 
+def flash_backward_flops(B: int, H: int, Sq: int, Sk: int, D: int,
+                         causal: bool) -> int:
+    """``14 D`` operations per visible pair and head: the seven products
+    the backward kernels do, ``2 D`` each: the dK/dV pass's ``Sᵀ = K Qᵀ``,
+    ``dPᵀ = V dOᵀ``, ``dV += Pᵀ dO`` and ``dK += dSᵀ Q``, and the dQ pass's
+    ``S``, ``dP`` (both recomputed) and ``dQ += dS K``.  The least work
+    is five products, ``10 D`` (``launch.costs.flash_backward_bound``).
+    The exponentials, ``dS = P ∘ (dP − Δ)`` and the pre-pass's ``Δ =
+    rowsum(dO ∘ O)`` (``2 D`` a row) are not counted, as
+    :func:`flash_flops` leaves the softmax out."""
+    return 14 * D * flash_pairs(Sq, Sk, causal) * B * H
+
+
 def scan_flops(Bsz: int, S: int, D: int, N: int) -> int:
     """7 float32 operations per state element and step: ``dt·A``, its
     exp (counted as one), ``dt·x``, its product with ``B``, the decay of
@@ -99,13 +114,35 @@ def _(x, y):
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
-def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tensor:
-    return _flash.flash_attention(q, k, v, causal=causal)
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                    keep_lse: bool) -> Tuple[Tensor, Tensor]:
+    """``(out, lse)``; ``lse`` is empty unless ``keep_lse``."""
+    if keep_lse:
+        return _flash.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+    return (_flash.flash_attention(q, k, v, causal=causal),
+            q.new_empty((0,), dtype=torch.float32))
 
 
 @flash_attention.register_fake
-def _(q, k, v, causal):
-    return torch.empty_like(q)
+def _(q, k, v, causal, keep_lse):
+    B, H, Sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty(
+        (B, H, Sq) if keep_lse else (0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=())
+def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                             dout: Tensor, lse: Tensor, causal: bool
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    return tuple(_flash.flash_attention_backward(q, k, v, out, dout, lse,
+                                                 causal=causal))
+
+
+@flash_attention_backward.register_fake
+def _(q, k, v, out, dout, lse, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 @torch.library.custom_op("repro_torch::ssm_scan", mutates_args=())
@@ -166,6 +203,14 @@ def _flash_cost(args, out) -> Tuple[int, str]:
     return flash_flops(B, H, Sq, k.shape[2], D, causal), _dtype(q)
 
 
+def _flash_backward_cost(args, out) -> Tuple[int, str]:
+    q, k = args[:2]
+    causal = args[6]
+    B, H, Sq, D = q.shape
+    return (flash_backward_flops(B, H, Sq, k.shape[2], D, causal),
+            _dtype(q))
+
+
 def _scan_cost(args, out) -> Tuple[int, str]:
     x, A = args[0], args[4]
     Bsz, S, D = x.shape
@@ -182,6 +227,8 @@ def _scan_backward_cost(args, out) -> Tuple[int, str]:
 FLOPS: Dict[object, Callable] = {
     torch.ops.repro_torch.matmul.default: _matmul_cost,
     torch.ops.repro_torch.flash_attention.default: _flash_cost,
+    torch.ops.repro_torch.flash_attention_backward.default:
+        _flash_backward_cost,
     torch.ops.repro_torch.ssm_scan.default: _scan_cost,
     torch.ops.repro_torch.ssm_scan_backward.default: _scan_backward_cost,
 }

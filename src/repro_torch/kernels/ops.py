@@ -58,7 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel takes any ``Sq`` and ``Sk``.  When autograd tracks the call,
     ``impl="kernel"`` goes through the autograd Function
     :class:`~repro_torch.kernels.flash_attention.FlashAttention` (the same
-    kernel forward, a backward in torch ops)."""
+    kernel forward, the backward kernel)."""
     if impl == "ref":
         sharded = _sharded(q, k, v)
         if sharded is not None:
@@ -76,7 +76,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return _flash.FlashAttention.apply(q, k, v, causal)
         op = operator_route(q, k, v)
         if op is not None:
-            return op.flash_attention(q, k, v, causal)
+            return op.flash_attention(q, k, v, causal, False)[0]
         return _flash.flash_attention(q, k, v, causal=causal)
     raise ValueError(f"unknown impl {impl!r} (expected 'kernel' or 'ref')")
 

@@ -32,7 +32,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, return_lse: bool = False):
     """Softmax attention of ``q (B, H, Sq, D)`` over ``k, v (B, KH, Sk, D)``,
     returned as ``(B, H, Sq, D)`` in ``q.dtype``.
 
@@ -42,6 +42,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``j <= i`` on absolute indices from 0 (top-left, also when Sq != Sk).
     Port of ``repro/kernels/ref.py::attention``.  Like :func:`matmul` it
     refuses to run on the card while TF32 is allowed.
+
+    With ``return_lse`` it returns ``(out, lse)``: ``lse (B, H, Sq)``, each
+    row's float32 log-sum-exp of its masked scaled scores (natural log;
+    ``-inf`` for a row with no key, ``Sk == 0``), as the kernels write it
+    for the backward.
     """
     if q.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -58,7 +63,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kpos = torch.arange(Sk, device=q.device)[None, :]
         s = torch.where(kpos <= qpos, s, -1e30)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,

@@ -19,8 +19,9 @@ wrapped back as a DTensor with the global shape.  A DTensor never reaches
   ``k`` and ``v`` take the same placements; the sequence and head dims are
   replicated first.  Under autograd the local call goes through the
   ``FlashAttention`` Function (``ops.flash_attention`` on the local
-  tensors); ``to_local`` and ``from_local`` carry the gradient back, each
-  of q, k and v split as its output is, so no gradient is a partial sum.
+  tensors: the backward kernel on each rank's heads); ``to_local`` and
+  ``from_local`` carry the gradient back, each of q, k and v split as its
+  output is, so no gradient is a partial sum.
   ``heads_call`` runs any attention so, a decode step's over its cache
   (``models/layers.py::attention_scores``) among them;
 - ``ssm_scan(x, dt, B, C, A, h0)``: the batch (``Shard(0)`` of ``x``) and
@@ -35,9 +36,9 @@ wrapped back as a DTensor with the global shape.  A DTensor never reaches
   they are summed over.
 
 A plain tensor beside a DTensor is taken as the full value, the same on
-every rank.  ``local_calls`` counts the kernels' calls made here (and the
-scan's backward passes, by a hook on each local output), so a run can
-show that its launches went through this module.
+every rank.  ``local_calls`` counts the kernels' calls made here, so a run
+can show that its launches went through this module; the backward passes of
+the attention and of the scan are counted by a hook on each local output.
 
 The local matmul goes through the operator ``repro_torch::matmul``
 (``kernels/operators.py``: the kernel's wrapper), whose FLOPs (2 M N K of
@@ -55,7 +56,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from ..parallel.sharding import local_call
 from . import needs_grad, operators, refuse_grad
 
-local_calls = {"flash_attention": 0, "ssm_scan": 0, "ssm_scan_backward": 0}
+local_calls = {"flash_attention": 0, "flash_attention_backward": 0,
+               "ssm_scan": 0, "ssm_scan_backward": 0}
 
 def _as_dtensor(t: torch.Tensor, mesh) -> DTensor:
     if isinstance(t, DTensor):
@@ -112,7 +114,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of ``q`` over ``k, v`` (B, H, S, D) with ``kernel`` (a
     callable of q, k, v) on each rank's batch rows and heads."""
     local_calls["flash_attention"] += 1
-    return heads_call(kernel, q, k, v, 1)
+
+    def counted(q, k, v):
+        out = kernel(q, k, v)
+        if needs_grad(q, k, v):
+            out.register_hook(_count_flash_backward)
+        return out
+    return heads_call(counted, q, k, v, 1)
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -152,4 +160,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 
 def _count_backward(grad):
     local_calls["ssm_scan_backward"] += 1
+    return grad
+
+
+def _count_flash_backward(grad):
+    local_calls["flash_attention_backward"] += 1
     return grad

@@ -150,6 +150,24 @@ def flash_bound(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
     return _bound(ops_ms, bytes_ms)
 
 
+def flash_backward_bound(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
+                         causal: bool, dtype: str, itemsize: int):
+    """Least time the card could take for the backward alone, in ms: the
+    five products of the gradient, 10 D operations a visible pair
+    (``operators.flash_flops`` × 2.5; the kernels do 14 D,
+    ``operators.flash_backward_flops``), at the input type's peak; or q, k,
+    v, out, dout and the float32 lse read once and dq, dk, dv written once
+    at HBM bandwidth.  It exceeds ``flash_bound(..., backward=True)`` by at
+    most the lse's bytes: forward and backward need no lse in memory."""
+    flops = 2.5 * operators.flash_flops(B, H, Sq, Sk, D, causal)
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    # q, out, dout read and dq written; k, v read and dk, dv written
+    nbytes = (itemsize * (4 * B * H * Sq * D + 4 * B * KH * Sk * D)
+              + 4 * B * H * Sq)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return _bound(ops_ms, bytes_ms)
+
+
 # ---------------------------------------------------------------------------
 # the counter
 # ---------------------------------------------------------------------------

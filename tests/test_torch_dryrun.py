@@ -236,6 +236,48 @@ def test_a_reduced_prefill_counts_the_flops_of_its_shapes():
     assert cost["collectives"] == 0                  # a mesh of one device
 
 
+def test_a_reduced_train_step_counts_the_flash_backward_once_a_layer():
+    """A reduced qwen2-7b training step on fake tensors: the flash
+    backward runs as the operator ``repro_torch::flash_attention_backward``
+    once a layer, counted at ``flash_backward_flops`` (the kernels' seven
+    products, 14 D a visible pair) in the inputs' dtype, beside the
+    forward's two launches a layer (the forward and the remat recompute);
+    the backward's products are no longer float32 torch ops."""
+    from repro_torch.kernels import operators
+    arch = "qwen2-7b"
+    over = dict(_reduced_overrides(arch), compute_dtype="bfloat16")
+    B, S = 2, 16
+    with dryrun.fake_world(1):
+        case = steps.build_case(arch, ShapeSpec("t", S, B, "train"),
+                                dryrun.make_mesh("one"), overrides=over)
+        compiled = steps.lower_case(case).compile()
+    cfg = case.cfg
+    cost = compiled.cost_analysis()
+    ops = [line.split(" ")[0] for line in compiled.as_text().splitlines()]
+    L, H, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    assert ops.count("repro_torch.flash_attention_backward.default") == L
+    assert ops.count("repro_torch.flash_attention.default") == 2 * L
+    per_layer = operators.flash_backward_flops(B, H, S, S, hd, True)
+    assert per_layer == 14 * hd * (S * (S + 1) // 2) * B * H
+    assert cost["flops_by_op"]["repro_torch.flash_attention_backward"] == \
+        L * per_layer
+    assert cost["flops_by_op"]["repro_torch.flash_attention"] == \
+        2 * L * operators.flash_flops(B, H, S, S, hd, True)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        q = torch.empty(B, H, S, hd, dtype=torch.bfloat16)
+        k = torch.empty(B, cfg.n_kv_heads, S, hd, dtype=torch.bfloat16)
+        lse = torch.empty(B, H, S)
+        args = (q, k, k, q, q, lse, True)
+        cost_fn = operators.FLOPS[
+            torch.ops.repro_torch.flash_attention_backward.default]
+        assert cost_fn(args, None) == (per_layer, "bfloat16")
+        grads = torch.ops.repro_torch.flash_attention_backward(*args)
+    assert [tuple(g.shape) for g in grads] == [tuple(q.shape),
+                                              tuple(k.shape), tuple(k.shape)]
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+
+
 @pytest.mark.parametrize("arch,kw,L", [
     ("qwen2-7b", {}, 6),
     ("zamba2-7b", {"shared_attn_every": 2}, 6),

@@ -317,7 +317,8 @@ def test_chip_smoke_phase_14_cells():
     """chip_smoke.py's training cells: the parameter counts it checks are
     the cut configs' (the JAX package's counts too), and a step launches
     flash 12 times for whisper-tiny (no remat) and 8 for llava-next-34b
-    (4 layers, forward and recompute), all on the wgmma route."""
+    (4 layers, forward and recompute), and its backward kernel 12 and 4
+    times (one a forward that autograd keeps), all on the wgmma route."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -325,15 +326,16 @@ def test_chip_smoke_phase_14_cells():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model_module
     from repro_torch.models.config import cut_depth
-    counts = {chip_smoke.ENCDEC_ARCH: 12, chip_smoke.VLM_ARCH: 8}
-    for arch, per_step in counts.items():
+    counts = {chip_smoke.ENCDEC_ARCH: (12, 12), chip_smoke.VLM_ARCH: (8, 4)}
+    for arch, (per_step, backward) in counts.items():
         layers, n_params, _, _ = chip_smoke.TRAIN_CELLS[arch]
         cfg = cut_depth(get_config(arch), layers)
         M = ED if cfg.is_encoder_decoder else PTF
         assert M.count_params(cfg) == n_params
         assert model_module(cfg) is M
-        assert chip_smoke._train_kernels(cfg) == {fa.flash_attention:
-                                                  per_step}
+        assert chip_smoke._train_kernels(cfg) == {
+            fa.flash_attention: per_step,
+            fa.flash_attention_backward: backward}
         assert chip_smoke.expected_route(cfg) == "wgmma"
     jcfg = jax_config(chip_smoke.VLM_ARCH)
     jcfg = dataclasses.replace(jcfg, n_layers=chip_smoke.VLM_LAYERS,

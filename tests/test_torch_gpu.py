@@ -981,26 +981,145 @@ def test_encdec_prefill_and_decode_on_the_card(cuda, compute_dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_function_gradient_matches_plain_autograd(cuda, B, H, KH, Sq,
                                                         Sk, D, causal, dtype):
-    """dq, dk, dv through the Function (the kernel's forward on its route,
-    the backward in torch ops) against autograd of the plain version, each
-    within the forward's tolerance of the largest reference entry."""
+    """dq, dk, dv through the Function (the kernel's forward and the
+    backward kernel, both on the route of the dtype) against autograd of the
+    plain version, each within the forward's tolerance of the largest
+    reference entry."""
     from repro_torch.kernels import flash_attention as fa, ops, ref
     q, k, v = (t.requires_grad_() for t in _attn_inputs(
         cuda, B, H, KH, Sq, Sk, D, dtype, seed=Sq + Sk))
     dout = torch.randn(B, H, Sq, D, device=cuda).to(dtype)
     path = fa.route(dtype, D)
-    before = fa.flash_attention.route_launches[path]
+    before = (fa.flash_attention.route_launches[path],
+              fa.flash_attention_backward.route_launches[path])
     out = ops.flash_attention(q, k, v, causal=causal)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
-    assert fa.flash_attention.route_launches[path] == before + 1
+    assert (fa.flash_attention.route_launches[path],
+            fa.flash_attention_backward.route_launches[path]) == (
+        before[0] + 1, before[1] + 1)
     want = torch.autograd.grad(ref.attention(q, k, v, causal=causal),
                                (q, k, v), dout)
     for g, w in zip(got, want):
         assert g.dtype == dtype
         err = (g.float() - w.float()).abs().max() / w.float().abs().max()
         assert err <= TOL[dtype], err
+
+
+# The backward kernels alone, given the forward kernel's out and lse, at
+# small ragged shapes: the tiles' edges (64-row query tiles and 64-key tiles
+# on simt; 128-row blocks and 64-row steps on wgmma), Sq != Sk both ways,
+# Sq = 1, MHA, GQA and MQA, D = 72 (wgmma, a second box mostly zero-filled)
+# and 20 (bf16 on simt).  "misaligned" copies every tensor one element past
+# a 16-byte boundary, which the wgmma route refuses: bf16 runs the simt
+# kernel then.
+_BWD_SHAPES = [(1, 4, 4, 130, 130, 64), (2, 6, 2, 200, 77, 128),
+               (1, 4, 1, 65, 300, 72), (2, 7, 1, 1, 129, 128),
+               (1, 2, 2, 257, 257, 20), (1, 8, 2, 129, 129, 112)]
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D", _BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,aligned", [(torch.float32, True),
+                                           (torch.bfloat16, True),
+                                           (torch.bfloat16, False)])
+def test_flash_backward_kernel_matches_plain_autograd(cuda, B, H, KH, Sq, Sk,
+                                                      D, causal, dtype,
+                                                      aligned):
+    """The backward kernel of each route against autograd of the plain
+    attention on the same inputs, each gradient within the forward's
+    tolerance of its largest reference entry; the forward kernel's lse
+    against the plain version's; two launches the same bits, each one
+    launch on the route ``route()`` gives."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    q, k, v = _attn_inputs(cuda, B, H, KH, Sq, Sk, D, dtype, seed=Sq * Sk)
+    dout = torch.randn(B, H, Sq, D, generator=torch.Generator(
+        device=cuda).manual_seed(D), device=cuda).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want_lse = ref.attention(q, k, v, causal=causal, return_lse=True)[1]
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    args = [q, k, v, out, dout]
+    if not aligned:
+        args = [_misaligned(t) for t in args]
+    path = fa.route(dtype, D, aligned=aligned)
+    assert path == ("wgmma" if dtype == torch.bfloat16 and aligned and
+                    D % 8 == 0 else "simt")
+    before = fa.flash_attention_backward.route_launches[path]
+    got = fa.flash_attention_backward(*args, lse, causal=causal)
+    again = fa.flash_attention_backward(*args, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.route_launches[path] == before + 2
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention(*leaves, causal=causal),
+                               leaves, dout)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    # a gradient that is 0 in exact arithmetic (dq of a causal row that
+    # sees one key: P = 1, so dS = dP - rowsum(dO o O) = 0) is held to the
+    # largest entry of the three
+    largest = max(w.float().abs().max() for w in want)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g.view(bits), a.view(bits)), name
+        scale = w.float().abs().max()
+        err = (g.float() - w.float()).abs().max() / (
+            scale if scale > 0 else largest)
+        assert err <= TOL[dtype], (name, err)
+
+
+def test_flash_backward_with_no_keys_or_queries_gives_zeros(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    for Sq, Sk in ((5, 0), (0, 7)):
+        q, k, v = _attn_inputs(cuda, 1, 4, 2, Sq, Sk, 32, torch.bfloat16)
+        out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+        if Sq:
+            assert bool((lse == float("-inf")).all())
+        before = fa.flash_attention_backward.launches
+        grads = fa.flash_attention_backward(q, k, v, out, torch.ones_like(q),
+                                            lse, causal=False)
+        assert fa.flash_attention_backward.launches == before
+        assert all(g.shape == t.shape and not g.any()
+                   for g, t in zip(grads, (q, k, v)))
+
+
+def test_flash_backward_does_not_fall_back_when_the_library_fails(
+        cuda, monkeypatch):
+    """A CUDA-tensor backward whose kernel library cannot be had raises;
+    the plain backward is never run in its place."""
+    from repro_torch.kernels import _build, flash_attention as fa, ops
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        cuda, 1, 4, 2, 64, 64, 64, torch.bfloat16))
+    out = ops.flash_attention(q, k, v)
+
+    def broken():
+        raise RuntimeError("the kernel library failed to build")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain backward ran on the card")
+    monkeypatch.setattr(_build, "library", broken)
+    monkeypatch.setattr(fa, "attention_backward", plain)
+    with pytest.raises(RuntimeError, match="failed to build"):
+        torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+
+
+def test_flash_backward_wrapper_rejects_what_it_cannot_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 1, 4, 2, 16, 16, 32, torch.float32)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_backward(q, k, v, out, out, lse.double(),
+                                    causal=True)
+    with pytest.raises(TypeError):
+        fa.flash_attention_backward(q, k, v, out.bfloat16(), out, lse,
+                                    causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q, k, v, out, out.cpu(), lse,
+                                    causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q, k, v, out,
+                                    out.transpose(2, 3).contiguous()
+                                    .transpose(2, 3), lse, causal=True)
 
 
 def test_kernel_wrappers_refuse_a_gradient_on_the_card(cuda):
@@ -1044,8 +1163,9 @@ def test_reduced_train_step_kernel_matches_ref(cuda, compute_dtype, arch):
     of a model without RoPE (whisper's) has the exact gradient 0, so it is
     noise in both and not compared; nor is it in bf16.  Under selective
     remat each layer's kernel forward runs twice (forward and recompute)
-    and the scan's backward kernel once; the encoder-decoder has no remat:
-    one flash forward an encoder layer and two a decoder layer."""
+    and the backward kernel once; the encoder-decoder has no remat: one
+    flash forward and one backward an encoder layer, two a decoder
+    layer."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset
@@ -1062,11 +1182,11 @@ def test_reduced_train_step_kernel_matches_ref(cuda, compute_dtype, arch):
     b = SyntheticLMDataset(cfg.vocab_size, 64, 2, seed=0).batch_at(0)
     batch = add_frontend({k: torch.as_tensor(v, device=cuda)
                           for k, v in b.items()}, cfg, 2, cuda)
-    counters = ((fa.flash_attention,) if arch != "falcon-mamba-7b"
+    counters = ((fa.flash_attention, fa.flash_attention_backward)
+                if arch != "falcon-mamba-7b"
                 else (scan.ssm_scan, scan.ssm_scan_backward))
-    per_step = ((cfg.n_enc_layers + 2 * cfg.n_layers,)
+    per_step = ((cfg.n_enc_layers + 2 * cfg.n_layers,) * 2
                 if cfg.is_encoder_decoder else
-                (2 * cfg.n_layers,) if arch != "falcon-mamba-7b" else
                 (2 * cfg.n_layers, cfg.n_layers))
     out = {}
     for impl in ("kernel", "ref"):

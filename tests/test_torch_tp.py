@@ -496,7 +496,8 @@ def test_kernels_run_through_sharded_on_local_shapes(world):
     heads do not split 4 ways, so the heads stay whole and only the mesh's
     (absent) batch split applies; the scan takes 2 batch rows and 128 of
     falcon-mamba's 256 channels, B and C whole on the channels.  Every
-    wrapper call came through ``kernels/sharded.py``."""
+    wrapper call came through ``kernels/sharded.py``, and each backward of
+    the attention and of the scan too."""
     cfg = get_config("qwen2-7b").reduced()
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     fm = get_config("falcon-mamba-7b").reduced()
@@ -513,6 +514,8 @@ def test_kernels_run_through_sharded_on_local_shapes(world):
         layers, steps = cfg.n_layers, 3
         assert tp2["through_sharded"]["flash_attention"] == \
             2 * layers * steps
+        assert tp2["through_sharded"]["flash_attention_backward"] == \
+            layers * steps
         assert scan["through_sharded"]["ssm_scan"] == 2 * layers * steps
         assert scan["through_sharded"]["ssm_scan_backward"] == \
             layers * steps
