@@ -111,9 +111,11 @@ Each phase prints one line; any failure raises and exits non-zero:
    16x6x448x64 over 1500 keys) and decoder (16x6x448x64, causal), and
    llava-next-34b's training attention (q 2x56x2048x128 over 8 kv heads),
    in float32 (simt) and bf16 (wgmma): the backward kernel alone
-   (``flash_attention_backward``), given the forward kernel's out and row
-   log-sum-exp, against the plain backward given the same, two launches
-   the same bits; then the Function (the forward kernel, then the
+   (``flash_attention_backward``: the delta pre-pass, then one launch of
+   the dK/dV and dQ units, heaviest first), given the forward kernel's out
+   and row log-sum-exp, against the plain backward given the same, two
+   launches the same bits, with the kernel's registers, shared memory,
+   local (spill) bytes and resident blocks and warps an SM; then the Function (the forward kernel, then the
    backward kernel) against autograd of the plain version: dq, dk, dv
    within the forward's tolerance of the largest reference entry, one
    launch of each kernel on the row's route, with CUDA-event times of the
@@ -273,7 +275,9 @@ launches in 11e and 11f; the scan's entries phase 16b's too;
 attention (its numbers the backward kernel's alone), the backward's
 launches on both routes in 11b, 11c and 14b-d, and
 ``flash_attention_backward_simt``, the CUDA-core backward kernel and its
-own launches), and
+own launches; both backward entries say in ``design`` how they were
+redesigned: one heaviest-first launch of their units, and on the CUDA
+cores two teams that stream their tiles by cp.async), and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a card, or outside a checkout, it prints no result and exits 1.
@@ -1974,6 +1978,7 @@ def phase_train_grads(torch) -> list:
                      f"{kernel_errs} relative to the plain backward's "
                      f"largest, tolerance {TOL[dname]}")
             del got, again, want
+            res = fa.backward_resources(dtype, D)
             bwd_ms = cuda_median_ms(torch, lambda: bwd(
                 q, k, v, out, dout, lse, causal=causal))
             bwd_dev_ms = device_busy_ms(torch, lambda: bwd(
@@ -2044,14 +2049,18 @@ def phase_train_grads(torch) -> list:
                     "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_dev_ms,
                     "library_event_ms": sdpa_bwd_ms,
                     "device_ms": bwd_dev_ms,
-                    "bound_ms": bb_ms, "bound_by": bb_by}})
+                    "bound_ms": bb_ms, "bound_by": bb_by,
+                    "resources": res}})
             c = checks[-1]
             print(f"{what}: backward kernel vs plain rel err "
                   f"{max(kernel_errs.values()):.3g}, {bwd_ms:.4f} ms, device "
                   f"{bwd_dev_ms:.4f} ms (plain {plain_bwd_ms:.3f} ms, sdpa "
                   f"backward device {sdpa_bwd_dev_ms:.4f} ms, events "
-                  f"{sdpa_bwd_ms:.4f} ms, bound {bb_ms:.4f} ms, {bb_by}) "
-                  f"| Function vs "
+                  f"{sdpa_bwd_ms:.4f} ms, bound {bb_ms:.4f} ms, {bb_by}; "
+                  f"{res['registers']} registers, {res['smem_bytes']} B "
+                  f"shared, {res['local_bytes']} B local, "
+                  f"{res['blocks_per_sm']} block(s), {res['warps_per_sm']} "
+                  f"warps an SM) | Function vs "
                   f"autograd rel err {max(errs.values()):.3g} (tol "
                   f"{TOL[dname]}) | fwd+bwd {c['ms']:.3f} ms, device "
                   f"{c['device_ms']:.3f} ms | plain {c['plain_ms']:.3f} ms | "
@@ -3491,14 +3500,20 @@ def main() -> int:
               long_checks["simt"], flash_checks),
         # the TPU kernel has no backward: the JAX package differentiates
         # its attention, attention_scores, through XLA
-        entry("flash_attention_backward", "flash_attention_bwd_wgmma.cu",
-              "src/repro/models/layers.py:166",
-              sum(flash_bwd_launches.values()), flash_bwd_launches,
-              train_flash["wgmma"], flash_bwd_checks),
-        entry("flash_attention_backward_simt", "flash_attention_bwd.cu",
-              "src/repro/models/layers.py:166", flash_bwd_launches["simt"],
-              {"simt": flash_bwd_launches["simt"]}, train_flash["simt"],
-              flash_bwd_checks)]
+        {**entry("flash_attention_backward", "flash_attention_bwd_wgmma.cu",
+                 "src/repro/models/layers.py:166",
+                 sum(flash_bwd_launches.values()), flash_bwd_launches,
+                 train_flash["wgmma"], flash_bwd_checks),
+         "design": "redesigned: one heaviest-first launch of the dK/dV and "
+                   "dQ units after the delta pre-pass"},
+        {**entry("flash_attention_backward_simt", "flash_attention_bwd.cu",
+                 "src/repro/models/layers.py:166",
+                 flash_bwd_launches["simt"],
+                 {"simt": flash_bwd_launches["simt"]}, train_flash["simt"],
+                 flash_bwd_checks),
+         "design": "redesigned: one heaviest-first launch of the dK/dV and "
+                   "dQ units; two 256-thread teams a block, each streaming "
+                   "its steps' tiles by cp.async into its stage"}]
     if not all(k["launches"] for k in kernels):
         fail(f"a kernel of the main path never launched: "
              f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -4,7 +4,8 @@ flash-attention kernels of two or more checkouts on one card, in turns, and
 compare their outputs bit for bit.
 
     python3 kernel_ab.py parent=build/ab/parent change=. [--prefill [mamba] [dense]]
-        [--kernels matmul ssm_scan ssm_scan_backward flash_attention]
+        [--kernels matmul ssm_scan ssm_scan_backward flash_attention
+                   flash_attention_backward]
 
 Each ``NAME=DIR`` names the root of a checkout (its ``src/repro_torch``
 builds its own kernels under ``DIR/build``).  The checkouts run in the order
@@ -28,6 +29,14 @@ run, on the same seeded inputs:
   simt route) and in bf16 through the simt route (q, k, v one element past
   a 16-byte boundary), and qwen2-7b's long prefill in bf16 on the wgmma
   route;
+- flash_attention_backward: every ``chip_smoke.TRAIN_GRAD_SHAPES`` row on
+  both routes, float32 (simt) and bf16 (wgmma), drawn as
+  ``chip_smoke.phase_train_grads`` draws it: the backward kernel alone,
+  given the forward kernel's out and lse, its median time
+  (``chip_smoke.cuda_median_ms``), its device time
+  (``chip_smoke.device_busy_ms``), its largest error against the plain
+  backward (``attention_backward``) given the same, relative to the
+  largest plain entry, and the SHA-256 of ``(dq, dk, dv)``;
 - with ``--prefill``: 2048-token prefills at full width (parameters drawn on
   the card from seed 0), three times each: ``mamba`` (falcon-mamba-7b, what
   a bare ``--prefill`` runs) and ``dense`` (qwen2-7b at compute_dtype
@@ -38,7 +47,7 @@ Kernel times are CUDA-event means over ``chip_smoke.REPS`` launches after a
 warm-up; each output's largest error against the plain version
 (``kernels/ref.py``) is recorded, and its SHA-256 tells whether two
 checkouts computed the same bits.  ``--kernels`` names the groups to run
-(default: all four).  It prints the card's ``nvidia-smi`` name
+(default: all five).  It prints the card's ``nvidia-smi`` name
 and power limit, one JSON line per run and a summary line, and writes them
 to ``--out`` (default ``build/kernel_ab.json``).  It needs a CUDA card and
 imports nothing of the JAX package.
@@ -55,7 +64,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 # --prefill NAME -> (arch, compute dtype or None for the config's own)
 PREFILLS = {"mamba": ("falcon-mamba-7b", None), "dense": ("qwen2-7b", "float32")}
-GROUPS = ["matmul", "ssm_scan", "ssm_scan_backward", "flash_attention"]
+GROUPS = ["matmul", "ssm_scan", "ssm_scan_backward", "flash_attention",
+          "flash_attention_backward"]
 MATMUL_SHAPES = [(4096, 4096, 4096, "float32"), (1000, 1531, 777, "float32"),
                  (1000, 1528, 776, "float32"), (1000, 1531, 777, "bfloat16")]
 
@@ -199,6 +209,35 @@ for B, H, KH, Sq, Sk, Dh, causal in (cs.FLASH_SHAPES
                 *args, causal=causal)),
             "sha256": digest(o)})
         del o, want
+
+# the backward kernels at every chip_smoke.TRAIN_GRAD_SHAPES row, drawn as
+# chip_smoke.phase_train_grads draws them, given the forward kernel's out
+# and lse
+out["flash_attention_backward"] = []
+gen = torch.Generator(device="cuda").manual_seed(2)
+for B, H, KH, Sq, Sk, Dh, causal in (
+        cs.TRAIN_GRAD_SHAPES if "flash_attention_backward" in groups else []):
+    for dtype in (torch.float32, torch.bfloat16):
+        (q, k, v), dout = cs._grad_inputs(torch, gen, B, H, KH, Sq, Sk, Dh,
+                                          dtype)
+        path = fa.route(dtype, Dh)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        args = (q, k, v, o, dout, lse)
+        bwd = fa.flash_attention_backward
+        before = bwd.route_launches[path]
+        got = bwd(*args, causal=causal)
+        want = fa.attention_backward(*args[:5], causal=causal, lse=lse)
+        torch.cuda.synchronize()
+        assert bwd.route_launches[path] == before + 1, path
+        out["flash_attention_backward"].append({
+            "shape": [B, H, KH, Sq, Sk, Dh], "causal": causal,
+            "dtype": str(dtype).removeprefix("torch."), "route": path,
+            "max_rel_err": max(cs._rel_err(g, w) for g, w in zip(got, want)),
+            "ms": cs.cuda_median_ms(torch, lambda: bwd(*args, causal=causal)),
+            "ms_device": cs.device_busy_ms(
+                torch, lambda: bwd(*args, causal=causal)),
+            "sha256": digest(*got)})
+        del q, k, v, dout, o, lse, args, got, want
 
 def time_prefill(cfg, params):
     """Three 2048-token prefills: host seconds each (ending in a

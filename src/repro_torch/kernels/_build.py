@@ -50,9 +50,11 @@ _SIGNATURES = {
     "repro_flash_attention_f32": [_P] * 5 + [_I] * 8 + [_P],
     "repro_flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_P],
     "repro_flash_attention_bf16_wgmma": [_P] * 5 + [_I] * 8 + [_P],
-    "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 8 + [_P],
-    "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 8 + [_P],
-    "repro_flash_attention_bwd_bf16_wgmma": [_P] * 10 + [_I] * 8 + [_P],
+    "repro_flash_attention_bwd_f32": [_P] * 11 + [_I] * 9 + [_P],
+    "repro_flash_attention_bwd_bf16": [_P] * 11 + [_I] * 9 + [_P],
+    "repro_flash_attention_bwd_bf16_wgmma": [_P] * 11 + [_I] * 9 + [_P],
+    "repro_flash_attention_bwd_resources": [_I, _I, _I, _P],
+    "repro_flash_attention_bwd_bf16_wgmma_resources": [_I, _P],
 }
 
 _lock = threading.Lock()

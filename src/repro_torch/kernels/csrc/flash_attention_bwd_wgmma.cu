@@ -19,57 +19,73 @@
 //   dS = P o (dP - delta), dQ = scale dS K, dK = scale dS^T Q,
 // delta = rowsum(dO o O) from the pre-pass (flash_attention_bwd.cuh).
 //
-// Design.  Two passes without atomics, so every output is summed in one
-// fixed order and two launches give the same bits (FlashAttention-2/3's
-// float32 atomicAdd of dQ is not taken).  Both have the forward's shape:
-// three warpgroups, warpgroup 2 the producer (one thread issues TMA loads
-// into a ring of 2 stages guarded by full/empty mbarriers; the maps are
-// 3-D, (D, S, B*heads), so a ragged tile never reads the next head's rows
-// and D is zero-filled to 64 or 128), warpgroups 0 and 1 the consumers
-// (setmaxnreg: 240 registers each, the producer 24: 8 warps x 240 + 4 x
-// 24 is the 12 x 168 a thread that the block is launched with, and a
-// consumer's request beyond what the producer gives up would wait for
-// ever).
-//   - dK/dV: one block owns 128 keys (64 a consumer) of one (kv head,
-//     batch) and keeps its K and V tiles in shared memory.  It loops over
-//     the G = H/KH query heads of the group and, for each, over the 64-row
-//     query tiles from the tile of its first key on (causal); the producer
-//     warp brings each tile's Q and dO by TMA and its rows' lse (times
-//     log2 e) and delta by plain loads.  A consumer computes the
-//     transposed scores directly, S^T = K Q^T and dP^T = V dO^T (wgmma
-//     m64n64k16, both operands K-major in shared memory), so P^T and dS^T
-//     arrive in the accumulator's layout, which is the A fragment's: it
-//     rounds them to bf16 in registers and issues dV += P^T dO and dK +=
-//     dS^T Q (m64n64k16 per 64-wide D box, A from registers, dO and Q as
-//     MN-major operands).  No transpose is needed, so dS is never staged in
-//     shared memory.  dK and dV stay in float32 registers across the whole
-//     loop (2 x 64 a thread at D = 128), summed over the G heads in one
-//     order, and are written once in bf16.
-//   - dQ: one block owns 128 query rows (64 a consumer) of one (head,
-//     batch), keeps its Q and dO tiles, and loops over 64-key tiles up to
-//     its last row's diagonal (causal), the heaviest tiles first: S = Q
-//     K^T and dP = dO V^T (SS), P and dS in registers, dQ += dS K (RS, K
-//     as an MN-major operand).  dQ is written once in bf16.
-// The passes recompute S and dP each, so a visible pair costs 7 products
-// (14 D operations) where an atomic dQ would take 5.  The lse rows read
-// past Sq are +inf (P = 0), keys past Sk are masked in the dQ pass and not
-// written in the dK/dV pass.  Tiles wholly above a warpgroup's diagonal are
-// skipped; the diagonal ones are computed whole and masked.
+// Design.  Two kinds of unit without atomics, so every output is summed in
+// one fixed order and two launches give the same bits (FlashAttention-2/3's
+// float32 atomicAdd of dQ is not taken).  Both kinds run in ONE launch after
+// the pre-pass: the wrapper hands over a list of units (kind, tile, head,
+// batch), heaviest first (kernels/flash_attention.py::backward_schedule: 4
+// products a dK/dV step, 3 a dQ step, times the steps of the unit's causal
+// range), and block i runs unit i, so the block scheduler starts the long
+// causal units first and fills the SMs they leave idle with the short ones
+// of either kind.  Which SM runs a unit changes nothing in its sums.  Every
+// block has the forward's shape: three warpgroups, warpgroup 2 the producer
+// (one thread issues TMA loads into a ring of 2 stages guarded by full/empty
+// mbarriers; the maps are 3-D, (D, S, B*heads), so a ragged tile never
+// reads the next head's rows and D is zero-filled to 64 or 128), warpgroups
+// 0 and 1 the consumers (setmaxnreg: 240 registers each, the producer 24: 8
+// warps x 240 + 4 x 24 is the 12 x 168 a thread that the block is launched
+// with, and a consumer's request beyond what the producer gives up would
+// wait for ever; both kinds of unit make the same requests).
+//   - dK/dV unit: 128 keys (64 a consumer) of one (kv head, batch), its K
+//     and V tiles kept in shared memory.  It loops over the G = H/KH query
+//     heads of the group and, for each, over the 64-row query tiles from
+//     the tile of its first key on (causal); the producer warp brings each
+//     tile's Q and dO by TMA and its rows' lse (times log2 e) and delta by
+//     plain loads.  A consumer computes the transposed scores directly, S^T
+//     = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands K-major in
+//     shared memory), so P^T and dS^T arrive in the accumulator's layout,
+//     which is the A fragment's: it rounds them to bf16 in registers and
+//     issues dV += P^T dO and dK += dS^T Q (m64n64k16 per 64-wide D box, A
+//     from registers, dO and Q as MN-major operands).  No transpose is
+//     needed, so dS is never staged in shared memory.  dK and dV stay in
+//     float32 registers across the whole loop (2 x 64 a thread at D = 128),
+//     summed over the G heads in one order, and are written once in bf16.
+//   - dQ unit: 128 query rows (64 a consumer) of one (head, batch), its Q
+//     and dO tiles kept, looping over 64-key tiles up to its last row's
+//     diagonal (causal): S = Q K^T and dP = dO V^T (SS), P and dS in
+//     registers, dQ += dS K (RS, K as an MN-major operand).  dQ is written
+//     once in bf16.
+//   - The two consumers run free: neither waits for the other, and every
+//     step issues its products whole, with no branch around a wgmma (ptxas
+//     serializes wgmma under a branch it cannot prove warpgroup-uniform,
+//     C7518).  A tile wholly above a warpgroup's diagonal is computed and
+//     masked whole: its P = 0 adds +0 to dK, dV or dQ, which changes no
+//     bits, at one wasted step in 2 to 32 of the causal units.  A
+//     ping-pong of the consumers on named barriers measured slower on the
+//     card, both with a turn for each product phase and with one turn for
+//     a step's scores and the previous step's accumulating products
+//     (PERF.md §6), so it is not taken.
+// Each kind recomputes S and dP, so a visible pair costs 7 products (14 D
+// operations) where an atomic dQ would take 5.  The lse rows read past Sq
+// are +inf (P = 0), keys past Sk are masked in the dQ unit and not written
+// in the dK/dV unit.  The diagonal tiles are computed whole and masked.
 //
 // Numbers: every product accumulates in float32.  P and dS are rounded to
 // bf16 where they are the A operand of dV += P^T dO, dK += dS^T Q and dQ
 // += dS K (P as the forward rounds it before P V); P itself, dP, delta,
 // lse and dS before its rounding are float32; dq, dk and dv are rounded
 // to bf16 once, at the end.  Exponentials are exp2f (no fast math) with
-// the scale and log2 e folded in.
+// the scale and log2 e folded in.  Each output is summed in the order of
+// its unit's steps, which no assignment of units to SMs changes.
 //
 // Tiles and resources.  dK/dV: 128 keys x 64 queries a step; shared memory
 // K and V (2 x 32 KB at D > 64), two stages of Q and dO (2 x 2 x 16 KB),
 // their lse and delta (1 KB), barriers: 133,160 B (D > 64), 67,624 B (D <=
-// 64), one block an SM.  dQ: 128 queries x 64 keys a step; Q and dO (2 x
-// 32 KB), two stages of K and V (2 x 2 x 16 KB): 132,136 B (66,600 B).
-// Registers: 240 a consumer thread; PERF.md §6 keeps what `-Xptxas -v`
-// reported (chip_smoke.py's build line).
+// 64).  dQ: 128 queries x 64 keys a step; Q and dO (2 x 32 KB), two stages
+// of K and V (2 x 2 x 16 KB): 132,136 B (66,600 B).  A block takes the
+// larger, one block an SM.  Registers: 240 a consumer thread; chip_smoke.py
+// prints what `-Xptxas -v` and the occupancy calculator report
+// (repro_flash_attention_bwd_wgmma_resources).
 //
 // Bound (published H100 SXM peaks; launch/costs.py::flash_backward_bound).
 // qwen2-7b's training attention, q (2,28,2048,128), k, v (2,4,2048,128),
@@ -77,12 +93,11 @@
 // five products the gradient needs, 150.4 GFLOP: 0.152 ms at 989 TFLOP/s;
 // its 135 MB (q, k, v, out, dout, lse read, dq, dk, dv written) take
 // 0.040 ms at 3.35 TB/s.  Bound by operations.  What holds it back: the
-// two recomputed products (7 where 5 would do), the causal dK/dV blocks'
-// unequal work (the block of the first 128 keys takes 7 x 32 query tiles
-// of its group, the last 7 x 2, 128 blocks for 132 SMs, so the first
-// sets the pass's time), each consumer's products and exponentials in
-// series (no ping-pong between the warpgroups, no overlap of one step's
-// products with the next one's), and the diagonal tiles computed whole.
+// two recomputed products (7 where 5 would do; ordered dQ sums across
+// units would cut them without atomics), the diagonal tiles computed whole,
+// and each warpgroup's own products and exponentials, which run in series
+// (overlapping them needs a second step's scores in registers, which at D
+// = 128 spilled and ran slower).
 
 #include "hopper.cuh"
 #include "flash_attention_bwd.cuh"
@@ -105,7 +120,7 @@ constexpr uint32_t SMALL = 64 * 128;   // bytes of a 64-row x 64 bf16 box
 
 static_assert(BLOCK_ROWS == 128, "the BIG boxes hold a block's rows");
 
-// Shared memory of either pass for ND boxes of D: the block's own tiles
+// Shared memory of either kind for ND boxes of D: the block's own tiles
 // (128 rows: K and V, or Q and dO), then the stages' streamed tiles (64
 // rows: Q and dO, or K and V), then `stats` bytes a stage, then the
 // barriers (the fixed tiles' one, the stages' full and empty ones).
@@ -131,6 +146,12 @@ template <int ND>
 using KvSmem = Smem<ND, 2 * STEP * 4>;
 template <int ND>
 using QSmem = Smem<ND, 0>;
+
+// the launch's dynamic shared memory: what the larger kind needs
+template <int ND>
+constexpr size_t kBlockBytes = KvSmem<ND>::BYTES > QSmem<ND>::BYTES
+                                   ? KvSmem<ND>::BYTES
+                                   : QSmem<ND>::BYTES;
 
 // The m64n64 accumulator x (a warpgroup's 64 rows x 64 columns) as four
 // bf16 A fragments of 16 columns each: step kk covers columns 16 kk..16 kk
@@ -221,30 +242,22 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
 
 // ---------------------------------------------------------------- dK, dV
 
+// One dK/dV unit: keys 128 kt.. of kv head g of batch b.
 template <int ND>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
-                          const __grid_constant__ CUtensorMap kmap,
-                          const __grid_constant__ CUtensorMap vmap,
-                          const __grid_constant__ CUtensorMap domap,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int H, int KH,
-                          int Sq, int Sk, int D, int causal, float scale,
-                          float scale_log2) {
+__device__ __forceinline__ void dkdv_unit(
+    uint8_t* smem, const CUtensorMap& qmap, const CUtensorMap& kmap,
+    const CUtensorMap& vmap, const CUtensorMap& domap,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int kt,
+    int g, int b, int H, int KH, int Sq, int Sk, int D, int causal,
+    float scale, float scale_log2) {
   using L = KvSmem<ND>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + (kSwizzleAtom - smem_addr(smem_raw) %
-                              kSwizzleAtom) % kSwizzleAtom;
   float* stats = reinterpret_cast<float*>(smem + L::STATS);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int k0 = blockIdx.x * BLOCK_ROWS;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
+  const int k0 = kt * BLOCK_ROWS;
   const int G = H / KH;
   const int n_q = (Sq + STEP - 1) / STEP;
   // query tile qt holds rows 64 qt..64 qt + 63: under the causal mask the
@@ -325,67 +338,66 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int s = t % STAGES;
       const int i0 = (q_first + t % per_head) * STEP;
       mbar_wait(&full[s], (t / STAGES) & 1);
-      // a tile whose every query precedes every key of the warpgroup adds
-      // nothing
-      if (!(causal && kw0 > i0 + STEP - 1)) {
-        const uint32_t q_addr = smem_addr(smem + L::SA(s));
-        const uint32_t do_addr = smem_addr(smem + L::SB(s));
-        const float* ls = stats + 2 * STEP * s;
-        const float* dl = ls + STEP;
+      const uint32_t q_addr = smem_addr(smem + L::SA(s));
+      const uint32_t do_addr = smem_addr(smem + L::SB(s));
+      const float* ls = stats + 2 * STEP * s;
+      const float* dl = ls + STEP;
 
-        // S^T = K Q^T and dP^T = V dO^T: keys x queries
-        float st[32], dpt[32];
+      // S^T = K Q^T and dP^T = V dO^T: keys x queries.  A tile whose every
+      // query precedes every key of the warpgroup is computed too and
+      // masked whole: P = 0 adds +0 to dK and dV, which changes no bits,
+      // and no branch divides the warpgroup's products
+      float st[32], dpt[32];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          st[i] = 0.0f;
-          dpt[i] = 0.0f;
-        }
-        fence_regs(st);
-        fence_regs(dpt);
-        wgmma_fence();
-        rows_dot(st, k_addr, BIG, q_addr, SMALL, ksteps);
-        rows_dot(dpt, v_addr, BIG, do_addr, SMALL, ksteps);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(st);
-        fence_regs(dpt);
-
-        // P^T = exp2(S^T scale log2 e - lse log2 e); dS^T = P^T (dP^T - Δ).
-        // st[4j + e] is key_a against query i0 + 8j + kcol + e,
-        // st[4j + 2 + e] key_b against the same query
-        const bool masked = causal && kw0 + 63 > i0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * j + kcol + e;
-            const float l2 = ls[col], dlt = dl[col];
-            float pa = exp2f(st[4 * j + e] * scale_log2 - l2);
-            float pb = exp2f(st[4 * j + 2 + e] * scale_log2 - l2);
-            if (masked) {
-              if (key_a > i0 + col) pa = 0.0f;
-              if (key_b > i0 + col) pb = 0.0f;
-            }
-            st[4 * j + e] = pa;
-            st[4 * j + 2 + e] = pb;
-            dpt[4 * j + e] = pa * (dpt[4 * j + e] - dlt);
-            dpt[4 * j + 2 + e] = pb * (dpt[4 * j + 2 + e] - dlt);
-          }
-        uint32_t pf[4][4], df[4][4];
-        to_frags(st, pf);
-        to_frags(dpt, df);
-
-        // dV += P^T dO, dK += dS^T Q
-        fence_all(dva);
-        fence_all(dka);
-        wgmma_fence();
-        frag_mma<ND>(dva, pf, do_addr);
-        frag_mma<ND>(dka, df, q_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_all(dva);
-        fence_all(dka);
+      for (int i = 0; i < 32; ++i) {
+        st[i] = 0.0f;
+        dpt[i] = 0.0f;
       }
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+      rows_dot(st, k_addr, BIG, q_addr, SMALL, ksteps);
+      rows_dot(dpt, v_addr, BIG, do_addr, SMALL, ksteps);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp2(S^T scale log2 e - lse log2 e); dS^T = P^T (dP^T - Δ).
+      // st[4j + e] is key_a against query i0 + 8j + kcol + e, st[4j + 2 +
+      // e] key_b against the same query
+      const bool masked = causal && kw0 + 63 > i0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + kcol + e;
+          const float l2 = ls[col], dlt = dl[col];
+          float pa = exp2f(st[4 * j + e] * scale_log2 - l2);
+          float pb = exp2f(st[4 * j + 2 + e] * scale_log2 - l2);
+          if (masked) {
+            if (key_a > i0 + col) pa = 0.0f;
+            if (key_b > i0 + col) pb = 0.0f;
+          }
+          st[4 * j + e] = pa;
+          st[4 * j + 2 + e] = pb;
+          dpt[4 * j + e] = pa * (dpt[4 * j + e] - dlt);
+          dpt[4 * j + 2 + e] = pb * (dpt[4 * j + 2 + e] - dlt);
+        }
+      uint32_t pf[4][4], df[4][4];
+      to_frags(st, pf);
+      to_frags(dpt, df);
+
+      // dV += P^T dO, dK += dS^T Q
+      fence_all(dva);
+      fence_all(dka);
+      wgmma_fence();
+      frag_mma<ND>(dva, pf, do_addr);
+      frag_mma<ND>(dka, df, q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(dva);
+      fence_all(dka);
       mbar_arrive(&empty[s]);   // this stage's tiles and rows are read
     }
 
@@ -397,30 +409,20 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // -------------------------------------------------------------------- dQ
 
+// One dQ unit: query rows 128 qt.. of head h of batch b.
 template <int ND>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
-                        const __grid_constant__ CUtensorMap kmap,
-                        const __grid_constant__ CUtensorMap vmap,
-                        const __grid_constant__ CUtensorMap domap,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int H, int KH, int Sq,
-                        int Sk, int D, int causal, float scale,
-                        float scale_log2) {
+__device__ __forceinline__ void dq_unit(
+    uint8_t* smem, const CUtensorMap& qmap, const CUtensorMap& kmap,
+    const CUtensorMap& vmap, const CUtensorMap& domap,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int qt, int h, int b, int H, int KH,
+    int Sq, int Sk, int D, int causal, float scale, float scale_log2) {
   using L = QSmem<ND>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + (kSwizzleAtom - smem_addr(smem_raw) %
-                              kSwizzleAtom) % kSwizzleAtom;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
 
-  // the last query tiles see the most keys under a causal mask: run them
-  // first
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * BLOCK_ROWS;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int r0 = qt * BLOCK_ROWS;
   const int g = h / (H / KH);
   const int rows = min(BLOCK_ROWS, Sq - r0);
   // keys past the tile's last row are masked for all of its rows
@@ -489,61 +491,97 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int s = t % STAGES;
       const int c0 = t * STEP;
       mbar_wait(&full[s], (t / STAGES) & 1);
-      // a tile whose every key follows every row of the warpgroup adds
-      // nothing
-      if (!(causal && c0 > first_row + 63)) {
-        const uint32_t k_addr = smem_addr(smem + L::SA(s));
-        const uint32_t v_addr = smem_addr(smem + L::SB(s));
+      const uint32_t k_addr = smem_addr(smem + L::SA(s));
+      const uint32_t v_addr = smem_addr(smem + L::SB(s));
 
-        // S = Q K^T and dP = dO V^T: queries x keys
-        float sc[32], dp[32];
+      // S = Q K^T and dP = dO V^T: queries x keys.  A tile whose every key
+      // follows every row of the warpgroup is computed and masked whole,
+      // as in dkdv_unit
+      float sc[32], dp[32];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          sc[i] = 0.0f;
-          dp[i] = 0.0f;
-        }
-        fence_regs(sc);
-        fence_regs(dp);
-        wgmma_fence();
-        rows_dot(sc, q_addr, BIG, k_addr, SMALL, ksteps);
-        rows_dot(dp, do_addr, BIG, v_addr, SMALL, ksteps);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sc);
-        fence_regs(dp);
-
-        // dS = P (dP - Δ); sc[4j + e] is row_a's key c0 + 8j + kcol + e
-        const bool masked =
-            c0 + STEP > Sk || (causal && c0 + STEP - 1 > first_row);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int key = c0 + 8 * j + kcol + e;
-            float pa = exp2f(sc[4 * j + e] * scale_log2 - l_a);
-            float pb = exp2f(sc[4 * j + 2 + e] * scale_log2 - l_b);
-            if (masked) {
-              // a zero-filled key past Sk scores 0, not -inf: mask it
-              if (key >= Sk || (causal && key > row_a)) pa = 0.0f;
-              if (key >= Sk || (causal && key > row_b)) pb = 0.0f;
-            }
-            dp[4 * j + e] = pa * (dp[4 * j + e] - d_a);
-            dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - d_b);
-          }
-        uint32_t df[4][4];
-        to_frags(dp, df);
-
-        // dQ += dS K
-        fence_all(dqa);
-        wgmma_fence();
-        frag_mma<ND>(dqa, df, k_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_all(dqa);
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = 0.0f;
+        dp[i] = 0.0f;
       }
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      rows_dot(sc, q_addr, BIG, k_addr, SMALL, ksteps);
+      rows_dot(dp, do_addr, BIG, v_addr, SMALL, ksteps);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS = P (dP - Δ); sc[4j + e] is row_a's key c0 + 8j + kcol + e
+      const bool masked =
+          c0 + STEP > Sk || (causal && c0 + STEP - 1 > first_row);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = c0 + 8 * j + kcol + e;
+          float pa = exp2f(sc[4 * j + e] * scale_log2 - l_a);
+          float pb = exp2f(sc[4 * j + 2 + e] * scale_log2 - l_b);
+          if (masked) {
+            // a zero-filled key past Sk scores 0, not -inf: mask it
+            if (key >= Sk || (causal && key > row_a)) pa = 0.0f;
+            if (key >= Sk || (causal && key > row_b)) pb = 0.0f;
+          }
+          dp[4 * j + e] = pa * (dp[4 * j + e] - d_a);
+          dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - d_b);
+        }
+      uint32_t df[4][4];
+      to_frags(dp, df);
+
+      // dQ += dS K
+      fence_all(dqa);
+      wgmma_fence();
+      frag_mma<ND>(dqa, df, k_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(dqa);
       mbar_arrive(&empty[s]);   // this stage's K and V are read
     }
     store_rows(dq + bh * Sq * D, dqa, row_a, Sq, D, kcol, scale);
+  }
+}
+
+// --------------------------------------------------------------- the launch
+
+// Block i runs unit units[i] = (kind, tile, head, batch): kind 0 a dK/dV
+// unit (tile of 128 keys, kv head), kind 1 a dQ unit (tile of 128 queries,
+// query head).  The unit is the same for every thread, so a block takes
+// one branch whole and its setmaxnreg requests match.
+template <int ND>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap kv_qmap,
+                     const __grid_constant__ CUtensorMap kv_kmap,
+                     const __grid_constant__ CUtensorMap kv_vmap,
+                     const __grid_constant__ CUtensorMap kv_domap,
+                     const __grid_constant__ CUtensorMap q_qmap,
+                     const __grid_constant__ CUtensorMap q_kmap,
+                     const __grid_constant__ CUtensorMap q_vmap,
+                     const __grid_constant__ CUtensorMap q_domap,
+                     const int4* __restrict__ units,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dq,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int H, int KH, int Sq,
+                     int Sk, int D, int causal, float scale,
+                     float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (kSwizzleAtom - smem_addr(smem_raw) %
+                              kSwizzleAtom) % kSwizzleAtom;
+  const int4 u = units[blockIdx.x];
+  if (u.x == 0) {
+    dkdv_unit<ND>(smem, kv_qmap, kv_kmap, kv_vmap, kv_domap, lse, delta, dk,
+                  dv, u.y, u.z, u.w, H, KH, Sq, Sk, D, causal, scale,
+                  scale_log2);
+  } else {
+    dq_unit<ND>(smem, q_qmap, q_kmap, q_vmap, q_domap, lse, delta, dq, u.y,
+                u.z, u.w, H, KH, Sq, Sk, D, causal, scale, scale_log2);
   }
 }
 
@@ -560,51 +598,62 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int heads, int S,
 }
 
 template <int ND>
+cudaError_t set_smem() {
+  return cudaFuncSetAttribute(flash_bwd_kernel<ND>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kBlockBytes<ND>));
+}
+
+template <int ND>
 cudaError_t launch_nd(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
+                      const void* dout, const int4* units, int n_units,
+                      const float* lse, const float* delta,
                       __nv_bfloat16* dq, __nv_bfloat16* dk,
                       __nv_bfloat16* dv, int B, int H, int KH, int Sq, int Sk,
                       int D, int causal, cudaStream_t stream) {
   const double rs = 1.0 / std::sqrt(static_cast<double>(D));
   const float scale = static_cast<float>(rs);
   const float scale_log2 = static_cast<float>(rs * 1.4426950408889634);
-  // dK/dV: the block's K and V in 128-row boxes, Q and dO in 64-row ones
-  CUtensorMap qmap{}, kmap{}, vmap{}, domap{};
-  cudaError_t err = head_map(&qmap, q, B * H, Sq, D, STEP);
-  if (err == cudaSuccess) err = head_map(&domap, dout, B * H, Sq, D, STEP);
-  if (err == cudaSuccess) err = head_map(&kmap, k, B * KH, Sk, D, BLOCK_ROWS);
-  if (err == cudaSuccess) err = head_map(&vmap, v, B * KH, Sk, D, BLOCK_ROWS);
-  if (err != cudaSuccess) return err;
-  size_t bytes = KvSmem<ND>::BYTES;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<ND>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<ND>
-      <<<dim3((Sk + BLOCK_ROWS - 1) / BLOCK_ROWS, KH, B), THREADS, bytes,
-         stream>>>(qmap, kmap, vmap, domap, lse, delta, dk, dv, H, KH, Sq,
-                   Sk, D, causal, scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  // dQ: the block's Q and dO in 128-row boxes, K and V in 64-row ones
-  err = head_map(&qmap, q, B * H, Sq, D, BLOCK_ROWS);
+  // dK/dV units: their K and V in 128-row boxes, Q and dO in 64-row ones;
+  // dQ units: their Q and dO in 128-row boxes, K and V in 64-row ones
+  CUtensorMap kv_q{}, kv_k{}, kv_v{}, kv_do{}, q_q{}, q_k{}, q_v{}, q_do{};
+  cudaError_t err = head_map(&kv_q, q, B * H, Sq, D, STEP);
+  if (err == cudaSuccess) err = head_map(&kv_do, dout, B * H, Sq, D, STEP);
+  if (err == cudaSuccess) err = head_map(&kv_k, k, B * KH, Sk, D, BLOCK_ROWS);
+  if (err == cudaSuccess) err = head_map(&kv_v, v, B * KH, Sk, D, BLOCK_ROWS);
+  if (err == cudaSuccess) err = head_map(&q_q, q, B * H, Sq, D, BLOCK_ROWS);
   if (err == cudaSuccess) {
-    err = head_map(&domap, dout, B * H, Sq, D, BLOCK_ROWS);
+    err = head_map(&q_do, dout, B * H, Sq, D, BLOCK_ROWS);
   }
-  if (err == cudaSuccess) err = head_map(&kmap, k, B * KH, Sk, D, STEP);
-  if (err == cudaSuccess) err = head_map(&vmap, v, B * KH, Sk, D, STEP);
+  if (err == cudaSuccess) err = head_map(&q_k, k, B * KH, Sk, D, STEP);
+  if (err == cudaSuccess) err = head_map(&q_v, v, B * KH, Sk, D, STEP);
+  if (err == cudaSuccess) err = set_smem<ND>();
   if (err != cudaSuccess) return err;
-  bytes = QSmem<ND>::BYTES;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<ND>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<ND>
-      <<<dim3((Sq + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B), THREADS, bytes,
-         stream>>>(qmap, kmap, vmap, domap, lse, delta, dq, H, KH, Sq, Sk, D,
-                   causal, scale, scale_log2);
+  flash_bwd_kernel<ND><<<n_units, THREADS, kBlockBytes<ND>, stream>>>(
+      kv_q, kv_k, kv_v, kv_do, q_q, q_k, q_v, q_do, units, lse, delta, dq, dk,
+      dv, H, KH, Sq, Sk, D, causal, scale, scale_log2);
   return cudaGetLastError();
+}
+
+template <int ND>
+cudaError_t resources_nd(int* out) {
+  cudaFuncAttributes attr{};
+  cudaError_t err = set_smem<ND>();
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&attr, flash_bwd_kernel<ND>);
+  }
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, flash_bwd_kernel<ND>, THREADS, kBlockBytes<ND>);
+  }
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes + kBlockBytes<ND>);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = THREADS;
+  out[4] = blocks;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -613,16 +662,19 @@ cudaError_t launch_nd(const void* q, const void* k, const void* v,
 // k, v, dk, dv (B,KH,Sk,D) are contiguous bf16 device tensors, q, k, v,
 // out and dout 16-byte aligned, with D % 8 == 0 and D <= 128; lse (B,H,Sq)
 // is the forward's float32 row log-sum-exp; delta (B,H,Sq) float32 scratch
-// that the pre-pass fills.  B, Sq, Sk >= 1; `causal` is 0 or 1; `stream`
-// is the caller's cudaStream_t.  The call only queues the pre-pass and the
-// two passes and returns the first launch error.
+// that the pre-pass fills; units (n_units, 4) int32 on the device, every
+// unit of kernels/flash_attention.py::backward_schedule for these sizes
+// with rows = 128, in the order to run.  B, Sq, Sk >= 1; `causal` is 0 or
+// 1; `stream` is the caller's cudaStream_t.  The call only queues the
+// pre-pass and the units' launch and returns the first launch error.
 extern "C" int repro_flash_attention_bwd_bf16_wgmma(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* delta, int B, int H, int KH, int Sq, int Sk, int D, int causal,
-    int device, void* stream) {
+    void* delta, const void* units, int n_units, int B, int H, int KH,
+    int Sq, int Sk, int D, int causal, int device, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1 ||
-      D < 8 || D > MAX_D || D % 8 != 0 || B > 65535 || H > 65535) {
+      D < 8 || D > MAX_D || D % 8 != 0 || B > 65535 || H > 65535 ||
+      n_units < 1) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -632,14 +684,24 @@ extern "C" int repro_flash_attention_bwd_bf16_wgmma(
   err = flash_bwd::launch_delta<__nv_bfloat16>(
       out, dout, dl, static_cast<size_t>(B) * H * Sq, D, s);
   if (err != cudaSuccess) return err;
+  const auto* up = static_cast<const int4*>(units);
   const auto* lp = static_cast<const float*>(lse);
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   if (D <= 64) {
-    return launch_nd<1>(q, k, v, dout, lp, dl, dqp, dkp, dvp, B, H, KH, Sq,
-                        Sk, D, causal, s);
+    return launch_nd<1>(q, k, v, dout, up, n_units, lp, dl, dqp, dkp, dvp, B,
+                        H, KH, Sq, Sk, D, causal, s);
   }
-  return launch_nd<2>(q, k, v, dout, lp, dl, dqp, dkp, dvp, B, H, KH, Sq, Sk,
-                      D, causal, s);
+  return launch_nd<2>(q, k, v, dout, up, n_units, lp, dl, dqp, dkp, dvp, B,
+                      H, KH, Sq, Sk, D, causal, s);
+}
+
+// The kernel that takes head dim D: its registers a thread, shared memory
+// a block (static and dynamic), local (spill) bytes a thread, threads a
+// block and resident blocks an SM, into out[0..4].
+extern "C" int repro_flash_attention_bwd_bf16_wgmma_resources(int D,
+                                                              int* out) {
+  if (D < 8 || D > MAX_D || D % 8 != 0) return cudaErrorInvalidValue;
+  return D <= 64 ? resources_nd<1>(out) : resources_nd<2>(out);
 }

@@ -31,9 +31,14 @@ the calls whose forward takes the wgmma route (and whose ``out`` and
 the rest.  Both read the forward's row log-sum-exp, which the forward
 kernels write when asked (``return_lse``); for CPU tensors the backward is
 :func:`attention_backward`, the plain version, given the same ``lse``.
+Each runs its dK/dV and dQ units in one launch, in the order of
+:func:`backward_schedule` (heaviest first), which the wrapper hands over as
+a device tensor cached per shape and device (:func:`backward_units`).
 """
 from __future__ import annotations
 
+import ctypes
+import math
 import threading
 
 import torch
@@ -52,6 +57,15 @@ MAX_HEAD_DIM = 128
 _INT_MAX = 2 ** 31 - 1
 _MAX_GRID_YZ = 65535       # heads and batch are the grid's y and z
 _launch_lock = threading.Lock()   # guards the wrappers' launch counts
+# the rows of a backward unit on each route: the keys of a dK/dV unit, the
+# queries of a dQ unit
+BWD_ROWS = {"wgmma": 128, "simt": 64}
+BWD_STEP = 64              # queries (dK/dV) or keys (dQ) of a unit's step
+DKDV, DQ = 0, 1            # the kinds of backward unit
+# products a step of each kind: S^T, dP^T, dV, dK; S, dP, dQ
+BWD_STEP_COST = {DKDV: 4, DQ: 3}
+_units_cache: dict = {}
+_units_lock = threading.Lock()
 
 
 def route(dtype: torch.dtype, D: int, *, aligned: bool = True) -> str:
@@ -153,6 +167,82 @@ flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 
 
+def backward_schedule(B: int, H: int, KH: int, Sq: int, Sk: int,
+                      causal: bool, rows: int) -> list:
+    """Every unit of work of the backward kernels for these sizes, as
+    ``(kind, tile, head, batch, cost)``, heaviest first.
+
+    A ``DKDV`` unit owns ``rows`` keys (tile ``t``: keys ``rows·t`` on) of
+    kv head ``head`` and walks the ``H // KH`` query heads of its group,
+    each over the 64-row query tiles from the tile of its first key on
+    (all of them when not causal); a ``DQ`` unit owns ``rows`` queries of
+    query head ``head`` and walks the 64-key tiles up to its last row's
+    diagonal (all of them when not causal).  ``cost`` is the unit's
+    products: 4 a dK/dV step, 3 a dQ step (:data:`BWD_STEP_COST`).  Units
+    of equal cost keep the order kind, batch, head, tile, so the list is a
+    pure function of its arguments; a unit with no step (keys past every
+    query) is in it too, since it writes zeros.
+    """
+    G = H // KH
+    n_q = math.ceil(Sq / BWD_STEP)
+    units = []
+    for b in range(B):
+        for g in range(KH):
+            for t in range(math.ceil(Sk / rows)):
+                first = min(t * rows // BWD_STEP, n_q) if causal else 0
+                units.append((DKDV, t, g, b,
+                              BWD_STEP_COST[DKDV] * G * (n_q - first)))
+        for h in range(H):
+            for t in range(math.ceil(Sq / rows)):
+                last = min(rows * (t + 1), Sq)
+                end = min(Sk, last) if causal else Sk
+                units.append((DQ, t, h, b,
+                              BWD_STEP_COST[DQ] * math.ceil(end / BWD_STEP)))
+    units.sort(key=lambda u: (-u[4], u[0], u[3], u[2], u[1]))
+    return units
+
+
+def backward_units(B: int, H: int, KH: int, Sq: int, Sk: int, causal: bool,
+                   rows: int, device) -> torch.Tensor:
+    """:func:`backward_schedule`'s units as an int32 ``(n, 4)`` tensor of
+    ``(kind, tile, head, batch)`` on ``device``, which the backward kernels
+    read (block ``i`` runs row ``i``).  Made once per shape and device and
+    kept, so a training step copies nothing to the card; the key is the
+    call's own shape (a tensor-parallel rank's local heads)."""
+    key = (B, H, KH, Sq, Sk, bool(causal), rows, torch.device(device))
+    with _units_lock:
+        units = _units_cache.get(key)
+        if units is None:
+            rows_ = [u[:4] for u in backward_schedule(B, H, KH, Sq, Sk,
+                                                      causal, rows)]
+            units = torch.tensor(rows_, dtype=torch.int32).to(key[-1])
+            _units_cache[key] = units
+    return units
+
+
+def backward_resources(dtype: torch.dtype, D: int, *,
+                       aligned: bool = True) -> dict:
+    """What the card gives the backward kernel that a call of ``dtype``
+    and head dim ``D`` launches (``aligned`` as in :func:`route`):
+    registers a thread, shared memory a block, local (spill) bytes a
+    thread, threads a block and resident blocks and warps an SM, from
+    ``cudaFuncGetAttributes`` and the occupancy calculator."""
+    path = route(dtype, D, aligned=aligned)
+    lib = _build.library()
+    out = (ctypes.c_int * 5)()
+    if path == "wgmma":
+        err = lib.repro_flash_attention_bwd_bf16_wgmma_resources(D, out)
+    else:
+        vec = dtype == torch.float32 and D % 4 == 0 and aligned
+        err = lib.repro_flash_attention_bwd_resources(
+            int(dtype == torch.bfloat16), D, int(vec), out)
+    _build.check(err, f"flash_attention_backward resources ({path})")
+    regs, smem, local, threads, blocks = out
+    return {"route": path, "registers": regs, "smem_bytes": smem,
+            "local_bytes": local, "threads": threads,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
+
+
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
@@ -164,12 +254,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
     For CPU tensors it is :func:`attention_backward`, the plain version,
     given ``lse``.  For CUDA tensors it launches the backward kernel of
-    :func:`route` (the pre-pass ``delta = rowsum(dO ∘ O)``, then the dK/dV
-    pass and the dQ pass; one launch in the counts) or raises; it never
-    falls back.  On the card q, k, v, out and dout share a dtype, float32
-    or bfloat16, are contiguous, and ``1 <= D <= 128``; lse is a contiguous
-    float32 ``(B, H, Sq)``.  With ``Sq == 0`` or ``Sk == 0`` the gradients
-    are zeros and nothing launches.  ``flash_attention_backward.launches``
+    :func:`route` (the pre-pass ``delta = rowsum(dO ∘ O)``, then one launch
+    of the dK/dV and dQ units of :func:`backward_units`; one launch in the
+    counts) or raises; it never falls back.  On the card q, k, v, out and
+    dout share a dtype, float32 or bfloat16, are contiguous, and ``1 <= D
+    <= 128``; lse is a contiguous float32 ``(B, H, Sq)``.  With ``Sq ==
+    0`` or ``Sk == 0`` the gradients are zeros and nothing launches.  ``flash_attention_backward.launches``
     and ``.route_launches`` count launches as the forward's counts do.
     """
     _check(q, k, v)
@@ -197,11 +287,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             t.zero_()
         return dq, dk, dv
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    units = backward_units(B, H, KH, Sq, Sk, causal, BWD_ROWS[path],
+                           q.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, _BWD_ENTRY[path, q.dtype])(
-        *(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv, delta)),
-        B, H, KH, Sq, Sk, D, int(causal), q.device.index, stream)
+        *(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv, delta,
+                                 units)),
+        units.shape[0], B, H, KH, Sq, Sk, D, int(causal), q.device.index,
+        stream)
     _build.check(err, f"flash_attention_backward kernel launch ({path})")
     with _launch_lock:
         flash_attention_backward.launches += 1

@@ -208,3 +208,112 @@ def test_backward_bound_is_within_the_lse_of_forward_and_backward(
     assert alone == pytest.approx(want, rel=1e-12)
     assert by == ("bytes" if nbytes / costs.HBM_BYTES_PER_S
                   > ops / costs.PEAK_FLOPS[dtype] else "operations")
+
+
+# --------------------------------------------------------------------------
+# the backward kernels' unit list (kernels/flash_attention.py::
+# backward_schedule): what one launch of each kernel runs, heaviest first
+# --------------------------------------------------------------------------
+
+# (B, H, KH, Sq, Sk, causal): 11c's and llava's training attention, the
+# ragged row, whisper's encoder (not causal) and cross-attention (Sq < Sk),
+# Sq > Sk both ways, keys past every query, one query
+SCHEDULE_SHAPES = [(2, 28, 4, 2048, 2048, True), (2, 56, 8, 2048, 2048, True),
+                   (2, 8, 2, 1000, 1000, True), (16, 6, 6, 1500, 1500, False),
+                   (16, 6, 6, 448, 1500, False), (1, 4, 2, 300, 77, True),
+                   (1, 4, 1, 65, 300, True), (2, 7, 1, 1, 129, True),
+                   (1, 2, 2, 200, 77, False)]
+
+
+def _walked_steps(B, H, KH, Sq, Sk, causal, rows):
+    """Each unit's steps, counted from the mask itself: a dK/dV unit walks
+    every (query head of its group, 64-row query tile) in which some query
+    sees one of its keys, a dQ unit every 64-key tile of which some key is
+    seen by one of its queries (all of them when not causal)."""
+    G, step = H // KH, pt_flash.BWD_STEP
+    want = {}
+    for b in range(B):
+        for g in range(KH):
+            for t in range(-(-Sk // rows)):
+                first_key = t * rows
+                tiles = sum(1 for qt in range(-(-Sq // step))
+                            if not causal
+                            or min(step * qt + step, Sq) - 1 >= first_key)
+                want[pt_flash.DKDV, t, g, b] = G * tiles
+        for h in range(H):
+            for t in range(-(-Sq // rows)):
+                last_query = min(rows * t + rows, Sq) - 1
+                want[pt_flash.DQ, t, h, b] = sum(
+                    1 for kt in range(-(-Sk // step))
+                    if not causal or step * kt <= last_query)
+    return want
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,causal", SCHEDULE_SHAPES)
+@pytest.mark.parametrize("rows", [128, 64])
+def test_backward_schedule_lists_every_unit_once_heaviest_first(
+        B, H, KH, Sq, Sk, causal, rows):
+    """Every (kind, tile, head, batch) of a shape exactly once, each with
+    the cost of the steps its kernel walks (4 products a dK/dV step, 3 a
+    dQ step), in non-increasing cost; a unit with no step is listed too,
+    since it writes zeros."""
+    units = pt_flash.backward_schedule(B, H, KH, Sq, Sk, causal, rows)
+    steps = _walked_steps(B, H, KH, Sq, Sk, causal, rows)
+    got = {u[:4]: u[4] for u in units}
+    assert len(got) == len(units) == len(steps)
+    assert got == {key: pt_flash.BWD_STEP_COST[key[0]] * n
+                   for key, n in steps.items()}
+    costs = [u[4] for u in units]
+    assert costs == sorted(costs, reverse=True)
+    assert units == pt_flash.backward_schedule(B, H, KH, Sq, Sk, causal,
+                                               rows)
+
+
+def _greedy_makespan(costs, sms=132):
+    """List scheduling: each unit, in list order, to the SM that frees
+    first (one block an SM)."""
+    import heapq
+    free = [0] * sms
+    for c in costs:
+        heapq.heappush(free, heapq.heappop(free) + c)
+    return max(free)
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,causal", SCHEDULE_SHAPES[:2])
+@pytest.mark.parametrize("rows", [128, 64])
+def test_backward_schedule_reaches_near_the_ideal_makespan(B, H, KH, Sq, Sk,
+                                                           causal, rows):
+    """At 11c's and llava's shapes, the list taken greedily by 132 SMs ends
+    within 1.12 x the ideal (the products spread evenly over the SMs), and
+    below the two launches of the earlier design (the dK/dV blocks in grid
+    order, then the dQ blocks heaviest first)."""
+    units = pt_flash.backward_schedule(B, H, KH, Sq, Sk, causal, rows)
+    costs = [u[4] for u in units]
+    ideal = sum(costs) / 132
+    got = _greedy_makespan(costs)
+    assert got <= 1.12 * ideal, (got, ideal)
+    kv = [u for u in units if u[0] == pt_flash.DKDV]
+    grid_order = sorted(kv, key=lambda u: (u[3], u[2], u[1]))
+    two_launches = (_greedy_makespan([u[4] for u in grid_order])
+                    + _greedy_makespan([u[4] for u in units
+                                        if u[0] == pt_flash.DQ]))
+    assert got < two_launches
+
+
+def test_backward_units_are_cached_per_shape_and_device():
+    """The kernels' int32 (n, 4) list is made once per shape and device
+    and handed out again, so a step copies nothing to the card; another
+    shape (a rank's local heads) or device has its own."""
+    shape = (1, 4, 2, 100, 77, True, 64)
+    units = pt_flash.backward_units(*shape, torch.device("cpu"))
+    assert units.dtype == torch.int32 and units.device.type == "cpu"
+    assert units.tolist() == [list(u[:4]) for u in
+                              pt_flash.backward_schedule(*shape)]
+    assert pt_flash.backward_units(*shape, "cpu") is units
+    local = pt_flash.backward_units(1, 2, 1, 100, 77, True, 64, "cpu")
+    assert local is not units and local.shape[0] < units.shape[0]
+    other = pt_flash.backward_units(*shape, torch.device("meta"))
+    assert other is not units and other.device.type == "meta"
+    assert pt_flash.backward_units(*shape, "meta") is other
+    assert pt_flash.backward_units(1, 4, 2, 100, 77, False, 64,
+                                   "cpu") is not units

@@ -1068,6 +1068,79 @@ def test_flash_backward_kernel_matches_plain_autograd(cuda, B, H, KH, Sq, Sk,
         assert err <= TOL[dtype], (name, err)
 
 
+# Causal units whose range is empty for one consumer (wgmma: keys 64-127 of
+# the first dK/dV unit see no query when Sq <= 64; simt: a unit of one step
+# leaves its second team idle) or for the whole unit (keys past every
+# query), at D = 64 and 128 on every route.
+_EMPTY_RANGE_SHAPES = [(1, 4, 2, 50, 128, 64), (1, 4, 2, 50, 300, 128),
+                       (2, 6, 3, 64, 200, 64), (1, 2, 1, 130, 400, 128)]
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D", _EMPTY_RANGE_SHAPES)
+@pytest.mark.parametrize("dtype,aligned", [(torch.float32, True),
+                                           (torch.bfloat16, True),
+                                           (torch.bfloat16, False)])
+def test_flash_backward_units_with_empty_ranges(cuda, B, H, KH, Sq, Sk, D,
+                                                dtype, aligned):
+    """The backward kernel on causal units with nothing to do for one
+    consumer or for the whole unit, against autograd of the plain
+    attention; the same bits on two launches, and each call one launch in
+    ``launches`` and in ``route_launches`` of its route."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    q, k, v = _attn_inputs(cuda, B, H, KH, Sq, Sk, D, dtype, seed=Sq + Sk)
+    dout = torch.randn(B, H, Sq, D, generator=torch.Generator(
+        device=cuda).manual_seed(Sk), device=cuda).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    args = [q, k, v, out, dout]
+    if not aligned:
+        args = [_misaligned(t) for t in args]
+    path = fa.route(dtype, D, aligned=aligned)
+    bwd = fa.flash_attention_backward
+    got = []
+    for _ in range(2):
+        before = (bwd.launches, dict(bwd.route_launches))
+        got.append(bwd(*args, lse, causal=True))
+        torch.cuda.synchronize()
+        assert bwd.launches == before[0] + 1
+        assert bwd.route_launches == {
+            r: n + (r == path) for r, n in before[1].items()}
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention(*leaves, causal=True), leaves,
+                               dout)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    largest = max(w.float().abs().max() for w in want)
+    for name, g, a, w in zip("qkv", *got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g.view(bits), a.view(bits)), name
+        scale = w.float().abs().max()
+        err = (g.float() - w.float()).abs().max() / (
+            scale if scale > 0 else largest)
+        assert err <= TOL[dtype], (name, err)
+    # keys that no query sees have zero gradients
+    assert not got[0][1][:, :, Sq:].any() and not got[0][2][:, :, Sq:].any()
+
+
+def test_flash_backward_resources_are_what_the_kernels_get(cuda):
+    """Registers, shared memory and resident blocks of each backward
+    kernel, from the card: the simt kernel keeps 16 warps an SM at DP = 64
+    and 128, the wgmma kernel one block of 12 warps."""
+    from repro_torch.kernels import flash_attention as fa
+    for dtype, D, aligned in ((torch.float32, 64, True),
+                              (torch.float32, 128, True),
+                              (torch.float32, 72, False),
+                              (torch.bfloat16, 20, True),
+                              (torch.bfloat16, 64, True),
+                              (torch.bfloat16, 128, True)):
+        res = fa.backward_resources(dtype, D, aligned=aligned)
+        assert res["route"] == fa.route(dtype, D, aligned=aligned)
+        assert res["blocks_per_sm"] >= 1 and 0 < res["registers"] <= 255
+        assert res["smem_bytes"] <= 232448
+        if res["route"] == "simt":
+            assert res["warps_per_sm"] >= 16, res
+        else:
+            assert res["warps_per_sm"] == 12, res
+
+
 def test_flash_backward_with_no_keys_or_queries_gives_zeros(cuda):
     from repro_torch.kernels import flash_attention as fa
     for Sq, Sk in ((5, 0), (0, 7)):
