@@ -81,8 +81,9 @@ Each phase prints one line; any failure raises and exits non-zero:
    14's: whisper-tiny's encoder (q, k, v 16x6x1500x64, not causal),
    decoder (16x6x448x64, causal), cross-attention (q 16x6x448x64 over k, v
    16x6x1500x64) and a decode step's cross-attention (q 16x6x1x64), and
-   llava-next-34b's training attention (q 2x56x2048x128 over 8 kv heads):
-   float32
+   llava-next-34b's training attention (q 2x56x2048x128 over 8 kv heads),
+   and the training attention of phases 12b and 13b (q 2x32x2048x112 over
+   32 kv heads; q 2x48x2048x128 over 8): float32
    (the simt route), bf16 (wgmma) and bf16 through the simt route (q, k,
    v one element past a 16-byte boundary), each launched twice (the same
    bits), with CUDA-event times of the kernel, the plain version and
@@ -108,9 +109,11 @@ Each phase prints one line; any failure raises and exits non-zero:
    gradient at the training step's attention (q 2x28x2048x128, k, v
    2x4x2048x128, causal), a ragged shape (2x8x1000x64, 2 kv heads),
    whisper-tiny's encoder (16x6x1500x64, not causal), cross-attention (q
-   16x6x448x64 over 1500 keys) and decoder (16x6x448x64, causal), and
+   16x6x448x64 over 1500 keys) and decoder (16x6x448x64, causal),
    llava-next-34b's training attention (q 2x56x2048x128 over 8 kv heads),
-   in float32 (simt) and bf16 (wgmma): the backward kernel alone
+   and zamba2-7b's and dbrx-132b's (q 2x32x2048x112 over 32 kv heads, the
+   wgmma backward's D > 64 layout at D = 112; q 2x48x2048x128 over 8, GQA
+   6), in float32 (simt) and bf16 (wgmma): the backward kernel alone
    (``flash_attention_backward``: the delta pre-pass, then one launch of
    the dK/dV and dQ units, heaviest first), given the forward kernel's out
    and row log-sum-exp, against the plain backward given the same, two
@@ -168,7 +171,14 @@ Each phase prints one line; any failure raises and exits non-zero:
    decode step; then phase 7's long prefill with the kernel (13 launches)
    and with the plain attention (none), and the parameters freed.  Its
    Mamba2 (SSD) layers are torch ops: the JAX package has no kernel for
-   them;
+   them; (b) zamba2-7b at full width cut to 24 of its 81 layers (4
+   shared-attention sites, 2,306,381,184 float32 parameters from seed 0)
+   trained as 11c at HYBRID_TRAIN_LR: every first-step gradient leaf finite
+   (the SSD at its published 256-token chunks, where the JAX package's
+   gradient is NaN), 8 wgmma flash launches a step (the forward and the
+   remat recompute at each site) and 4 backward launches; with
+   ``--profile`` the profiled step adds the SSD's forward and backward
+   device time and its share of the step;
 13. MoE — the hybrid freed, dbrx-132b at its published width (d_model
    6144, 48 heads of 128 over 8 kv heads, 16 experts of 10752, top-4,
    every layer MoE) cut to 4 of its 40 layers (14,269,470,720 float32
@@ -185,7 +195,17 @@ Each phase prints one line; any failure raises and exits non-zero:
    and one MoE layer (128 experts of 8192, top-1, a shared expert;
    18,553,267,200 bf16 parameters): 2 flash launches per prefill.  The
    expert products are ``torch.bmm`` in bf16: the JAX package computes
-   MoE outside any Pallas kernel;
+   MoE outside any Pallas kernel; (b) dbrx-132b at full width cut to 1 of
+   its 40 layers (4,492,216,320 float32 parameters from seed 0) trained as
+   11c with ``optim.Adafactor`` at MOE_TRAIN_LR, passed to
+   ``make_train_step`` by the phase (AdamW's state does not fit the card;
+   ``make_optimizer`` gives Adafactor to llama4* only): 2 wgmma flash
+   launches and 1 backward launch a step, top-4 routing, capacity drops and
+   the aux loss in the gradient, and the (token, expert) assignments that
+   flip between the kernel's and the plain attention's forwards of the
+   FIRST_STEP_DRAWS batches beside the first-step gap.  llama4-maverick
+   is not trained: parameters and gradients of its 2-layer cut take 74.2
+   GB of bf16;
 14. encoder-decoder and VLM — the MoE models freed: (b) the training
    launcher at ``--reduced`` on the card for whisper-tiny and
    llava-next-34b, as 11b (an encoder-decoder step launches flash once an
@@ -252,9 +272,11 @@ Each phase prints one line; any failure raises and exits non-zero:
    the dry-run's FLOPs by dtype to the FLOP, the steps' measured peak must
    lie within 0.8-1.2 times the predicted peak, and the roofline bound
    (the larger of the compute and memory terms at the H100's data-sheet
-   rates) must not exceed the measured median step; the MFU (6 N D over
-   the median step at the bf16 peak) is printed (``dryrun`` in the
-   ``train_full`` lines).
+   rates) must not exceed the measured median step; the MFU (6 N_active D
+   over the median step at the bf16 peak) is printed (``dryrun`` in the
+   ``train_full`` lines); (d) 12b's and (e) 13b's cells the same, their
+   FLOPs to the FLOP and their bound, with the peak's ratio printed (the
+   dry-run models make_optimizer's AdamW, not 13b's Adafactor).
 
 With ``--profile`` it also profiles one decode step and two prefills of
 each served model (zamba2-7b's and the MoE models' too) and one
@@ -265,15 +287,15 @@ device busy share, and the device time of the port's own kernels).
 Then one JSON line of the kernels (``matmul`` counts phase 15a's launches
 too; ``flash_attention``, headed by its
 wgmma kernel, counts the wrapper's launches on both routes, serving and
-training, the encoder-decoder's prefill and decode steps, phase 15b's
-pipeline and phase 16a's world path too;
+training (12b's and 13b's too), the encoder-decoder's prefill and decode
+steps, phase 15b's pipeline and phase 16a's world path too;
 ``flash_attention_simt`` is the CUDA-core kernel and its
 launches; ``ssm_scan`` counts serving and training forwards, and
 ``ssm_scan_backward``, headed by the training shape, the backward kernel's
 launches in 11e and 11f; the scan's entries phase 16b's too;
 ``flash_attention_backward``, headed by the wgmma backward kernel at 11c's
 attention (its numbers the backward kernel's alone), the backward's
-launches on both routes in 11b, 11c and 14b-d, and
+launches on both routes in 11b, 11c, 12b, 13b and 14b-d, and
 ``flash_attention_backward_simt``, the CUDA-core backward kernel and its
 own launches; both backward entries say in ``design`` how they were
 redesigned: one heaviest-first launch of their units, and on the CUDA
@@ -355,7 +377,9 @@ SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # whose D is a multiple of 8 but not of 16, and phase 14's: whisper-tiny's
 # encoder self-attention, decoder self-attention, cross-attention and
 # cross-attention in a decode step (6 heads of 64, batch 16, 448 tokens over
-# 1500 frames) and llava-next-34b's training attention (GQA 7)
+# 1500 frames) and llava-next-34b's training attention (GQA 7), and the
+# training attention of phases 12b (zamba2-7b: 32 heads of 112) and 13b
+# (dbrx-132b: GQA 6)
 FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (1, 28, 4, 12, 12, 128, True),
                 (1, 32, 32, 2048, 2048, 112, True),
@@ -374,7 +398,9 @@ FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (16, 6, 6, 448, 448, 64, True),
                 (16, 6, 6, 448, 1500, 64, False),
                 (16, 6, 6, 1, 1500, 64, False),
-                (2, 56, 8, 2048, 2048, 128, True)]
+                (2, 56, 8, 2048, 2048, 128, True),
+                (2, 32, 32, 2048, 2048, 112, True),
+                (2, 48, 8, 2048, 2048, 128, True)]
 # phases 6b and 9b: the serve traffic with the traced request on cluster
 # worker processes (see phase_serve_process)
 PROCESS_SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
@@ -393,13 +419,17 @@ LOGIT_TOL = 0.5
 # phase 11a: (B, H, KH, Sq, Sk, D, causal) of the flash gradient checks:
 # the full-width training step's attention, a ragged shape, and phase 14's
 # whisper-tiny encoder (not causal), cross-attention (Sq != Sk) and decoder
-# (causal), and llava-next-34b's training attention (GQA 7)
+# (causal), llava-next-34b's training attention (GQA 7), and the training
+# attention of phases 12b (zamba2-7b: D = 112, the wgmma backward's D > 64
+# layout with its stores masked past D) and 13b (dbrx-132b: GQA 6)
 TRAIN_GRAD_SHAPES = [(2, 28, 4, 2048, 2048, 128, True),
                      (2, 8, 2, 1000, 1000, 64, True),
                      (16, 6, 6, 1500, 1500, 64, False),
                      (16, 6, 6, 448, 1500, 64, False),
                      (16, 6, 6, 448, 448, 64, True),
-                     (2, 56, 8, 2048, 2048, 128, True)]
+                     (2, 56, 8, 2048, 2048, 128, True),
+                     (2, 32, 32, 2048, 2048, 112, True),
+                     (2, 48, 8, 2048, 2048, 128, True)]
 # phase 11a's times: the median of 20 calls, each between its own CUDA
 # events, after 3 warm-ups (a mean of 5 moved SDPA's backward up to 2.3x
 # between two runs)
@@ -498,16 +528,66 @@ SPMD_MICRO = 4
 SPMD_PIPE_TOL = TOL["bfloat16"]
 # phase 15c: the leaf whose int8 codes and scales are held to the CPU's
 SPMD_BITS_LEAF = "layers/mixer/wk"
-# phase 17: the dry-runs' time limit, and the band the measured peak of
-# 11c and 11f must lie in, as a share of the dry-run's prediction
+# phase 17: the dry-runs' time limit, and the band the measured peak of a
+# DRYRUN_PEAK_HELD cell must lie in, as a share of the dry-run's prediction
 DRYRUN_TIMEOUT = 300.0
 DRYRUN_PEAK_BAND = (0.8, 1.2)
+# phase 12b: zamba2-7b at full width cut to 24 of its 81 layers, 4
+# shared-attention sites (after layers 6, 12, 18 and 24): 2,306,381,184
+# float32 parameters, 36.9 GB with gradients and AdamW moments (51.9 GB at
+# 36 layers, 108.0 GB at 81)
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_N_PARAMS = 24, 2_306_381_184
+# zamba2-7b's peak rate under AdamW.  From the same draw its losses over the
+# 4 steps read (train_check_causes.py lr --arch zamba2-7b on an NVIDIA H100
+# 80GB HBM3 at its 700.00 W power limit): at 0, 10.962, 10.952, 10.958,
+# 10.934 (the batches' own spread); at 3e-6, 10.96, 10.61, 10.37, 10.20; at
+# 1e-5, 10.96, 9.82, 9.02, 8.57; at 3e-5, 10.96, 8.25, 7.48, 7.07; at 1e-4,
+# 10.96, 15.38, 10.61, 8.89; and phase 12b's own steps at TRAIN_LR, 10.96,
+# 22.36, 14.46, 14.59.  3e-5 is the largest of these rates at which the 4
+# losses fall
+HYBRID_TRAIN_LR = 3e-5
+# phase 13b: dbrx-132b at full width cut to 1 of its 40 layers
+# (4,492,216,320 float32 parameters, 2,114,045,952 active a token).  AdamW
+# cannot hold it: parameters, gradients and two moments take 71.9 GB, and a
+# layer's three 2.1 GB bf16 casts of its experts come on top.  The cell
+# trains with optim.Adafactor (factored second moments, O(n + m) state for
+# an (n, m) matrix): parameters and gradients take 35.9 GB.
+# launch/steps.py::make_optimizer gives Adafactor to llama4* only, as the
+# reference does, so the cell passes Adafactor to make_train_step itself.
+# llama4-maverick-400b-a17b cannot train on one card: at 2 layers, its
+# smallest cut that holds an MoE layer, its 18,553,267,200 bf16 parameters
+# take 37.1 GB, and their gradients as much again before any activation
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_N_PARAMS = \
+    "dbrx-132b", 1, 4_492_216_320
+ADAFACTOR_CELLS = (MOE_TRAIN_ARCH,)
+# dbrx-132b's peak rate under Adafactor, whose update has an RMS of about the
+# rate whatever the gradient's scale.  From the same draw its losses over the
+# 4 steps read (train_check_causes.py lr --arch dbrx-132b on an NVIDIA H100
+# 80GB HBM3 at its 700.00 W power limit): at 0, 12.192, 12.139, 12.206,
+# 12.152; at 1e-5, 12.19, 11.38, 10.83, 10.45; at 3e-5, 12.19, 10.04, 9.53,
+# 8.83; at 1e-4, 12.19, 13.31, 10.73, 9.03; at 3e-4, 12.19, 21.93, 13.55,
+# 9.10; at 1e-3, 12.19, 27.56, 28.34, 27.04.  3e-5 is the largest of these
+# rates at which the 4 losses fall
+MOE_TRAIN_LR = 3e-5
 # the training cells: (layers, parameters at that depth, batch, sequence)
 TRAIN_CELLS = {
     DENSE_ARCH: (TRAIN_LAYERS, TRAIN_N_PARAMS, TRAIN_BATCH, TRAIN_SEQ),
     ARCH: (MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_N_PARAMS, TRAIN_BATCH, TRAIN_SEQ),
     ENCDEC_ARCH: (ENCDEC_LAYERS, ENCDEC_N_PARAMS, ENCDEC_BATCH, ENCDEC_SEQ),
-    VLM_ARCH: (VLM_LAYERS, VLM_N_PARAMS, VLM_BATCH, VLM_SEQ)}
+    VLM_ARCH: (VLM_LAYERS, VLM_N_PARAMS, VLM_BATCH, VLM_SEQ),
+    HYBRID_ARCH: (HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_N_PARAMS, TRAIN_BATCH,
+                  TRAIN_SEQ),
+    MOE_TRAIN_ARCH: (MOE_TRAIN_LAYERS, MOE_TRAIN_N_PARAMS, TRAIN_BATCH,
+                     TRAIN_SEQ)}
+# phase 17: the training cells that the dry-run reads, by sub-phase, and
+# those whose measured peak must lie in DRYRUN_PEAK_BAND, as it has in
+# every run on an NVIDIA H100 80GB HBM3 at 700.00 W (zamba2-7b: 1.0015,
+# 1.0023).  13b's does not: the dry-run builds make_optimizer's AdamW
+# state, two float32 moments that 13b's Adafactor does not keep (predicted
+# 80.3 GB, measured 48.7 GB, 0.607)
+DRYRUN_CELLS = {DENSE_ARCH: "17b", ARCH: "17c", HYBRID_ARCH: "17d",
+                MOE_TRAIN_ARCH: "17e"}
+DRYRUN_PEAK_HELD = (DENSE_ARCH, ARCH, HYBRID_ARCH)
 
 
 def _costs():
@@ -1350,8 +1430,8 @@ def _reset(fn) -> None:
 
 # the port's kernels among a profile's device entries
 PORT_KERNEL = re.compile(r"\b(matmul|matmul_wgmma|ssm_scan|ssm_scan_bwd|"
-                         r"flash_attention|flash_wgmma|flash_bwd_dkdv|"
-                         r"flash_bwd_dq|delta)_kernel\b")
+                         r"flash_attention|flash_wgmma|flash_bwd|delta)"
+                         r"_kernel\b")
 
 def expected_route(cfg):
     """The route every launch of a model path's kernel must take, or None
@@ -1775,10 +1855,16 @@ def phase_long_prefill(torch, cfg, params) -> dict:
     return out
 
 
-def profile_line(torch, tag: str, fn) -> None:
+# the profiler range around each call of the Mamba2 SSD (_ssd_annotated)
+SSD_RANGE = "repro_torch.ssd_chunked"
+BACKWARD_EVENT = "autograd::engine::evaluate_function: "
+
+
+def profile_line(torch, tag: str, fn, extra=None) -> None:
     """One call of ``fn`` under ``torch.profiler``: prints the device time
     of each kernel name, the port's own kernels wherever they rank, and the
-    device's busy share of the host-clock wall (to a ``synchronize()``)."""
+    device's busy share of the host-clock wall (to a ``synchronize()``);
+    ``extra(prof, busy_us)`` adds fields read from the same trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1789,14 +1875,16 @@ def profile_line(torch, tag: str, fn) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # the device's own entries (kernels, copies, sets): their self device
-    # times add up to the time the device was busy
+    # times add up to the time the device was busy; a profiler range
+    # (SSD_RANGE) also shows on the device's timeline, and is no kernel
     kernels = [(e.self_device_time_total, e.count, e.key)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and e.key != SSD_RANGE]
     kernels.sort(reverse=True)
     busy_us = sum(k[0] for k in kernels)
     line(tag, {
+        **(extra(prof, busy_us) if extra else {}),
         "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall,
         "kernel_launches": sum(k[1] for k in kernels),
@@ -1805,6 +1893,72 @@ def profile_line(torch, tag: str, fn) -> None:
         "port_kernels": [{"kernel": k[2][:120], "count": k[1],
                           "device_ms": k[0] / 1e3} for k in kernels
                          if PORT_KERNEL.search(k[2])]})
+
+
+@contextlib.contextmanager
+def _ssd_annotated(torch):
+    """Within the block each call of the Mamba2 SSD
+    (``models/ssm.py::ssd_chunked``, torch ops: the JAX package has no
+    kernel for it) runs inside a profiler range named SSD_RANGE, its
+    recompute in the backward too."""
+    from repro_torch.models import ssm
+    inner = ssm.ssd_chunked
+
+    def annotated(*args, **kwargs):
+        with torch.profiler.record_function(SSD_RANGE):
+            return inner(*args, **kwargs)
+    ssm.ssd_chunked = annotated
+    try:
+        yield
+    finally:
+        ssm.ssd_chunked = inner
+
+
+def _ssd_backward(prof, busy_us: float) -> dict:
+    """The SSD's share of a profiled training step run under
+    :func:`_ssd_annotated`.  Its forward: the device time under the
+    SSD_RANGE ranges (the forward and the remat recompute).  Its backward:
+    the device time of the autograd nodes that differentiate the
+    operations inside those ranges, matched by the forward operation's
+    thread and sequence number; each node counts the kernels it and its
+    operations launch, not those of a recompute that runs inside it (the
+    recompute's operations carry sequence numbers of their own: the
+    backward's own carry none, or the node's)."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+
+    def subtree_us(e, node: bool) -> float:
+        own = (e.sequence_nr, e.fwd_thread)
+        total, stack = 0.0, [e]
+        while stack:
+            c = stack.pop()
+            total += sum(k.duration for k in c.kernels)
+            stack.extend(k for k in c.cpu_children
+                         if not node or k.sequence_nr < 0
+                         or (k.sequence_nr, k.fwd_thread) == own)
+        return total
+
+    ranges = [e for e in events if e.name == SSD_RANGE
+              and e.device_type == DeviceType.CPU]
+    forward = set()
+    for r in ranges:
+        stack = list(r.cpu_children)
+        while stack:
+            c = stack.pop()
+            if c.sequence_nr >= 0:
+                forward.add((c.thread, c.sequence_nr))
+            stack.extend(c.cpu_children)
+    nodes = [e for e in events if e.name.startswith(BACKWARD_EVENT)
+             and (e.fwd_thread, e.sequence_nr) in forward]
+    fwd_us = sum(subtree_us(r, False) for r in ranges)
+    bwd_us = sum(subtree_us(e, True) for e in nodes)
+    if not ranges or not nodes:
+        fail(f"the profiled step shows {len(ranges)} SSD ranges and "
+             f"{len(nodes)} of their backward nodes")
+    return {"ssd_calls": len(ranges), "ssd_backward_nodes": len(nodes),
+            "ssd_forward_ms": fwd_us / 1e3, "ssd_backward_ms": bwd_us / 1e3,
+            "ssd_backward_share_of_busy": bwd_us / busy_us,
+            "ssd_share_of_busy": (fwd_us + bwd_us) / busy_us}
 
 
 def phase_profile(torch, cfg, params) -> None:
@@ -2190,18 +2344,21 @@ def phase_scan_grads(torch) -> list:
 def _train_kernels(cfg) -> dict:
     """A model path's training kernels: each wrapper and its launches a
     step, the forward kernel first.  Under selective remat each kernel
-    forward runs twice a layer (the forward and the recompute) and its
-    backward kernel once.  The encoder-decoder is not checkpointed (nor is
-    the reference's): flash runs once an encoder layer and twice a decoder
-    layer (self- and cross-attention), and its backward as often."""
+    forward runs twice a site (the forward and the recompute) and its
+    backward kernel once; a site is a layer, or one of the hybrid's
+    shared-attention sites (inside its layer's remat).  The encoder-decoder
+    is not checkpointed (nor is the reference's): flash runs once an
+    encoder layer and twice a decoder layer (self- and cross-attention),
+    and its backward as often."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as scan
     if cfg.is_encoder_decoder:
         sites = cfg.n_enc_layers + 2 * cfg.n_layers
         return {fa.flash_attention: sites, fa.flash_attention_backward: sites}
     if _path_kernel(cfg) == "flash_attention":
-        return {fa.flash_attention: 2 * cfg.n_layers,
-                fa.flash_attention_backward: cfg.n_layers}
+        sites = _kernel_layers(cfg)
+        return {fa.flash_attention: 2 * sites,
+                fa.flash_attention_backward: sites}
     return {scan.ssm_scan: 2 * cfg.n_layers,
             scan.ssm_scan_backward: cfg.n_layers}
 
@@ -2376,13 +2533,37 @@ def _train_cell(arch: str):
     return cfg, n_params, fn_cls, batch, seq
 
 
+def _routing_flips(torch, cfg, kernel_calls, plain_calls) -> dict:
+    """One batch's MoE routing in a forward with the kernel and one with
+    the plain attention (``_recording_routing``'s calls, one an MoE
+    layer): the (token, expert) assignments that the two do not share,
+    summed over the layers (a layer's input differs between the two once an
+    attention before it rounds otherwise, so a near-tie can flip a pick),
+    and each run's picks dropped by capacity."""
+    layers = cfg.n_layers // cfg.moe_every
+    if len(kernel_calls) != layers or len(plain_calls) != layers:
+        fail(f"{cfg.name}: {len(kernel_calls)} and {len(plain_calls)} MoE "
+             f"calls recorded in a forward, expected {layers}")
+    E, K = cfg.n_experts, cfg.experts_per_token
+    flipped = 0
+    for ck, cp in zip(kernel_calls, plain_calls):
+        picks = [torch.nn.functional.one_hot(c["idx"].reshape(-1, K),
+                                             E).amax(1) for c in (ck, cp)]
+        flipped += int((picks[0] > picks[1]).sum())
+    return {"flipped": flipped,
+            "assignments": sum(c["tokens"] for c in kernel_calls) * K,
+            "dropped_kernel": sum(int(c["dropped"]) for c in kernel_calls),
+            "dropped_plain": sum(int(c["dropped"]) for c in plain_calls)}
+
+
 def _loss_over_draws(torch, cfg, params, n_batch: int, seq: int) -> dict:
     """The first step's loss with the kernel and with the plain attention
     over FIRST_STEP_DRAWS batches (forward only): batch ``d`` is
     SyntheticLMDataset(seed=0)'s at index ``d`` with its frontend's input
     drawn from seed ``d``.  Returns the two losses of their union (the
     mean: the batches are of one size), their relative gap, and each
-    batch's own."""
+    batch's own; for an MoE model also each batch's routing flips
+    (:func:`_routing_flips`) and their sum."""
     from repro_torch.data.pipeline import SyntheticLMDataset
     from repro_torch.launch.train import add_frontend
     from repro_torch.models import model_module
@@ -2390,20 +2571,53 @@ def _loss_over_draws(torch, cfg, params, n_batch: int, seq: int) -> dict:
     fns = {impl: model_module(cfg).make_loss_fn(cfg, impl=impl)
            for impl in ("kernel", "ref")}
     losses = {impl: [] for impl in fns}
+    routing = []
     with torch.no_grad():
         for d in range(FIRST_STEP_DRAWS):
             batch = add_frontend({k: torch.as_tensor(v, device="cuda")
                                   for k, v in ds.batch_at(d).items()},
                                  cfg, n_batch, "cuda", seed=d)
+            calls = {}
             for impl, fn in fns.items():
-                losses[impl].append(fn(params, batch)[0].item())
+                with (_recording_routing(torch) if cfg.n_experts
+                      else contextlib.nullcontext([])) as calls[impl]:
+                    losses[impl].append(fn(params, batch)[0].item())
+            if cfg.n_experts:
+                routing.append(_routing_flips(torch, cfg, calls["kernel"],
+                                              calls["ref"]))
     mean = {impl: sum(v) / len(v) for impl, v in losses.items()}
-    return {"draws": FIRST_STEP_DRAWS, "loss_kernel": mean["kernel"],
-            "loss_plain": mean["ref"],
-            "loss_rel_diff": abs(mean["kernel"] - mean["ref"])
-            / abs(mean["ref"]),
-            "per_draw_rel_diff": [(k - p) / abs(p) for k, p in
-                                  zip(losses["kernel"], losses["ref"])]}
+    out = {"draws": FIRST_STEP_DRAWS, "loss_kernel": mean["kernel"],
+           "loss_plain": mean["ref"],
+           "loss_rel_diff": abs(mean["kernel"] - mean["ref"])
+           / abs(mean["ref"]),
+           "per_draw_rel_diff": [(k - p) / abs(p) for k, p in
+                                 zip(losses["kernel"], losses["ref"])]}
+    if routing:
+        out["routing"] = {
+            **{k: sum(r[k] for r in routing) for k in routing[0]},
+            "flipped_per_draw": [r["flipped"] for r in routing]}
+    return out
+
+
+def _train_lr(arch: str) -> float:
+    """A training cell's peak rate."""
+    return {VLM_ARCH: VLM_LR, HYBRID_ARCH: HYBRID_TRAIN_LR,
+            MOE_TRAIN_ARCH: MOE_TRAIN_LR}.get(arch, TRAIN_LR)
+
+
+def _train_optimizer(cfg, lr: float):
+    """A training cell's optimizer at peak rate ``lr``, warmup 1, so that
+    TRAIN_STEPS steps train at the peak rate and below (with the
+    launcher's default warmup of 10 the rate is at most 1.2e-4 of it
+    there): make_optimizer's, or Adafactor for ADAFACTOR_CELLS, which
+    make_optimizer gives AdamW (see MOE_TRAIN_ARCH)."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import Adafactor
+    from repro_torch.optim.schedules import cosine_schedule
+    schedule = cosine_schedule(lr, 1, TRAIN_STEPS)
+    if cfg.name in ADAFACTOR_CELLS:
+        return Adafactor(lr=schedule)
+    return steps.make_optimizer(cfg, lr=schedule)
 
 
 def _dryrun_args(arch: str, layers: int, batch: int, seq: int) -> list:
@@ -2420,14 +2634,14 @@ def phase_dryrun_start():
     process group is one a process) beside phases 11a and 11b: 17a's
     production cell (qwen2-7b train_4k on the (16, 16) mesh of 256 fake
     ranks) with the mesh's fake tensors on the card and on the CPU, and
-    11c's and 11f's cells on the (1, 1) mesh.  Returns what
-    :func:`phase_dryrun_join` reads."""
+    the DRYRUN_CELLS training cells (11c, 11f, 12b, 13b) on the (1, 1)
+    mesh.  Returns what :func:`phase_dryrun_join` reads."""
     import tempfile
     out = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
     prod = ["--arch", DENSE_ARCH, "--shape", "train_4k", "--mesh", "single"]
     runs = {"production_cuda": prod + ["--device", "cuda"],
             "production_cpu": prod + ["--device", "cpu"]}
-    for arch in (DENSE_ARCH, ARCH):
+    for arch in DRYRUN_CELLS:
         layers, _, batch, seq = TRAIN_CELLS[arch]
         runs[arch] = _dryrun_args(arch, layers, batch, seq)
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -2442,11 +2656,12 @@ def phase_dryrun_start():
 
 
 def phase_dryrun_join(pending) -> None:
-    """Phase 17a, and 17b's and 17c's predictions: wait for the dry-runs
-    (each within DRYRUN_TIMEOUT, all killed on a failure), read their
-    records, fail unless the production cell's records from the card's
-    and the CPU's fake tensors are equal in every key but time and device,
-    and keep 11c's and 11f's in RESULTS for phase_train_full."""
+    """Phase 17a, and the training cells' predictions: wait for the
+    dry-runs (each within DRYRUN_TIMEOUT, all killed on a failure), read
+    their records, fail unless the production cell's records from the
+    card's and the CPU's fake tensors are equal in every key but time and
+    device, and keep each DRYRUN_CELLS cell's in RESULTS for
+    phase_train_full."""
     out, procs, t0 = pending
     recs = {}
     try:
@@ -2495,22 +2710,31 @@ def phase_dryrun_join(pending) -> None:
              f"card's and the CPU's fake tensors in {diff} "
              f"(status {cuda['status']}, {cuda.get('traceback')}; "
              f"{cpu.get('traceback')})")
-    for arch in (DENSE_ARCH, ARCH):
+    for arch in DRYRUN_CELLS:
         if recs[arch]["status"] != "OK":
             fail(f"dry-run of {arch}'s training cell: {recs[arch]}")
         RESULTS[("dryrun", arch)] = recs[arch]
 
 
+def _model_flops(cfg, tokens: int) -> int:
+    """A training step's model FLOPs, ``launch/roofline.py::model_flops``'s
+    6 N_active D for the config at its cut depth (roofline reads the
+    published depth): N_active = N without experts."""
+    from repro_torch.models import model_module
+    M = model_module(cfg)
+    active = getattr(M, "count_active_params", M.count_params)(cfg)
+    return 6 * active * tokens
+
+
 def _against_dryrun(dry: dict, counted: dict, peak: int, median_s: float,
-                    n_params: int, tokens: int) -> dict:
-    """Phase 17b and 17c: the dry-run's prediction for a training cell
-    beside the cell's own run: step 0's FLOPs counted by
-    ``launch.costs.Counter`` on the card, the steps' peak memory and
-    median step.  Returns the readings; the checks read them."""
+                    model_flops: int) -> dict:
+    """Phase 17b-17e: the dry-run's prediction for a training cell beside
+    the cell's own run: step 0's FLOPs counted by ``launch.costs.Counter``
+    on the card, the steps' peak memory and median step.  Returns the
+    readings; the checks read them."""
     costs = _costs()
     t_comp = costs.compute_seconds(dry["flops_by_dtype"])
     t_mem = dry["bytes_per_device"] / costs.HBM_BYTES_PER_S
-    model_flops = 6 * n_params * tokens
     return {
         "flops_by_dtype_step0": counted,
         "flops_by_dtype_dryrun": {k: int(v) for k, v in
@@ -2528,12 +2752,15 @@ def _against_dryrun(dry: dict, counted: dict, peak: int, median_s: float,
         "dryrun_compile_seconds": dry["compile_seconds"]}
 
 
-def _check_against_dryrun(name: str, got: dict) -> None:
+def _check_against_dryrun(name: str, got: dict, peak_held: bool) -> None:
+    """Fails unless step 0's FLOPs are the dry-run's to the FLOP and the
+    roofline bound is at most the median step; with ``peak_held``, also
+    unless the measured peak lies in DRYRUN_PEAK_BAND of the prediction."""
     if not got["flops_equal"]:
         fail(f"{name}: step 0 counted {got['flops_by_dtype_step0']} FLOPs, "
              f"the dry-run {got['flops_by_dtype_dryrun']}")
     lo, hi = DRYRUN_PEAK_BAND
-    if not lo <= got["peak_ratio"] <= hi:
+    if peak_held and not lo <= got["peak_ratio"] <= hi:
         fail(f"{name}: peak {got['peak_measured']} B is "
              f"{got['peak_ratio']:.3f} x the dry-run's "
              f"{got['peak_predicted']} B, outside {DRYRUN_PEAK_BAND}")
@@ -2545,20 +2772,24 @@ def _check_against_dryrun(name: str, got: dict) -> None:
 def phase_train_full(torch, arch: str = DENSE_ARCH,
                      profile: bool = False) -> dict:
     """Phase 11c (qwen2-7b at TRAIN_LAYERS layers), 11f (falcon-mamba-7b
-    at MAMBA_TRAIN_LAYERS) and 14c-d (whisper-tiny whole, llava-next-34b
-    at VLM_LAYERS): the published width cut in depth (bf16 compute,
-    selective remat, which the encoder-decoder does not apply), drawn on
-    the card from seed 0, trained on SyntheticLMDataset(seed=0) batches of
-    the cell's TRAIN_CELLS size, with its frontend's stand-in patches or
-    frames (seed 0, the same every step).  First
+    at MAMBA_TRAIN_LAYERS), 12b (zamba2-7b at HYBRID_TRAIN_LAYERS), 13b
+    (dbrx-132b at MOE_TRAIN_LAYERS) and 14c-d (whisper-tiny whole,
+    llava-next-34b at VLM_LAYERS): the published width cut in depth (bf16
+    compute, selective remat, which the encoder-decoder does not apply),
+    drawn on the card from seed 0, trained on SyntheticLMDataset(seed=0)
+    batches of the cell's TRAIN_CELLS size, with its frontend's stand-in
+    patches or frames (seed 0, the same every step).  First
     one loss-and-gradient with the kernels and one with the plain versions
-    on the same parameters and batch (the attention models' loss read over
-    FIRST_STEP_DRAWS batches); then TRAIN_STEPS steps of
-    launch/steps.py's train step with make_optimizer's AdamW; with
-    ``profile``, one more step under the profiler; then the same steps from
-    the same draw with the plain versions, whose losses the kernels' steps
-    must meet.  The attention models' losses must also fall over the
-    steps.
+    on the same parameters and batch, every gradient leaf finite (the
+    attention models' loss read over FIRST_STEP_DRAWS batches, with the
+    MoE model's routing flips); then TRAIN_STEPS steps of
+    launch/steps.py's train step with the cell's optimizer
+    (``_train_optimizer``: make_optimizer's AdamW, Adafactor for
+    dbrx-132b); with ``profile``, one more step under the profiler (the
+    hybrid's with the SSD's backward share, :func:`_ssd_backward`); then
+    the same steps from the same draw with the plain versions, whose
+    losses the kernels' steps must meet.  The attention models' losses
+    must also fall over the steps.
     The Mamba1 cell also reads the first step in float32 compute, kernel
     and plain (within SCAN_F32_*), and a control, the kernel path reading
     Δ rounded to bf16: its first step in both computes and its steps from
@@ -2571,12 +2802,11 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
     from repro_torch.launch.train import add_frontend
     from repro_torch.models import model_module
     from repro_torch.models import transformer as TF
-    from repro_torch.optim.schedules import cosine_schedule
     from repro_torch.tree import tree_flatten_with_paths
     cfg, n_params, fn_cls, n_batch, seq = _train_cell(arch)
     M = model_module(cfg)
     dense = _path_kernel(cfg) == "flash_attention"
-    lr = VLM_LR if cfg.family == "vlm" else TRAIN_LR
+    lr = _train_lr(arch)
     if (cfg.compute_dtype, cfg.remat) != ("bfloat16", "selective"):
         fail(f"{cfg.name}: expected bf16 compute and selective remat")
     per_step = _train_kernels(cfg)
@@ -2619,6 +2849,13 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         if launched() != want:
             fail(f"{impl} loss-and-gradient: launches {launched()}, "
                  f"expected {want}")
+        # the hybrid's SSD at full-width chunks is where the reference's
+        # gradient turns NaN (ROADMAP §3): the port's must not
+        bad = [p for p, g in grads[impl].items()
+               if not torch.isfinite(g).all()]
+        if bad:
+            fail(f"{cfg.name} {impl} first step: non-finite gradient "
+                 f"leaves {bad}")
     plain = (losses["ref"], grads["ref"])
     gap = _first_step_gap(torch, (losses["kernel"], grads["kernel"]), plain)
     witness = {}
@@ -2664,9 +2901,7 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
 
     compare_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    # warmup 1, so that 4 steps train at the peak rate and below; with the
-    # launcher's default warmup of 10 the rate is at most 1.2e-4 there
-    opt = steps.make_optimizer(cfg, lr=cosine_schedule(lr, 1, TRAIN_STEPS))
+    opt = _train_optimizer(cfg, lr)
     state = opt.init(params)
     step = steps.make_train_step(cfg, opt)
     step_losses, step_s, fwd_ms, bwd_ms = [], [], [], []
@@ -2705,13 +2940,18 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         fail(f"train losses {step_losses}: not finite"
              + (" and falling" if dense else ""))
     median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    model_flops = _model_flops(cfg, n_batch * seq)
     steps_peak = torch.cuda.max_memory_allocated()
     step_launches = launched()
     launches = {fn.__name__: _launch_routes(fn) for fn in kernels}
     if profile:
         batch = batch_at(TRAIN_STEPS)
-        profile_line(torch, f"profile_{cfg.name}_train_step",
-                     lambda: step(params, state, batch))
+        hybrid = "mamba2" in cfg.layer_plan[0]
+        with (_ssd_annotated(torch) if hybrid
+              else contextlib.nullcontext()):
+            profile_line(torch, f"profile_{cfg.name}_train_step",
+                         lambda: step(params, state, batch),
+                         _ssd_backward if hybrid else None)
     del params, state, metrics, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2720,7 +2960,7 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
     # step's body (launch/steps.py) over make_loss_fn(impl="ref")
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, 0, "cuda")
-    opt = steps.make_optimizer(cfg, lr=cosine_schedule(lr, 1, TRAIN_STEPS))
+    opt = _train_optimizer(cfg, lr)
     state = opt.init(params)
     plain_grad_fn = TF.value_and_grad(M.make_loss_fn(cfg, impl="ref"))
     plain_losses, plain_s = [], []
@@ -2749,8 +2989,7 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         # the control's steps: the kernel path reading Δ in bf16, from the
         # same draw, against the plain steps
         params = TF.init_params(cfg, 0, "cuda")
-        opt = steps.make_optimizer(cfg, lr=cosine_schedule(
-            TRAIN_LR, 1, TRAIN_STEPS))
+        opt = _train_optimizer(cfg, lr)
         state = opt.init(params)
         step = steps.make_train_step(cfg, opt)
         control_losses = []
@@ -2769,7 +3008,15 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
              "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
              **({"enc_layers": cfg.n_enc_layers, "enc_seq": cfg.enc_seq}
                 if cfg.is_encoder_decoder else {}),
-             **({"patches": cfg.n_patches} if cfg.family == "vlm" else {})}
+             **({"patches": cfg.n_patches} if cfg.family == "vlm" else {}),
+             **({"attention_sites": _kernel_layers(cfg),
+                 "d_inner": cfg.d_inner, "state": cfg.ssm_state,
+                 "ssm_heads": cfg.n_ssm_heads, "ssm_chunk": cfg.ssm_chunk}
+                if cfg.family == "hybrid" else {}),
+             **({"experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+                 "expert_d_ff": cfg.expert_d_ff,
+                 "capacity_factor": cfg.capacity_factor}
+                if cfg.n_experts else {})}
             if dense else {"d_inner": cfg.d_inner, "state": cfg.ssm_state})
     timings = ({"flash_launches": step_launches["flash_attention"],
                 "flash_backward_launches":
@@ -2791,6 +3038,11 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         "vocab": cfg.vocab_size, "compute_dtype": cfg.compute_dtype,
         "remat": "none" if cfg.is_encoder_decoder else cfg.remat,
         "batch": n_batch, "seq": seq,
+        "optimizer": type(opt).__name__,
+        **({"optimizer_note": "Adafactor passed to make_train_step by the "
+            "cell: AdamW's state does not fit the card, and "
+            "make_optimizer gives Adafactor to llama4* only"}
+           if cfg.name in ADAFACTOR_CELLS else {}),
         "lr": lr, "draw_s": draw_s,
         "first_step": {"loss_kernel": losses["kernel"],
                        "loss_plain": losses["ref"], **gap,
@@ -2803,6 +3055,8 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         "step_s": step_s,
         "median_step_s": median_s,
         "tokens_per_s": n_batch * seq / median_s,
+        # 6 N_active D over the median step at the bf16 peak
+        "mfu": model_flops / median_s / _costs().PEAK_FLOPS["bfloat16"],
         **timings,
         # the training steps' peak, the first-step comparison's (two
         # gradient trees at once) and the plain versions' steps'
@@ -2811,13 +3065,13 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
         "peak_device_bytes_plain_steps": plain_peak}
     if dry is not None:
         out["dryrun"] = _against_dryrun(
-            dry, dict(count.flops_by_dtype), steps_peak, median_s, n,
-            n_batch * seq)
+            dry, dict(count.flops_by_dtype), steps_peak, median_s,
+            model_flops)
     line("train_full", out)
     RESULTS[("train_full", cfg.name)] = out
     if dry is not None:
-        _check_against_dryrun(f"17{'b' if dense else 'c'} {cfg.name}",
-                              out["dryrun"])
+        _check_against_dryrun(f"{DRYRUN_CELLS[arch]} {cfg.name}",
+                              out["dryrun"], arch in DRYRUN_PEAK_HELD)
     if not dense:
         f32 = (SCAN_F32_LOSS_TOL, SCAN_F32_NORM_TOL, SCAN_F32_COSINE_MIN)
         if not _within_limits(witness["float32"], *f32):
@@ -3412,10 +3666,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     flash_launches += phase_hybrid(torch, profile)
+    # phase 12b: zamba2-7b trained, flash at its 4 shared-attention sites
+    run = phase_train_full(torch, HYBRID_ARCH, profile)
+    flash_launches += run["flash_attention"]
+    flash_bwd_launches += run["flash_attention_backward"]
     # phase 13: MoE, the flash kernel at 48 and 40 heads over 8 kv heads
     gc.collect()
     torch.cuda.empty_cache()
     flash_launches += phase_moe(torch, profile)
+    # phase 13b: dbrx-132b trained under Adafactor
+    run = phase_train_full(torch, MOE_TRAIN_ARCH, profile)
+    flash_launches += run["flash_attention"]
+    flash_bwd_launches += run["flash_attention_backward"]
     # phase 14: the encoder-decoder and the VLM, trained at full width
     gc.collect()
     torch.cuda.empty_cache()

@@ -4,7 +4,7 @@ one card: how far the first step's bf16 loss moves under attention
 numerics that are all correct, and how each peak rate moves llava's loss.
 
     python3 train_check_causes.py gap [--draws 12] [--arch qwen2-7b ...]
-    python3 train_check_causes.py lr [--lr 0 1e-5 3e-5 1e-4]
+    python3 train_check_causes.py lr [--lr 0 1e-5 3e-5 1e-4] [--arch ARCH]
 
 ``gap``: each training cell with an attention kernel (``chip_smoke``'s
 ``TRAIN_CELLS``: qwen2-7b, whisper-tiny, llava-next-34b, at their depth
@@ -28,10 +28,12 @@ attention site computed by:
 Each variant's gap to ``plain``, relative, per draw, with its mean and
 standard deviation.
 
-``lr``: llava-next-34b at ``chip_smoke``'s depth and batch, TRAIN_STEPS
-AdamW steps as phase 14d takes them (``cosine_schedule(lr, 1,
-TRAIN_STEPS)``), from the same draw, at each ``--lr``; rate 0 gives the
-batches' own spread.
+``lr``: a training cell (llava-next-34b by default; any of
+``chip_smoke``'s ``TRAIN_CELLS``) at its depth and batch, TRAIN_STEPS steps
+with the cell's optimizer as its phase takes them
+(``chip_smoke._train_optimizer``: AdamW, or Adafactor for dbrx-132b, at
+``cosine_schedule(lr, 1, TRAIN_STEPS)``), from the same draw, at each
+``--lr``; rate 0 gives the batches' own spread.
 
 Prints the card's name and power limit first, then one JSON line per draw
 or run and one summary line per cell.
@@ -173,19 +175,17 @@ def gap(torch, cs, archs, draws: int) -> None:
         torch.cuda.empty_cache()
 
 
-def lr(torch, cs, rates) -> None:
+def lr(torch, cs, arch: str, rates) -> None:
     from repro_torch.data.pipeline import SyntheticLMDataset
     from repro_torch.launch import steps
     from repro_torch.launch.train import add_frontend
     from repro_torch.models import model_module
-    from repro_torch.optim.schedules import cosine_schedule
-    cfg, _, _, n_batch, seq = cs._train_cell(cs.VLM_ARCH)
+    cfg, _, _, n_batch, seq = cs._train_cell(arch)
     ds = SyntheticLMDataset(cfg.vocab_size, seq, n_batch, seed=0)
     frontend = add_frontend({}, cfg, n_batch, "cuda")
     for rate in rates:
         params = model_module(cfg).init_params(cfg, 0, "cuda")
-        opt = steps.make_optimizer(cfg, lr=cosine_schedule(
-            rate, 1, cs.TRAIN_STEPS))
+        opt = cs._train_optimizer(cfg, rate)
         state = opt.init(params)
         step = steps.make_train_step(cfg, opt)
         losses = []
@@ -195,7 +195,7 @@ def lr(torch, cs, rates) -> None:
             params, state, metrics = step(params, state, batch)
             losses.append(metrics["total_loss"].item())
         out = {"arch": cfg.name, "layers": cfg.n_layers, "lr": rate,
-               "losses": losses}
+               "optimizer": type(opt).__name__, "losses": losses}
         print(f"lr: {json.dumps(out)}", flush=True)
         del params, state, step, opt, metrics
         gc.collect()
@@ -211,6 +211,7 @@ def main() -> int:
     r = sub.add_parser("lr")
     r.add_argument("--lr", type=float, nargs="+",
                    default=[0.0, 1e-5, 3e-5, 1e-4])
+    r.add_argument("--arch", default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -227,7 +228,7 @@ def main() -> int:
         gap(torch, cs, args.arch or [cs.DENSE_ARCH, cs.ENCDEC_ARCH,
                                      cs.VLM_ARCH], args.draws)
     else:
-        lr(torch, cs, args.lr)
+        lr(torch, cs, args.arch or cs.VLM_ARCH, args.lr)
     return 0
 
 
