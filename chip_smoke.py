@@ -240,7 +240,15 @@ Each phase prints one line; any failure raises and exits non-zero:
    bf16 compute, no grad) through ``pipelined_forward``, one stage, 4
    microbatches of 1 x 2048 embedded tokens, against ``layer_stack`` on
    the whole batch within 2e-2 of its largest entry, equal aux, 32 wgmma
-   flash launches of q 1x28x2048x128; (c) ``Int8BlockCompressor`` over
+   flash launches of q 1x28x2048x128; then the same pipeline at
+   ``train=True`` (selective remat) under autograd, the loss sum(y · w)
+   with w drawn from a seed: its gradient (every layer leaf and dx) against
+   autograd of ``layer_stack`` on the whole batch, the global gradient
+   norm within SPMD_GRAD_NORM_TOL and each leaf's cosine at least
+   SPMD_GRAD_COSINE_MIN, 64 wgmma flash forwards (forward and remat
+   recompute) and 32 wgmma backwards, all of q 1x28x2048x128, with the
+   pipeline's and the whole batch's forward + backward seconds and the
+   peak; (c) ``Int8BlockCompressor`` over
    that parameter tree: each block's roundtrip within half its own step,
    ``dp_gradient_sync(..., compressor=)`` over the world of one the
    roundtrip's bits, and one leaf's codes and scales the CPU's bits, with
@@ -288,14 +296,15 @@ Then one JSON line of the kernels (``matmul`` counts phase 15a's launches
 too; ``flash_attention``, headed by its
 wgmma kernel, counts the wrapper's launches on both routes, serving and
 training (12b's and 13b's too), the encoder-decoder's prefill and decode
-steps, phase 15b's pipeline and phase 16a's world path too;
+steps, phase 15b's pipelines (forward only and training) and phase 16a's
+world path too;
 ``flash_attention_simt`` is the CUDA-core kernel and its
 launches; ``ssm_scan`` counts serving and training forwards, and
 ``ssm_scan_backward``, headed by the training shape, the backward kernel's
 launches in 11e and 11f; the scan's entries phase 16b's too;
 ``flash_attention_backward``, headed by the wgmma backward kernel at 11c's
 attention (its numbers the backward kernel's alone), the backward's
-launches on both routes in 11b, 11c, 12b, 13b and 14b-d, and
+launches on both routes in 11b, 11c, 12b, 13b, 14b-d and 15b, and
 ``flash_attention_backward_simt``, the CUDA-core backward kernel and its
 own launches; both backward entries say in ``design`` how they were
 redesigned: one heaviest-first launch of their units, and on the CUDA
@@ -526,6 +535,18 @@ DECODE_REL_TOL = 2e-2
 # (of the largest entry) against the same layers on the whole batch
 SPMD_MICRO = 4
 SPMD_PIPE_TOL = TOL["bfloat16"]
+# and its gradient at train=True, the loss sum(y · w) (w drawn from
+# SPMD_W_SEED), against autograd of layer_stack on the whole batch: the
+# relative gap of the global gradient norm and the least leaf cosine (the
+# key bias's left out, as in 11c), in the form of 11c's first-step limits.
+# Both sides launch the same kernels in bf16 compute; they differ in how
+# cuBLAS blocks a 2048-row and an 8192-row product and in the sum of the
+# four microbatches' gradients.  Two runs on the H100 read alike: norm
+# 6.45e-6, least cosine 0.9999971 (mixer/wo), the losses the same bits;
+# each limit is about 10 times that reading's gap.  A gradient counted
+# twice breaks the norm limit, one on the wrong layers the cosine limit
+SPMD_W_SEED = 3
+SPMD_GRAD_NORM_TOL, SPMD_GRAD_COSINE_MIN = 1e-4, 0.99997
 # phase 15c: the leaf whose int8 codes and scales are held to the CPU's
 SPMD_BITS_LEAF = "layers/mixer/wk"
 # phase 17: the dry-runs' time limit, and the band the measured peak of a
@@ -2438,15 +2459,19 @@ def phase_train_launcher(torch, arch: str = DENSE_ARCH) -> dict:
 
 
 @contextlib.contextmanager
-def timed_function_calls(torch, fn_cls, method: str = "forward"):
+def timed_function_calls(torch, fn_cls, method: str = "forward",
+                         shapes=None):
     """Within the block, every call of the autograd Function ``fn_cls``'s
     ``method`` (``forward``: its kernel launch and output allocation;
     ``backward``) is bracketed by CUDA events; yields the list of (start,
-    end) pairs."""
+    end) pairs.  Each call's first argument's shape is appended to
+    ``shapes`` when given."""
     inner = getattr(fn_cls, method)
     events = []
 
     def timed(ctx, *args):
+        if shapes is not None:
+            shapes.append(list(args[0].shape))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3291,8 +3316,8 @@ def phase_pipeline(torch):
     """Phase 15b: qwen2-7b at 8 of 28 layers (11c's draw) through
     ``pipelined_forward`` with one stage and SPMD_MICRO microbatches of
     1 x TRAIN_SEQ embedded tokens, bf16 compute, against ``layer_stack`` on
-    the whole batch.  Returns the parameters and the pipeline's flash
-    launches by route."""
+    the whole batch.  Returns the config, the parameters, the embedded
+    tokens and the pipeline's flash launches by route."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as TF
     from repro_torch.models.layers import embed_tokens
@@ -3356,7 +3381,117 @@ def phase_pipeline(torch):
         "max_abs_ref": scale, "rel_err": err / scale, "tol": SPMD_PIPE_TOL,
         "bits_equal": bool(torch.equal(got, want)), "aux": float(aux),
         "peak_device_bytes": peak})
-    return params, collections.Counter(routes)
+    return cfg, params, x, collections.Counter(routes)
+
+
+def phase_pipeline_train(torch, cfg, params, x):
+    """Phase 15b's training half: 15b's pipeline at ``train=True`` under
+    autograd on the same parameters and tokens, the loss sum(y · w) + aux,
+    against autograd of ``layer_stack`` on the whole batch (SPMD_GRAD_*),
+    each side's forward and backward timed after a warm-up of both.
+    Returns the timed pipeline's flash forward and backward launches by
+    route."""
+    import gc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel.mesh import make_mesh_for
+    from repro_torch.parallel.pipeline import pipelined_forward, split_stages
+    from repro_torch.tree import tree_flatten_with_paths, tree_map
+    if (cfg.compute_dtype, cfg.remat) != ("bfloat16", "selective"):
+        fail(f"pipeline training: expected bf16 compute and selective "
+             f"remat, got {cfg.compute_dtype}, {cfg.remat}")
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device="cuda").expand(B, S)
+    w = torch.randn(x.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SPMD_W_SEED))
+    fn = pipelined_forward(cfg, make_mesh_for(1), n_microbatch=SPMD_MICRO,
+                           stage_axis="data", train=True)
+
+    def loss_and_grad(run):
+        """Seconds, loss and {path: gradient} (dx as "x") of one forward
+        and backward through ``run(layers, x)``."""
+        lay = tree_map(lambda a: a.detach().requires_grad_(),
+                       params["layers"])
+        xg = x.detach().requires_grad_()
+        paths = ["x"] + [f"layers/{p}" for p, _ in
+                         tree_flatten_with_paths(lay)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = run(lay, xg)
+        loss = (y.float() * w).sum() + aux
+        grads = torch.autograd.grad(loss, [xg] + [a for _, a in
+                                                 tree_flatten_with_paths(
+                                                     lay)])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, loss.item(),
+                dict(zip(paths, grads)))
+
+    def whole(lay, xg):
+        y, aux, _ = TF.layer_stack(lay, xg, cfg, positions=positions,
+                                   train=True)
+        return y.to(xg.dtype), aux
+
+    def pipe(lay, xg):
+        return fn(split_stages(lay, 1, cfg.n_layers), xg)
+
+    for run in (pipe, whole):            # warm-ups: the timed runs follow
+        loss_and_grad(run)
+    for f in (fa.flash_attention, fa.flash_attention_backward):
+        _reset(f)
+    fwd_shapes, bwd_shapes = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with timed_function_calls(torch, fa.FlashAttention, "forward",
+                              fwd_shapes) as fwd_ev, \
+            timed_function_calls(torch, fa.FlashAttention, "backward",
+                                 bwd_shapes) as bwd_ev:
+        pipe_s, pipe_loss, got = loss_and_grad(pipe)
+        fwd_ms, bwd_ms = events_ms(torch, fwd_ev), events_ms(torch, bwd_ev)
+    peak = torch.cuda.max_memory_allocated()
+    routes = {"forward": dict(fa.flash_attention.route_launches),
+              "backward": dict(fa.flash_attention_backward.route_launches)}
+    n = cfg.n_layers * SPMD_MICRO
+    want_shape = [1, cfg.n_heads, S, cfg.head_dim]
+    counts = (fa.flash_attention.launches,
+              fa.flash_attention_backward.launches)
+    if counts != (2 * n, n) or routes["forward"]["wgmma"] != 2 * n or \
+            routes["backward"]["wgmma"] != n or len(fwd_shapes) != 2 * n \
+            or len(bwd_shapes) != n or \
+            any(sh != want_shape for sh in fwd_shapes + bwd_shapes):
+        fail(f"pipeline training: flash launches {routes}, forward shapes "
+             f"{sorted(set(map(tuple, fwd_shapes)))}, backward shapes "
+             f"{sorted(set(map(tuple, bwd_shapes)))}; expected {2 * n} "
+             f"wgmma forwards (forward and remat recompute) and {n} "
+             f"wgmma backwards of {want_shape}")
+    bad = [p for p, g in got.items() if not torch.isfinite(g).all()]
+    if bad:
+        fail(f"pipeline training: non-finite gradient leaves {bad}")
+    whole_s, whole_loss, want = loss_and_grad(whole)
+    gap = _first_step_gap(torch, (pipe_loss, got), (whole_loss, want))
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = (gap["grad_norm_rel_diff"] <= SPMD_GRAD_NORM_TOL
+            and gap["min_cosine"] >= SPMD_GRAD_COSINE_MIN
+            and gap["loss_rel_diff"] <= SPMD_PIPE_TOL)
+    cosines = gap.pop("cosines")
+    if not held:
+        fail(f"pipeline training: gradient against the whole batch's "
+             f"{gap}; limits norm {SPMD_GRAD_NORM_TOL}, cosine "
+             f"{SPMD_GRAD_COSINE_MIN}, loss {SPMD_PIPE_TOL}")
+    line("pipeline_train", {
+        "arch": cfg.name, "layers": cfg.n_layers, "stages": 1,
+        "microbatches": SPMD_MICRO, "tokens": [B, S],
+        "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+        "loss": pipe_loss, "whole_batch_loss": whole_loss, **gap,
+        "cosine_x": cosines["x"],
+        "grad_norm_tol": SPMD_GRAD_NORM_TOL,
+        "cosine_min_allowed": SPMD_GRAD_COSINE_MIN,
+        "pipeline_fwd_bwd_s": pipe_s, "whole_batch_fwd_bwd_s": whole_s,
+        "flash_forward_ms": fwd_ms, "flash_backward_ms": bwd_ms,
+        "flash_launches": routes, "flash_q_shape": want_shape,
+        "peak_device_bytes": peak})
+    return (collections.Counter(routes["forward"]),
+            collections.Counter(routes["backward"]))
 
 
 def phase_compression(torch, params) -> None:
@@ -3431,7 +3566,7 @@ def phase_compression(torch, params) -> None:
 def phase_spmd(torch, seq_total: float):
     """Phase 15: the intra-op SPMD layer in a world of one NCCL rank
     (15a-15c), destroyed afterwards.  Returns the matmul launches and the
-    flash launches by route."""
+    flash forward and backward launches by route."""
     import gc
     import tempfile
     from repro_torch.parallel.mesh import destroy_world, init_world
@@ -3440,14 +3575,18 @@ def phase_spmd(torch, seq_total: float):
                    "ranks": 1})
     try:
         mm_launches = phase_mesh_executor(torch, seq_total)
-        params, flash_launches = phase_pipeline(torch)
+        cfg, params, x, flash_launches = phase_pipeline(torch)
+        train_fwd, flash_bwd_launches = phase_pipeline_train(torch, cfg,
+                                                             params, x)
+        del x
+        flash_launches += train_fwd
         phase_compression(torch, params)
         del params
     finally:
         destroy_world()
     gc.collect()
     torch.cuda.empty_cache()
-    return mm_launches, flash_launches
+    return mm_launches, flash_launches, flash_bwd_launches
 
 
 def phase_tp_serve(torch) -> collections.Counter:
@@ -3687,9 +3826,10 @@ def main() -> int:
     # phase 15: intra-op SPMD in a world of one NCCL rank
     gc.collect()
     torch.cuda.empty_cache()
-    spmd_matmul, spmd_flash = phase_spmd(torch, seq_total)
+    spmd_matmul, spmd_flash, spmd_flash_bwd = phase_spmd(torch, seq_total)
     launches += spmd_matmul
     flash_launches += spmd_flash
+    flash_bwd_launches += spmd_flash_bwd
     # phase 16: the launchers' world path (--tp 1) in a world of one rank
     gc.collect()
     torch.cuda.empty_cache()

@@ -558,13 +558,16 @@ class ClusterExecutor:
             return
         self._shutdown.clear()
         self._resident_error = None
+        pool_up = threading.Event()
 
         def drive() -> None:
             try:
                 with self._run_lock:
-                    self._execute_locked(TaskGraph(), {}, resident=True)
+                    self._execute_locked(TaskGraph(), {}, resident=True,
+                                         pool_up=pool_up)
             except BaseException as e:  # noqa: BLE001 — surfaced on jobs
                 self._resident_error = e
+            pool_up.set()
             # jobs queued after the loop died would hang forever: fail
             # them with the cause (admitted jobs were failed in the run)
             exc = self._resident_error or RuntimeError(
@@ -578,6 +581,13 @@ class ClusterExecutor:
         self._resident = threading.Thread(
             target=drive, daemon=True, name="cluster-resident-driver")
         self._resident.start()
+        if self.start_method == "fork":
+            # the driver thread forks the pool: return once it has, so no
+            # fork overlaps the caller's next imports.  A worker forked
+            # while this thread held a module's import lock inherits the
+            # lock held by no thread of its own, and its first import of
+            # that module (a recipe's config, say) waits for ever
+            pool_up.wait()
 
     def submit_job(self, graph: TaskGraph,
                    inputs: Optional[Dict[str, Any]] = None, *,
@@ -716,7 +726,9 @@ class ClusterExecutor:
 
     def _execute_locked(self, graph: TaskGraph,
                         inputs: Optional[Dict[str, Any]],
-                        resident: bool = False) -> Dict[int, Any]:
+                        resident: bool = False,
+                        pool_up: Optional[threading.Event] = None
+                        ) -> Dict[int, Any]:
         if resident:
             # the union run admits jobs mid-flight: its graph/inputs are
             # live mutable objects, growing at admission, shrinking at
@@ -2791,6 +2803,8 @@ class ClusterExecutor:
                     else:
                         spawn()
                 make_plan(initial=True)
+            if pool_up is not None:
+                pool_up.set()           # the pool's first workers are up
             while not error:
                 check_commands()
                 if resident:

@@ -18,6 +18,20 @@ An axis of size 1 makes no collective: each helper is the identity there
 NCCL rank never sends to itself.  They are used by the pipeline's ring
 (``parallel/pipeline.py``) and the data-parallel gradient sync, plain or
 int8-compressed (``parallel/compression.py``).
+
+The plain helpers carry no gradient (``_all_reduce`` reduces a clone in
+place, ``ring_permute`` receives into a fresh tensor).  Three autograd
+Functions carry one, for a loss that every rank computes alike on the
+replicated result (the training pipeline):
+
+- ``ring_hop``: ``ring_permute(x, shift)``; its gradient goes back the
+  way the activation came, ``ring_permute(g, -shift)``;
+- ``reduce_from``: ``psum``; each rank's term reaches the loss once, as
+  the sum, so its gradient is the sum's: the identity (an all-reduce
+  there would count it once for every rank of the axis);
+- ``copy_to``: the identity on a value every rank of the axis holds
+  alike; each rank's use of it adds to the gradient, so the gradient is
+  their ``psum``.
 """
 from __future__ import annotations
 
@@ -80,6 +94,58 @@ def ring_permute(x: torch.Tensor, mesh, axis: str,
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return ring_permute(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_permute(g, ctx.mesh, ctx.axis, -ctx.shift), None, None, \
+            None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axis), None, None
+
+
+def ring_hop(x: torch.Tensor, mesh, axis: str,
+             shift: int = 1) -> torch.Tensor:
+    """``ring_permute`` under autograd: the gradient of the received tensor
+    travels ``shift`` places back, to the rank that sent it."""
+    return _RingHop.apply(x, mesh, axis, shift)
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``psum`` under autograd, for a sum every rank then uses alike: the
+    gradient of each rank's term is the sum's gradient on that rank."""
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x``, the same on every rank of ``axis``, under autograd: its
+    gradient is the ``psum`` of the ranks' gradients."""
+    return _CopyTo.apply(x, mesh, axis)
 
 
 def all_gather_seq(x: torch.Tensor, mesh, axis: str,

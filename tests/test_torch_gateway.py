@@ -416,3 +416,23 @@ def test_serve_gateway_gives_the_thread_backends_traced_tokens(gateway):
         "prefill", "decode", "respond")} == {"prefill": 1, "decode": 2,
                                              "respond": 1}
     assert stats["kernel_launches"] == {}        # the CPU: no kernel launch
+
+
+def test_a_forked_resident_pool_is_up_when_start_resident_returns():
+    """The resident driver forks its pool on its own thread, so
+    ``start_resident`` returns only once it has: no fork overlaps the
+    caller's next imports.  A worker forked while the caller's thread held
+    a module's import lock hung in its first import of that module
+    (``serve --gateway``'s recipe, reading its config by module name: 2 of
+    108 runs of the isolation test's script, 8 at a time)."""
+    import multiprocessing as mp
+    from repro_torch.cluster.executor import ClusterExecutor
+    before = set(mp.active_children())
+    ex = ClusterExecutor(config=cfg(start_method="fork"))
+    ex.start_resident()
+    try:
+        forked = [p for p in mp.active_children() if p not in before]
+        assert len(forked) == 2 and all(p.is_alive() for p in forked)
+    finally:
+        ex.shutdown_resident()
+        ex.close()

@@ -162,14 +162,21 @@ print("TOKENS", out["traced_tokens"], "BAD", ",".join(bad))
 def test_a_gateway_serve_request_loads_no_jax_and_no_repro():
     """``serve --gateway`` re-imports its recipe functions by module name
     before it traces: a process that runs the gateway, the client and the
-    request loads neither JAX nor the JAX package."""
+    request loads neither JAX nor the JAX package.  A failure reports the
+    subprocess's exit code and the ends of its output and errors."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", _GATEWAY_SERVE_SCRIPT],
-                          capture_output=True, text=True, env=env,
-                          cwd=str(ROOT), timeout=180)
-    assert proc.returncode == 0, proc.stderr
+    try:
+        proc = subprocess.run([sys.executable, "-c", _GATEWAY_SERVE_SCRIPT],
+                              capture_output=True, text=True, env=env,
+                              cwd=str(ROOT), timeout=180)
+    except subprocess.TimeoutExpired as e:
+        pytest.fail(f"no end within 180 s\nstdout: {e.stdout!r}"
+                    f"\nstderr: {e.stderr!r}")
+    said = (f"rc {proc.returncode}\nstdout: {proc.stdout[-3000:]}"
+            f"\nstderr: {proc.stderr[-6000:]}")
+    assert proc.returncode == 0, said
     tokens, _, bad = proc.stdout.strip().splitlines()[-1].partition(" BAD")
-    assert tokens.startswith("TOKENS [") and bad.strip() == "", bad
+    assert tokens.startswith("TOKENS [") and bad.strip() == "", said
 
 
 _TRAIN_SCRIPT = r"""

@@ -20,7 +20,17 @@ layer scan) are computed here and handed over as numpy files.
   reduced to 4 MoE layers, whose aux is not zero, against the scan run on
   each microbatch (routing is per microbatch), the aux averaged over them:
   every stage's aux counts, not only the last stage's as in the reference;
-- the collective helpers against dense references, exactly (:141-199);
+- the pipeline's gradient, under autograd, on both: each rank's gradient,
+  summed over ``pod``, and its dx against ``jax.grad`` of the JAX scan run
+  on each microbatch, the loss ``sum(y · w) + c · aux`` (``w`` drawn from
+  a seed, ``c`` = PIPE_AUX_WEIGHT), each leaf within 2e-4 of its largest
+  entry; the same comparison must fail on the gradient 4 times over and on
+  one whose stage slices are rolled by one stage;
+- 3 AdamW steps through the pipeline on yi-9b: the losses those of the
+  same steps through ``layer_stack`` on each microbatch in this process,
+  and the parameters the same bits on every rank after each step;
+- the collective helpers against dense references, exactly (:141-199),
+  and the gradients of the three that carry one;
 - ``dp_gradient_sync`` plain and int8-compressed (:113-138);
 - ``_fit_sharding`` (:202-215), ``make_mesh_for``'s ``ValueError`` on a
   world too small, ``ShardingCtx.constrain`` and the flash entry on
@@ -45,7 +55,16 @@ from repro_torch.tree import tree_flatten_with_paths  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, WORLD_TIMEOUT_S = 8, 240.0
-PIPE_B, PIPE_S, PIPE_LAYERS = 8, 16, 4
+PIPE_B, PIPE_S, PIPE_LAYERS, PIPE_MICRO = 8, 16, 4, 4
+# the loss the pipeline's gradient checks differentiate: sum(y · w) +
+# PIPE_AUX_WEIGHT · aux, w drawn from PIPE_W_SEED; the weight makes the aux
+# term move dbrx-132b's router gradient far past the tolerance
+PIPE_AUX_WEIGHT, PIPE_W_SEED = 1000.0, 2
+# of each gradient leaf's largest entry: the forward check's tolerance
+PIPE_GRAD_TOL = 2e-4
+# the training check: AdamW steps through the pipeline on yi-9b, their
+# losses held to layer_stack's at this relative tolerance
+PIPE_STEPS, PIPE_LR, PIPE_LOSS_TOL = 3, 1e-3, 2e-4
 
 _RANK_SCRIPT = r'''
 import json, sys, traceback
@@ -159,13 +178,8 @@ def mesh_executor_torch_matmul():
             "global": 2 * 64 * 64 * 64}
 
 
-def _pipeline(arch, npz):
-    from repro_torch.configs import get_config
-    from repro_torch.interop import params_from_numpy
-    from repro_torch.parallel.mesh import make_mesh_for
-    from repro_torch.parallel.pipeline import (bubble_fraction,
-                                               pipelined_forward,
-                                               split_stages)
+def _load(npz):
+    """The npz's arrays, and its ``layers/`` leaves as a tree."""
     ref = np.load(WORK / npz)
     tree = {}
     for key in ref.files:
@@ -175,8 +189,23 @@ def _pipeline(arch, npz):
             for k in path:
                 node = node.setdefault(k, {})
             node[leaf] = ref[key]
-    cfg = get_config(arch).reduced(n_layers=4, compute_dtype="float32",
-                                   param_dtype="float32", remat="none")
+    return ref, tree
+
+
+def _config(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced(n_layers=4, compute_dtype="float32",
+                                    param_dtype="float32", remat="none")
+
+
+def _pipeline(arch, npz):
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.parallel.mesh import make_mesh_for
+    from repro_torch.parallel.pipeline import (bubble_fraction,
+                                               pipelined_forward,
+                                               split_stages)
+    ref, tree = _load(npz)
+    cfg = _config(arch)
     lay = params_from_numpy(tree, "cpu")
     mesh = make_mesh_for(8, model_parallel=2, pods=4)
     fn = pipelined_forward(cfg, mesh, n_microbatch=4, stage_axis="pod")
@@ -204,12 +233,111 @@ def pipeline_moe():
     return got
 
 
+def _pipeline_loss(fn, lay, x, w, n_stages):
+    """The loss sum(y · w) + c · aux through ``fn``, and its gradient: of
+    x, and of each layer leaf on this rank."""
+    from repro_torch.parallel.pipeline import split_stages
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    y, aux = fn(split_stages(lay, n_stages, 4), x)
+    loss = (y * w).sum() + PIPE_AUX_WEIGHT * aux
+    leaves = tree_leaves(lay)
+    grads = torch.autograd.grad(loss, [x] + leaves)
+    return loss.detach(), grads[0], tree_unflatten(lay, grads[1:])
+
+
+def _gap(got, want):
+    """Each gradient's largest |difference| over its largest |entry|."""
+    return {p: float((g - want[p]).abs().max() / want[p].abs().max())
+            for p, g in got.items()}
+
+
+def _pipeline_grad(arch, npz):
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.parallel.collectives import psum_tree
+    from repro_torch.parallel.mesh import make_mesh_for
+    from repro_torch.parallel.pipeline import pipelined_forward
+    from repro_torch.tree import tree_flatten_with_paths, tree_map
+    ref, tree = _load(npz)
+    lay = tree_map(lambda a: a.requires_grad_(),
+                   params_from_numpy(tree, "cpu"))
+    x = torch.from_numpy(ref["x"]).requires_grad_()
+    mesh = make_mesh_for(8, model_parallel=2, pods=4)
+    fn = pipelined_forward(_config(arch), mesh, n_microbatch=PIPE_MICRO,
+                           stage_axis="pod")
+    _, dx, g = _pipeline_loss(fn, lay, x, torch.from_numpy(ref["w"]), 4)
+    g = psum_tree(g, mesh, "pod")
+    want = {p: torch.from_numpy(ref[f"grad/{p}"]) for p in
+            ["x"] + [f"layers/{q}" for q, _ in tree_flatten_with_paths(g)]}
+
+    def gradients(scale=1.0, roll=0):
+        out = {"x": dx * scale}
+        for q, a in tree_flatten_with_paths(g):
+            # the layer dim split into stages, rolled by `roll` stages
+            s = a.reshape((4, -1) + tuple(a.shape[1:])).roll(roll, 0)
+            out[f"layers/{q}"] = s.reshape(a.shape) * scale
+        return out
+
+    gap = _gap(gradients(), want)
+    controls = {"four_times": _gap(gradients(4.0), want),
+                "wrong_stage": _gap(gradients(roll=1), want)}
+    return {"ok": max(gap.values()) <= PIPE_GRAD_TOL and all(
+        max(c.values()) > PIPE_GRAD_TOL for c in controls.values()),
+            "gap": gap, "controls": {k: max(c.values())
+                                     for k, c in controls.items()}}
+
+
+@check
+def pipeline_grad():
+    return _pipeline_grad("yi-9b", "pipeline.npz")
+
+
+@check
+def pipeline_moe_grad():
+    return _pipeline_grad("dbrx-132b", "pipeline_moe.npz")
+
+
+@check
+def pipeline_train():
+    """PIPE_STEPS AdamW steps through the pipeline: each step's loss, and
+    a digest of the parameters' bytes after it."""
+    import hashlib
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.collectives import psum_tree
+    from repro_torch.parallel.mesh import make_mesh_for
+    from repro_torch.parallel.pipeline import pipelined_forward
+    from repro_torch.tree import tree_leaves, tree_map
+    ref, tree = _load("pipeline.npz")
+    lay = params_from_numpy(tree, "cpu")
+    x, w = torch.from_numpy(ref["x"]), torch.from_numpy(ref["w"])
+    mesh = make_mesh_for(8, model_parallel=2, pods=4)
+    fn = pipelined_forward(_config("yi-9b"), mesh, n_microbatch=PIPE_MICRO,
+                           stage_axis="pod")
+    opt = AdamW(lr=PIPE_LR)
+    state = opt.init(lay)
+    losses, digests = [], []
+    for _ in range(PIPE_STEPS):
+        alias = tree_map(lambda a: a.detach().requires_grad_(), lay)
+        loss, _, g = _pipeline_loss(fn, alias, x.clone().requires_grad_(),
+                                    w, 4)
+        opt.update(psum_tree(g, mesh, "pod"), state, lay)
+        losses.append(float(loss))
+        digest = hashlib.sha256()
+        for a in tree_leaves(lay):
+            digest.update(a.numpy().tobytes())
+        digests.append(digest.hexdigest())
+    want = np.load(WORK / "pipeline_train.npy").tolist()
+    return {"ok": bool(np.allclose(losses, want, rtol=PIPE_LOSS_TOL, atol=0)),
+            "losses": losses, "want": want, "digests": digests}
+
+
 @check
 def collectives():
-    from repro_torch.parallel.collectives import (all_gather_seq,
+    from repro_torch.parallel.collectives import (all_gather_seq, copy_to,
                                                   dp_gradient_sync, pmax,
                                                   pmean_tree, psum_tree,
-                                                  reduce_scatter,
+                                                  reduce_from,
+                                                  reduce_scatter, ring_hop,
                                                   ring_permute)
     from repro_torch.parallel.mesh import make_mesh_for
     mesh = make_mesh_for(8)                   # data 8, model 1
@@ -243,6 +371,21 @@ def collectives():
     g = {"w": x}
     got["sync_identity_without_axis"] = \
         dp_gradient_sync(g, mesh, ("tensor",)) is g
+    # the Functions' gradients, of the sum over ranks of each rank's loss:
+    # a hop's goes back to the sender; reduce_from's is its own (each rank
+    # takes the same loss of the sum); copy_to's sums the ranks'
+    w = x + 100.0                             # rank r's weights: w[r]
+    xg = mine.clone().requires_grad_()
+    (dx,) = torch.autograd.grad((ring_hop(xg, mesh, "data", 3)
+                                 * w[i:i + 1]).sum(), xg)
+    got["ring_hop_grad"] = torch.equal(dx, torch.roll(w, -3, 0)[i:i + 1])
+    (dx,) = torch.autograd.grad((reduce_from(xg, mesh, "data")
+                                 * w[0:1]).sum(), xg)
+    got["reduce_from_grad"] = torch.equal(dx, w[0:1])
+    cg = x[0:1].clone().requires_grad_()
+    (dc,) = torch.autograd.grad((copy_to(cg, mesh, "data")
+                                 * w[i:i + 1]).sum(), cg)
+    got["copy_to_grad"] = torch.equal(dc, w.sum(0, keepdim=True))
     return {"ok": all(got.values()), **got}
 
 
@@ -355,7 +498,9 @@ def no_jax():
 destroy_world()
 '''
 
-CHECKS = ["mesh_executor", "mesh_executor_torch_matmul", "pipeline", "pipeline_moe", "collectives", "dp_gradient_sync",
+CHECKS = ["mesh_executor", "mesh_executor_torch_matmul", "pipeline",
+          "pipeline_moe", "pipeline_grad", "pipeline_moe_grad",
+          "pipeline_train", "collectives", "dp_gradient_sync",
           "fit_sharding", "mesh_sizes", "dtensor_kernels", "no_jax"]
 
 
@@ -363,29 +508,90 @@ def _pipeline_reference(work: Path, npz: str, arch: str,
                         n_micro: int) -> None:
     """The JAX layer scan of tests/test_spmd.py's pipeline check, with its
     inputs, saved for the ranks: the scan runs on each of ``n_micro``
-    microbatches (1: the whole batch), and its aux is their mean."""
+    microbatches (1: the whole batch), and its aux is their mean.  Beside
+    it, ``jax.grad`` of sum(y · w) + PIPE_AUX_WEIGHT · aux over x and every
+    layer leaf, the scan run on each of PIPE_MICRO microbatches."""
     cfg = jax_config(arch).reduced(n_layers=PIPE_LAYERS,
                                    compute_dtype="float32",
                                    param_dtype="float32", remat="none")
     lay = JTF.init_params(cfg, jax.random.PRNGKey(0))["layers"]
     x = jax.random.normal(jax.random.PRNGKey(1), (PIPE_B, PIPE_S,
                                                   cfg.d_model))
-    mb = PIPE_B // n_micro
-    positions = jnp.broadcast_to(jnp.arange(PIPE_S)[None], (mb, PIPE_S))
-    body = JTF._layer_body(cfg, None, use_cache=False, train=True,
-                           positions=positions, cache_pos=None,
-                           shared_params=None, shared_norm=None)
+    w = np.random.default_rng(PIPE_W_SEED).standard_normal(
+        x.shape).astype(np.float32)
     xs = {"params": lay, "idx": jnp.arange(PIPE_LAYERS)}
-    ys, auxes = [], []
-    for m in range(n_micro):
-        (y, aux, _, _), _ = jax.lax.scan(
-            body, (x[m * mb:(m + 1) * mb], jnp.zeros(()), None, None), xs)
-        ys.append(np.asarray(y))
-        auxes.append(np.asarray(aux))
+
+    def scan(lay, x, n_micro):
+        mb = PIPE_B // n_micro
+        positions = jnp.broadcast_to(jnp.arange(PIPE_S)[None], (mb, PIPE_S))
+        body = JTF._layer_body(cfg, None, use_cache=False, train=True,
+                               positions=positions, cache_pos=None,
+                               shared_params=None, shared_norm=None)
+        ys, auxes = [], []
+        for m in range(n_micro):
+            (y, aux, _, _), _ = jax.lax.scan(
+                body, (x[m * mb:(m + 1) * mb], jnp.zeros(()), None, None),
+                {**xs, "params": lay})
+            ys.append(y)
+            auxes.append(aux)
+        return jnp.concatenate(ys), jnp.mean(jnp.stack(auxes))
+
+    def loss(lay, x):
+        y, aux = scan(lay, x, PIPE_MICRO)
+        return jnp.sum(y * w) + PIPE_AUX_WEIGHT * aux
+
+    y, aux = scan(lay, x, n_micro)
+    g_lay, g_x = jax.grad(loss, argnums=(0, 1))(lay, x)
     leaves = {f"layers/{k}": v for k, v in
               tree_flatten_with_paths(jax.device_get(lay))}
-    np.savez(work / npz, x=np.asarray(x), y=np.concatenate(ys),
-             aux=np.mean(auxes, dtype=np.float32), **leaves)
+    grads = {f"grad/layers/{k}": v for k, v in
+             tree_flatten_with_paths(jax.device_get(g_lay))}
+    np.savez(work / npz, x=np.asarray(x), y=np.asarray(y),
+             aux=np.asarray(aux, dtype=np.float32), w=w,
+             **{"grad/x": np.asarray(g_x)}, **leaves, **grads)
+
+
+def _sequential_losses(npz: Path) -> list:
+    """The losses of PIPE_STEPS AdamW steps of the port's ``layer_stack``
+    on each of PIPE_MICRO microbatches, from the npz's yi-9b parameters
+    and inputs: what the ranks' steps through the pipeline must meet."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    ref = np.load(npz)
+    cfg = get_config("yi-9b").reduced(n_layers=PIPE_LAYERS,
+                                      compute_dtype="float32",
+                                      param_dtype="float32", remat="none")
+    tree = {}
+    for key in ref.files:
+        if key.startswith("layers/"):
+            node = tree
+            *path, leaf = key.split("/")[1:]
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = ref[key]
+    lay = params_from_numpy(tree, "cpu")
+    x, w = torch.from_numpy(ref["x"]), torch.from_numpy(ref["w"])
+    mb = PIPE_B // PIPE_MICRO
+    positions = torch.arange(PIPE_S).expand(mb, PIPE_S)
+    opt = AdamW(lr=PIPE_LR)
+    state = opt.init(lay)
+    losses = []
+    for _ in range(PIPE_STEPS):
+        alias = tree_map(lambda a: a.detach().requires_grad_(), lay)
+        loss, aux = 0.0, 0.0
+        for m in range(PIPE_MICRO):
+            y, a, _ = TF.layer_stack(alias, x[m * mb:(m + 1) * mb], cfg,
+                                     positions=positions, train=True)
+            loss = loss + (y * w[m * mb:(m + 1) * mb]).sum()
+            aux = aux + a
+        loss = loss + PIPE_AUX_WEIGHT * aux / PIPE_MICRO
+        g = torch.autograd.grad(loss, tree_leaves(alias))
+        opt.update(tree_unflatten(alias, g), state, lay)
+        losses.append(float(loss.detach()))
+    return losses
 
 
 @pytest.fixture(scope="module")
@@ -393,8 +599,14 @@ def report(tmp_path_factory):
     work = tmp_path_factory.mktemp("spmd_world")
     _pipeline_reference(work, "pipeline.npz", "yi-9b", 1)
     _pipeline_reference(work, "pipeline_moe.npz", "dbrx-132b", 4)
+    np.save(work / "pipeline_train.npy",
+            np.array(_sequential_losses(work / "pipeline.npz")))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    spawn_world(["-c", _RANK_SCRIPT, str(work)], WORLD,
+    # the ranks read the pipeline checks' constants from this module
+    consts = "".join(f"{k} = {globals()[k]!r}\n" for k in (
+        "PIPE_MICRO", "PIPE_AUX_WEIGHT", "PIPE_GRAD_TOL", "PIPE_STEPS",
+        "PIPE_LR", "PIPE_LOSS_TOL"))
+    spawn_world(["-c", consts + _RANK_SCRIPT, str(work)], WORLD,
                 timeout_s=WORLD_TIMEOUT_S, env=env, cwd=str(ROOT),
                 workdir=str(work))
     return [json.loads((work / f"report{r}.json").read_text())
@@ -405,6 +617,15 @@ def report(tmp_path_factory):
 def test_every_rank_passes(report, name):
     for rank, rep in enumerate(report):
         assert rep[name]["ok"], (rank, rep[name])
+
+
+def test_pipeline_training_keeps_every_rank_on_the_same_bits(report):
+    """After each AdamW step through the pipeline, the gradient summed over
+    the stage axis, every rank holds the same parameter bits."""
+    digests = [r["pipeline_train"]["digests"] for r in report]
+    assert len(digests[0]) == PIPE_STEPS
+    assert all(d == digests[0] for d in digests), digests
+    assert len(set(digests[0])) == PIPE_STEPS      # each step moved them
 
 
 def test_mesh_executor_refines_and_counts_collectives(report):
@@ -418,3 +639,55 @@ def test_mesh_executor_refines_and_counts_collectives(report):
     assert {r["collectives"] for r in reps} == {reps[0]["collectives"]}
     assert reps[0]["collectives"] >= 2
     assert max(r["max_err"] for r in reps) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "dbrx-132b"])
+def test_a_pipeline_of_one_rank_gives_layer_stacks_gradient(tmp_path, arch):
+    """A world of one gloo rank, in this process: ``pipelined_forward``
+    under autograd (one stage, PIPE_MICRO microbatches, selective remat,
+    as the card's training runs) against ``layer_stack`` run on each
+    microbatch, the same loss, every gradient leaf and dx within
+    PIPE_GRAD_TOL of its largest entry."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel.mesh import (destroy_world, init_world,
+                                           make_mesh_for)
+    from repro_torch.parallel.pipeline import pipelined_forward, split_stages
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves, tree_map
+    cfg = get_config(arch).reduced(n_layers=PIPE_LAYERS,
+                                   compute_dtype="float32",
+                                   param_dtype="float32", remat="selective")
+    lay = tree_map(lambda a: a.requires_grad_(),
+                   TF.init_params(cfg, 0, "cpu")["layers"])
+    gen = torch.Generator().manual_seed(PIPE_W_SEED)
+    x = torch.randn((PIPE_B, PIPE_S, cfg.d_model),
+                    generator=gen).requires_grad_()
+    w = torch.randn(x.shape, generator=gen)
+    leaves = [x] + tree_leaves(lay)
+    mb = PIPE_B // PIPE_MICRO
+    positions = torch.arange(PIPE_S).expand(mb, PIPE_S)
+    loss, aux = 0.0, 0.0
+    for m in range(PIPE_MICRO):
+        y, a, _ = TF.layer_stack(lay, x[m * mb:(m + 1) * mb], cfg,
+                                 positions=positions, train=True)
+        loss = loss + (y * w[m * mb:(m + 1) * mb]).sum()
+        aux = aux + a
+    want = torch.autograd.grad(loss + PIPE_AUX_WEIGHT * aux / PIPE_MICRO,
+                               leaves)
+    assert not dist.is_initialized()
+    init_world(0, 1, str(tmp_path / "store"), device="cpu")
+    try:
+        fn = pipelined_forward(cfg, make_mesh_for(1), stage_axis="data",
+                               n_microbatch=PIPE_MICRO)
+        y, aux = fn(split_stages(lay, 1, PIPE_LAYERS), x)
+        got = torch.autograd.grad((y * w).sum() + PIPE_AUX_WEIGHT * aux,
+                                  leaves)
+    finally:
+        destroy_world()
+    names = ["x"] + [p for p, _ in tree_flatten_with_paths(lay)]
+    gap = {p: float((g - h).abs().max() / h.abs().max())
+           for p, g, h in zip(names, got, want)}
+    assert max(gap.values()) <= PIPE_GRAD_TOL, gap
+    if arch == "dbrx-132b":
+        assert float(aux.detach()) != 0.0
