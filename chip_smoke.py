@@ -83,10 +83,12 @@ Each phase prints one line; any failure raises and exits non-zero:
    16x6x1500x64) and a decode step's cross-attention (q 16x6x1x64), and
    llava-next-34b's training attention (q 2x56x2048x128 over 8 kv heads),
    and the training attention of phases 12b and 13b (q 2x32x2048x112 over
-   32 kv heads; q 2x48x2048x128 over 8): float32
+   32 kv heads; q 2x48x2048x128 over 8), and granite-20b's long prefill
+   (q 1x48x2048x128 over one kv head, MQA): float32
    (the simt route), bf16 (wgmma) and bf16 through the simt route (q, k,
-   v one element past a 16-byte boundary), each launched twice (the same
-   bits), with CUDA-event times of the kernel, the plain version and
+   v one element past a 16-byte boundary), each launched twice with its
+   row log-sum-exp (out and lse the same bits; lse within ``LSE_TOL`` of
+   the plain version's), with CUDA-event times of the kernel, the plain version and
    ``scaled_dot_product_attention`` beside the card's bound, and the route
    of each check;
 9. serve — falcon-mamba-7b's parameters freed, qwen2-7b at full width
@@ -294,7 +296,9 @@ device busy share, and the device time of the port's own kernels).
 
 Then one JSON line of the kernels (``matmul`` counts phase 15a's launches
 too; ``flash_attention``, headed by its
-wgmma kernel, counts the wrapper's launches on both routes, serving and
+wgmma kernel (its ``design`` says how it was redesigned: persistent blocks
+over one heaviest-first unit list, FA3's in-warpgroup overlap), counts the
+wrapper's launches on both routes, serving and
 training (12b's and 13b's too), the encoder-decoder's prefill and decode
 steps, phase 15b's pipelines (forward only and training) and phase 16a's
 world path too;
@@ -337,6 +341,9 @@ SRC = ROOT / "src"
 # tests/test_kernels.py's matmul tolerances, applied to out / sqrt(K): the
 # inputs are standard normal, so the products grow like sqrt(K)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the flash kernels' float32 lse against the plain version's, on either
+# route (tests/test_torch_gpu.py's)
+LSE_TOL = 1e-5
 
 N_TASKS, SIZE, N_WORKERS = 16, 4096, 4          # the main path's DAG
 # (M, N, K): the main shape, a ragged one (bf16 keeps the CUDA cores: its
@@ -388,7 +395,8 @@ SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # cross-attention in a decode step (6 heads of 64, batch 16, 448 tokens over
 # 1500 frames) and llava-next-34b's training attention (GQA 7), and the
 # training attention of phases 12b (zamba2-7b: 32 heads of 112) and 13b
-# (dbrx-132b: GQA 6)
+# (dbrx-132b: GQA 6), and granite-20b's long prefill (MQA: 48 heads over
+# one kv head, the wgmma forward's heaviest unit list of one kv head)
 FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (1, 28, 4, 12, 12, 128, True),
                 (1, 32, 32, 2048, 2048, 112, True),
@@ -409,7 +417,8 @@ FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (16, 6, 6, 1, 1500, 64, False),
                 (2, 56, 8, 2048, 2048, 128, True),
                 (2, 32, 32, 2048, 2048, 112, True),
-                (2, 48, 8, 2048, 2048, 128, True)]
+                (2, 48, 8, 2048, 2048, 128, True),
+                (1, 48, 1, 2048, 2048, 128, True)]
 # phases 6b and 9b: the serve traffic with the traced request on cluster
 # worker processes (see phase_serve_process)
 PROCESS_SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
@@ -1322,9 +1331,12 @@ def phase_flash_kernels(torch) -> list:
             what = (f"flash_attention {dname} {(B, H, KH, Sq, Sk, D)} "
                     f"causal={causal} ({path})")
             before = fa.flash_attention.route_launches[path]
-            got = fa.flash_attention(*args, causal=causal)
-            want = ref.attention(*args, causal=causal)
-            again = fa.flash_attention(*args, causal=causal)
+            got, lse = fa.flash_attention(*args, causal=causal,
+                                          return_lse=True)
+            want, want_lse = ref.attention(*args, causal=causal,
+                                           return_lse=True)
+            again, lse_again = fa.flash_attention(*args, causal=causal,
+                                                  return_lse=True)
             torch.cuda.synchronize()
             if fa.flash_attention.route_launches[path] != before + 2:
                 fail(f"{what}: no launch on the {path} route")
@@ -1334,7 +1346,14 @@ def phase_flash_kernels(torch) -> list:
                     got.float(), want.float(), rtol=tol, atol=tol):
                 fail(f"{what}: kernel disagrees with the plain version, "
                      f"max |err| {err}")
-            if not torch.equal(got.view(torch.uint8), again.view(torch.uint8)):
+            # -inf - -inf (a row with no key) is NaN: no error
+            lse_err = (lse - want_lse).nan_to_num(0.0).abs().max().item()
+            if not torch.allclose(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL):
+                fail(f"{what}: the kernel's lse disagrees with the plain "
+                     f"version's, max |err| {lse_err}")
+            if not (torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+                    and torch.equal(lse.view(torch.uint8),
+                                    lse_again.view(torch.uint8))):
                 fail(f"{what}: two launches gave different bits")
 
             # the library reads aligned copies of the same values: SDPA
@@ -1353,7 +1372,8 @@ def phase_flash_kernels(torch) -> list:
             checks.append({
                 "shape": [B, H, KH, Sq, Sk, D], "causal": causal,
                 "dtype": dname, "route": path, "aligned": aligned,
-                "max_abs_err": err, "tol": tol,
+                "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+                "lse_tol": LSE_TOL,
                 "same_bits": True, "library_max_abs_err": lib_err,
                 "ms": cuda_ms(torch, lambda: fa.flash_attention(
                     *args, causal=causal)),
@@ -1364,10 +1384,11 @@ def phase_flash_kernels(torch) -> list:
             c = checks[-1]
             print(f"flash_attention {dname} {B}x{H}x{Sq}x{D} kv {KH}x{Sk} "
                   f"causal={causal} ({path}{', misaligned' if not aligned else ''}"
-                  f"): err {err:.3g} (tol {tol}) | kernel {c['ms']:.4f} ms | plain "
+                  f"): err {err:.3g} (tol {tol}), lse {lse_err:.3g} | "
+                  f"kernel {c['ms']:.4f} ms | plain "
                   f"{c['plain_ms']:.4f} ms | sdpa {c['library_ms']:.4f} ms | "
                   f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-            del args, lib_args, got, want, again
+            del args, lib_args, got, want, again, lse, want_lse, lse_again
     line("flash_attention_vs_plain", checks)
     return checks
 
@@ -3894,9 +3915,12 @@ def main() -> int:
         entry("ssm_scan_backward", "ssm_scan_bwd.cu",
               "src/repro/models/ssm.py:74", bwd_launches["simt"],
               bwd_launches, train_scan_check, scan_grad_checks),
-        entry("flash_attention", "flash_attention_wgmma.cu", flash,
-              sum(flash_launches.values()), flash_launches,
-              long_checks["wgmma"], flash_checks),
+        {**entry("flash_attention", "flash_attention_wgmma.cu", flash,
+                 sum(flash_launches.values()), flash_launches,
+                 long_checks["wgmma"], flash_checks),
+         "design": "redesigned: persistent blocks over one heaviest-first "
+                   "unit list, FA3's in-warpgroup overlap under a "
+                   "two-consumer ping-pong, a TMA-stored epilogue"},
         entry("flash_attention_simt", "flash_attention.cu", flash,
               flash_launches["simt"], {"simt": flash_launches["simt"]},
               long_checks["simt"], flash_checks),

@@ -26,9 +26,13 @@ run, on the same seeded inputs:
   (``ms_given_states``); each gradient's largest error against
   ``ref.ssm_scan_backward`` relative to its largest entry, and its SHA-256;
 - flash_attention: every ``chip_smoke.FLASH_SHAPES`` row in float32 (the
-  simt route) and in bf16 through the simt route (q, k, v one element past
-  a 16-byte boundary), and qwen2-7b's long prefill in bf16 on the wgmma
-  route;
+  simt route), in bf16 through the simt route (q, k, v one element past
+  a 16-byte boundary) and in bf16 on the wgmma route wherever ``route()``
+  sends it there, each asked for its lse: the time of serving's call
+  (without the lse), the largest errors of out and lse against the plain
+  version, their SHA-256, and on the wgmma route the kernel's device time
+  (``ms_device``: ``chip_smoke.device_busy_ms``, which leaves out the gaps
+  of a host-bound call);
 - flash_attention_backward: every ``chip_smoke.TRAIN_GRAD_SHAPES`` row on
   both routes, float32 (simt) and bf16 (wgmma), drawn as
   ``chip_smoke.phase_train_grads`` draws it: the backward kernel alone,
@@ -179,8 +183,8 @@ for Bsz, S, D, N, with_states in (cs.SCAN_GRAD_SHAPES
 
 # flash attention at every chip_smoke.FLASH_SHAPES row: float32 (the simt
 # route), bf16 through the simt route (q, k, v one element past a 16-byte
-# boundary, which the wgmma route cannot take) and, at the long prefill,
-# bf16 on the wgmma route (a check that it did not move)
+# boundary, which the wgmma route cannot take) and bf16 on the wgmma route
+# wherever route() sends it there, each asked for its lse too
 from repro_torch.kernels import flash_attention as fa
 
 out["flash_attention"] = []
@@ -192,23 +196,29 @@ for B, H, KH, Sq, Sk, Dh, causal in (cs.FLASH_SHAPES
     cases = [("float32", "simt", (q, k, v)),
              ("bfloat16", "simt", tuple(cs._misaligned(torch, t.bfloat16())
                                         for t in (q, k, v)))]
-    if Sq == cs.LONG_PROMPT:
+    if fa.route(torch.bfloat16, Dh) == "wgmma":
         cases.append(("bfloat16", "wgmma",
                       tuple(t.bfloat16() for t in (q, k, v))))
     for dname, path, args in cases:
         before = fa.flash_attention.route_launches[path]
-        o = fa.flash_attention(*args, causal=causal)
-        want = ref.attention(*args, causal=causal)
+        o, lse = fa.flash_attention(*args, causal=causal, return_lse=True)
+        want, want_lse = ref.attention(*args, causal=causal, return_lse=True)
         torch.cuda.synchronize()
         assert fa.flash_attention.route_launches[path] == before + 1, path
-        out["flash_attention"].append({
+        row = {
             "shape": [B, H, KH, Sq, Sk, Dh], "causal": causal,
             "dtype": dname, "route": path,
             "max_abs_err": (o.float() - want.float()).abs().max().item(),
+            "max_abs_err_lse": (lse - want_lse).nan_to_num(0.0).abs().max()
+            .item(),
             "ms": cs.cuda_ms(torch, lambda: fa.flash_attention(
                 *args, causal=causal)),
-            "sha256": digest(o)})
-        del o, want
+            "sha256": digest(o), "sha256_lse": digest(lse)}
+        if path == "wgmma":
+            row["ms_device"] = cs.device_busy_ms(
+                torch, lambda: fa.flash_attention(*args, causal=causal))
+        out["flash_attention"].append(row)
+        del o, lse, want, want_lse
 
 # the backward kernels at every chip_smoke.TRAIN_GRAD_SHAPES row, drawn as
 # chip_smoke.phase_train_grads draws them, given the forward kernel's out

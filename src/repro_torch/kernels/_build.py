@@ -49,7 +49,7 @@ _SIGNATURES = {
     "repro_ssm_scan_bwd_f32": [_P] * 17 + [_I] * 5 + [_P],
     "repro_flash_attention_f32": [_P] * 5 + [_I] * 8 + [_P],
     "repro_flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_P],
-    "repro_flash_attention_bf16_wgmma": [_P] * 5 + [_I] * 8 + [_P],
+    "repro_flash_attention_bf16_wgmma": [_P] * 6 + [_I] * 9 + [_P],
     "repro_flash_attention_bwd_f32": [_P] * 11 + [_I] * 9 + [_P],
     "repro_flash_attention_bwd_bf16": [_P] * 11 + [_I] * 9 + [_P],
     "repro_flash_attention_bwd_bf16_wgmma": [_P] * 11 + [_I] * 9 + [_P],

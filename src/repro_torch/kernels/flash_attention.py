@@ -16,7 +16,10 @@ the dtype, the head dim and the pointers' alignment:
   three decimal digits), and every other bf16 call.
 
 The sources' headers say how the TPU kernel translates and what bounds each
-kernel on the H100.
+kernel on the H100.  The wgmma kernel is persistent: it walks every
+(128-row query tile, head, batch) of the call in the order of
+:func:`forward_schedule` (heaviest first), which the wrapper hands over as
+a device tensor cached per shape and device (:func:`forward_units`).
 
 For tensors on the CPU the wrapper returns the plain version
 (:func:`repro_torch.kernels.ref.attention`).  For CUDA tensors it launches a
@@ -56,6 +59,8 @@ ROUTES = ("wgmma", "simt")
 MAX_HEAD_DIM = 128
 _INT_MAX = 2 ** 31 - 1
 _MAX_GRID_YZ = 65535       # heads and batch are the grid's y and z
+FWD_ROWS = 128             # the queries of a wgmma forward unit, and the
+FWD_KEYS = 128             # keys of one of its kv tiles
 _launch_lock = threading.Lock()   # guards the wrappers' launch counts
 # the rows of a backward unit on each route: the keys of a dK/dV unit, the
 # queries of a dQ unit
@@ -152,10 +157,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B and Sq:
         lib = _build.library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr()]
+        if path == "wgmma":
+            units = forward_units(B, H, Sq, Sk, causal, q.device)
+            ptrs += [units.data_ptr(), units.shape[0]]
         err = getattr(lib, _ENTRY[path, q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            B, H, KH, Sq, Sk, D, int(causal), q.device.index, stream)
+            *ptrs, B, H, KH, Sq, Sk, D, int(causal), q.device.index, stream)
         _build.check(err, f"flash_attention kernel launch ({path})")
         with _launch_lock:
             flash_attention.launches += 1
@@ -165,6 +173,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def forward_schedule(B: int, H: int, Sq: int, Sk: int,
+                     causal: bool) -> list:
+    """Every unit of the wgmma forward kernel for these sizes, as ``(tile,
+    head, batch, cost)``, heaviest first.
+
+    A unit owns the :data:`FWD_ROWS` queries of tile ``t`` (rows
+    ``128·t`` on) of query head ``head`` and walks the
+    :data:`FWD_KEYS`-key tiles up to its last row's diagonal (all of them
+    when not causal); ``cost`` is that count of kv tiles (0 when ``Sk ==
+    0``: the unit writes zeros).  Units of equal cost keep the order batch,
+    head, tile, so the list is a pure function of its arguments.  GQA
+    changes no cost, so the kv heads are not an argument.
+    """
+    units = []
+    for b in range(B):
+        for h in range(H):
+            for t in range(math.ceil(Sq / FWD_ROWS)):
+                last = min(FWD_ROWS * (t + 1), Sq)
+                end = min(Sk, last) if causal else Sk
+                units.append((t, h, b, math.ceil(end / FWD_KEYS)))
+    units.sort(key=lambda u: (-u[3], u[2], u[1], u[0]))
+    return units
+
+
+def forward_units(B: int, H: int, Sq: int, Sk: int, causal: bool,
+                  device) -> torch.Tensor:
+    """:func:`forward_schedule`'s units as an int32 ``(n, 3)`` tensor of
+    ``(tile, head, batch)`` on ``device``, which the wgmma forward kernel
+    walks (its blocks in snake order, ``csrc/flash_attention_wgmma.cu``).
+    Made once per shape and device and kept, as :func:`backward_units`
+    is."""
+    key = ("forward", B, H, Sq, Sk, bool(causal), torch.device(device))
+    with _units_lock:
+        units = _units_cache.get(key)
+        if units is None:
+            rows = [u[:3] for u in forward_schedule(B, H, Sq, Sk, causal)]
+            units = torch.tensor(rows, dtype=torch.int32).reshape(
+                -1, 3).to(key[-1])
+            _units_cache[key] = units
+    return units
 
 
 def backward_schedule(B: int, H: int, KH: int, Sq: int, Sk: int,

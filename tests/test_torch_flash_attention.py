@@ -284,3 +284,107 @@ def test_flash_wrapper_refuses_a_gradient():
         assert torch.equal(pt_flash.flash_attention(qg, k, v),
                            pt_ref.attention(q, k, v))
     assert pt_ops.flash_attention(qg, k, v).requires_grad
+
+
+# --------------------------------------------------------------------------
+# the wgmma forward kernel's unit list (kernels/flash_attention.py::
+# forward_schedule), which its persistent blocks walk heaviest first
+# --------------------------------------------------------------------------
+
+# (B, H, Sq, Sk, causal): qwen2-7b's long and served prefills, 11c's and
+# granite-20b's (MQA: the same list as any head count) shapes, whisper's
+# encoder (not causal) and cross-attention (Sq < Sk), Sq > Sk both ways,
+# a decode step's one query, and no keys (Sk = 0)
+FWD_SCHEDULE_SHAPES = [(1, 28, 2048, 2048, True), (1, 28, 12, 12, True),
+                       (2, 28, 2048, 2048, True), (1, 48, 2048, 2048, True),
+                       (16, 6, 1500, 1500, False), (16, 6, 448, 1500, False),
+                       (1, 4, 300, 77, True), (1, 4, 300, 77, False),
+                       (2, 7, 129, 1000, True), (16, 6, 1, 1500, False),
+                       (1, 2, 5, 0, True), (2, 3, 200, 0, False)]
+
+
+def _walked_kv_tiles(B, H, Sq, Sk, causal):
+    """Each unit's kv tiles, counted from the mask itself: the 128-key
+    tiles of which some key is seen by one of the unit's 128 queries (all
+    of them when not causal)."""
+    rows, keys = pt_flash.FWD_ROWS, pt_flash.FWD_KEYS
+    want = {}
+    for b in range(B):
+        for h in range(H):
+            for t in range(-(-Sq // rows)):
+                last_query = min(rows * t + rows, Sq) - 1
+                want[t, h, b] = sum(1 for kt in range(-(-Sk // keys))
+                                    if not causal or keys * kt <= last_query)
+    return want
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,causal", FWD_SCHEDULE_SHAPES)
+def test_forward_schedule_lists_every_unit_once_heaviest_first(B, H, Sq, Sk,
+                                                               causal):
+    """Every (tile, head, batch) of a shape exactly once, each with the kv
+    tiles its kernel walks, in non-increasing cost with ties in the order
+    batch, head, tile; the same list on every call (a pure function), and
+    a unit that walks no tile (Sk = 0) is listed too, since it writes
+    zeros."""
+    units = pt_flash.forward_schedule(B, H, Sq, Sk, causal)
+    want = _walked_kv_tiles(B, H, Sq, Sk, causal)
+    got = {u[:3]: u[3] for u in units}
+    assert len(got) == len(units) == len(want)
+    assert got == want
+    keys = [(-u[3], u[2], u[1], u[0]) for u in units]
+    assert keys == sorted(keys)
+    assert units == pt_flash.forward_schedule(B, H, Sq, Sk, causal)
+    if Sk == 0:
+        assert {u[3] for u in units} == {0}
+
+
+def _snake_makespan(costs, sms=132):
+    """The kernel's walk: min(units, SMs) blocks, round r of them taking
+    the next units of the list, block i the i-th in even rounds and the
+    (blocks-1-i)-th in odd ones; one unit costs its tiles plus one (its Q
+    load, first scores and epilogue)."""
+    grid = min(len(costs), sms)
+    load = [0] * grid
+    for i, c in enumerate(costs):
+        r, pos = divmod(i, grid)
+        load[pos if r % 2 == 0 else grid - 1 - pos] += c + 1
+    return max(load)
+
+
+def _greedy_makespan(costs, sms=132):
+    """List scheduling: each unit, in list order, to the block that frees
+    first (what a unit counter in global memory would give)."""
+    import heapq
+    free = [0] * min(len(costs), sms)
+    for c in costs:
+        heapq.heappush(free, heapq.heappop(free) + c + 1)
+    return max(free)
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,causal", FWD_SCHEDULE_SHAPES[:6])
+def test_forward_snake_walk_is_within_a_tile_of_greedy(B, H, Sq, Sk, causal):
+    """The kernel's static snake walk of the heaviest-first list ends
+    within one kv tile of greedy list scheduling, and a served prefill (one
+    unit a head) runs one block a unit, not one an SM."""
+    costs = [u[3] for u in pt_flash.forward_schedule(B, H, Sq, Sk, causal)]
+    assert _snake_makespan(costs) <= _greedy_makespan(costs) + 1
+    if Sq <= pt_flash.FWD_ROWS:
+        assert len(costs) == B * H and _snake_makespan(costs) == max(costs) + 1
+
+
+def test_forward_units_are_cached_per_shape_and_device():
+    """The kernel's int32 (n, 3) list is made once per shape and device
+    and handed out again, so a prefill copies nothing to the card; another
+    shape or device has its own, and the backward's lists are apart."""
+    shape = (2, 4, 300, 77, True)
+    units = pt_flash.forward_units(*shape, torch.device("cpu"))
+    assert units.dtype == torch.int32 and units.device.type == "cpu"
+    assert units.tolist() == [list(u[:3]) for u in
+                              pt_flash.forward_schedule(*shape)]
+    assert pt_flash.forward_units(*shape, "cpu") is units
+    assert pt_flash.forward_units(2, 4, 300, 77, False, "cpu") is not units
+    other = pt_flash.forward_units(*shape, torch.device("meta"))
+    assert other is not units and other.device.type == "meta"
+    assert pt_flash.forward_units(*shape, "meta") is other
+    bwd = pt_flash.backward_units(2, 4, 4, 300, 77, True, 128, "cpu")
+    assert bwd.shape[1] == 4 and units.shape == (2 * 4 * 3, 3)

@@ -672,6 +672,45 @@ def test_flash_attention_wgmma_is_deterministic_across_launches(cuda):
     assert fa.flash_attention.route_launches["wgmma"] == before + 3
 
 
+# The wgmma forward (csrc/flash_attention_wgmma.cu): min(units, SMs)
+# persistent blocks walk forward_schedule's heaviest-first list of (128-row
+# query tile, head, batch) units, and a TMA store writes each unit's out.
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", [
+    (2, 28, 4, 2048, 2048, 128, True),  # 896 units: 7 a block on 132 SMs
+    (1, 28, 4, 12, 12, 128, True),      # 28 units: fewer blocks than SMs
+    (1, 48, 1, 2048, 2048, 128, True),  # granite-20b's MQA
+    (1, 4, 2, 200, 333, 72, True),      # D = 72: the store clips columns
+    (2, 32, 32, 300, 300, 112, True),   # D = 112, a ragged last tile
+    (3, 6, 6, 1500, 1500, 64, False),   # D = 64: the 5-stage ring
+    (2, 7, 1, 333, 129, 64, True),      # Sq > Sk, GQA 7
+    (16, 6, 6, 1, 1500, 64, False),     # one query a head: a decode step
+    (1, 2, 1, 5, 0, 64, True),          # Sk = 0: zeros, lse -inf
+    (2, 3, 3, 130, 0, 128, False)])     # Sk = 0 over two query tiles
+def test_wgmma_forward_persistent_edges_and_bits(cuda, B, H, KH, Sq, Sk, D,
+                                                 causal):
+    from repro_torch.kernels import flash_attention as fa, ref
+    q, k, v = _attn_inputs(cuda, B, H, KH, Sq, Sk, D, torch.bfloat16,
+                           seed=Sq + Sk + D)
+    assert fa.route(torch.bfloat16, D) == "wgmma"
+    before = fa.flash_attention.route_launches["wgmma"]
+    got, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    again, lse_again = fa.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+    serving = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.route_launches["wgmma"] == before + 3
+    want, want_lse = ref.attention(q, k, v, causal=causal, return_lse=True)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    for a, b in ((got, again), (got, serving), (lse, lse_again)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    if Sk == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+        assert bool((lse == float("-inf")).all())
+
+
 def test_flash_attention_launch_counter_loses_no_update_under_threads(cuda):
     import sys
     import threading
