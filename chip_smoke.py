@@ -17,9 +17,14 @@ Each phase prints one line; any failure raises and exits non-zero:
    path's shape, at a ragged one and at an aligned one that is no tile
    multiple, in float32 and bfloat16, with CUDA-event times of the kernel,
    the plain version and one library call (a yardstick only: the port never
-   calls it) beside the card's bound; each check names its route, ``wgmma``
-   (bf16 on the tensor cores, fed by TMA) or ``simt`` (the CUDA cores), and
-   its load variant (``tma``; ``vector`` or ``scalar`` for simt);
+   calls it) beside the card's bound, and the device times of the kernel
+   and the library call (``device_ms``, ``library_device_ms``:
+   ``device_busy_ms``, which leaves out the host's share of a call); each
+   check names its route, ``wgmma`` (bf16 on the tensor cores, fed by TMA;
+   with the tile shape, block count and raster group that
+   ``kernels/matmul.py::plan`` gave the persistent kernel) or ``simt`` (the
+   CUDA cores), and its load variant (``tma``; ``vector`` or ``scalar`` for
+   simt);
 4. main path — the paper's Fig. 2 DAG (16 units of 4096x4096 float32) traced
    and run on the sequential oracle and on the threaded work-stealing
    executor: threaded == sequential bit for bit, each ``mul`` against the
@@ -818,15 +823,27 @@ def phase_kernels(torch) -> list:
                 "max_err_over_sqrt_k": norm_err, "tol": TOL[dname],
                 "library_max_abs_err": lib_err,
                 "ms": cuda_ms(torch, lambda: mm.matmul(x, y)),
+                "device_ms": device_busy_ms(torch, lambda: mm.matmul(x, y)),
                 "plain_ms": cuda_ms(torch, lambda: ref.matmul(x, y)),
                 "library_ms": cuda_ms(torch, lambda: torch.matmul(x, y)),
+                "library_device_ms": device_busy_ms(
+                    torch, lambda: torch.matmul(x, y)),
                 "bound_ms": b_ms, "bound_by": b_by})
             c = checks[-1]
-            print(f"matmul {dname} {M}x{N}x{K} ({path}, {loads} loads): "
-                  f"err/sqrt(K) {norm_err:.3g} (tol {TOL[dname]}) | kernel "
-                  f"{c['ms']:.4f} ms | plain {c['plain_ms']:.4f} ms | "
-                  f"torch.matmul {c['library_ms']:.4f} ms | bound "
-                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+            tiles = ""
+            if path == "wgmma":
+                p = mm.plan(M, N, mm.resident_blocks(x.device.index))
+                c.update(tile=[mm.TILE_M, p.tile_n], blocks=p.blocks,
+                         raster_group=p.group)
+                tiles = (f", {mm.TILE_M}x{p.tile_n} tiles on {p.blocks} "
+                         f"blocks")
+            print(f"matmul {dname} {M}x{N}x{K} ({path}, {loads} loads"
+                  f"{tiles}): err/sqrt(K) {norm_err:.3g} (tol {TOL[dname]}) "
+                  f"| kernel {c['ms']:.4f} ms, device {c['device_ms']:.4f} | "
+                  f"plain {c['plain_ms']:.4f} ms | torch.matmul "
+                  f"{c['library_ms']:.4f} ms, device "
+                  f"{c['library_device_ms']:.4f} | bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
             del x, y, got, want
     line("kernels_vs_plain", checks)
     return checks

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's CUDA-core matmul, selective-scan (forward and backward) and
+"""Time the port's matmul, selective-scan (forward and backward) and
 flash-attention kernels of two or more checkouts on one card, in turns, and
 compare their outputs bit for bit.
 
@@ -14,8 +14,13 @@ an A/B of a parent and a change that is parent, change, change, parent),
 each in a process of its own, so no two builds share a library.  In each
 run, on the same seeded inputs:
 
-- matmul (simt route): 4096^3 float32 (the Fig. 2 ``mul``), 1000x1531x777
-  and 1000x1528x776 float32, 1000x1531x777 bf16;
+- matmul: on the simt route 4096^3 float32 (the Fig. 2 ``mul``),
+  1000x1531x777 and 1000x1528x776 float32, 1000x1531x777 bf16; on the
+  wgmma route 4096^3, 1000x1528x776 and 777x336x1024 bf16 (the last
+  tests/test_torch_gpu.py's determinism shape), with the kernel's device
+  time too (``ms_device``: ``chip_smoke.device_busy_ms``) and the host's
+  time a call (``ms_host``: the wall time of 200 calls queued with no
+  sync between them, over 200);
 - ssm_scan: ``chip_smoke.SCAN_SHAPES`` in float32 and bf16, with the model's
   dt and A;
 - ssm_scan_backward: every ``chip_smoke.SCAN_GRAD_SHAPES`` row in float32,
@@ -71,11 +76,14 @@ PREFILLS = {"mamba": ("falcon-mamba-7b", None), "dense": ("qwen2-7b", "float32")
 GROUPS = ["matmul", "ssm_scan", "ssm_scan_backward", "flash_attention",
           "flash_attention_backward"]
 MATMUL_SHAPES = [(4096, 4096, 4096, "float32"), (1000, 1531, 777, "float32"),
-                 (1000, 1528, 776, "float32"), (1000, 1531, 777, "bfloat16")]
+                 (1000, 1528, 776, "float32"), (1000, 1531, 777, "bfloat16"),
+                 (4096, 4096, 4096, "bfloat16"), (1000, 1528, 776, "bfloat16"),
+                 (777, 336, 1024, "bfloat16")]
 
 CHILD = r'''
 import hashlib, json, sys, time
 import torch
+HOST_REPS = 200
 root, smoke_dir, matmul_shapes, prefill, groups = (
     sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), json.loads(sys.argv[4]),
     json.loads(sys.argv[5]))
@@ -87,6 +95,18 @@ from repro_torch.kernels import _build, matmul as mm, ref, ssm_scan as scan
 t0 = time.perf_counter()
 _build.library()
 out = {"build_s": time.perf_counter() - t0, "build_dir": str(_build.build_dir())}
+
+def host_ms(fn, reps=HOST_REPS):
+    """Host time of one call of ``fn``: ``reps`` calls queued with no sync
+    between them, after a warm-up; the device catches up afterwards."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e3 / reps
 
 def digest(*ts):
     h = hashlib.sha256()
@@ -103,10 +123,14 @@ for M, N, K, dname in matmul_shapes if "matmul" in groups else []:
     got = mm.matmul(x, y)
     torch.cuda.synchronize()
     err = (got.float() - ref.matmul(x, y).float()).abs().max().item()
-    out["matmul"].append({"shape": [M, N, K], "dtype": dname,
-                          "max_err_over_sqrt_k": err / K ** 0.5,
-                          "ms": cs.cuda_ms(torch, lambda: mm.matmul(x, y)),
-                          "sha256": digest(got)})
+    row = {"shape": [M, N, K], "dtype": dname, "route": mm.route(dtype, N, K),
+           "max_err_over_sqrt_k": err / K ** 0.5,
+           "ms": cs.cuda_ms(torch, lambda: mm.matmul(x, y)),
+           "sha256": digest(got)}
+    if row["route"] == "wgmma":
+        row["ms_device"] = cs.device_busy_ms(torch, lambda: mm.matmul(x, y))
+        row["ms_host"] = host_ms(lambda: mm.matmul(x, y))
+    out["matmul"].append(row)
 
 import torch.nn.functional as F
 from repro_torch.models.layers import ParamSpec, init_param

@@ -43,7 +43,8 @@ _SIGNATURES = {
     "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_matmul_f32_scalar": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_matmul_bf16_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_matmul_bf16_wgmma": [_P, _P, _P] + [_I] * 7 + [_P],
+    "repro_matmul_bf16_wgmma_resident": [_I, _P],
     "repro_ssm_scan_f32": [_P] * 9 + [_I] * 5 + [_P],
     "repro_ssm_scan_bf16": [_P] * 9 + [_I] * 5 + [_P],
     "repro_ssm_scan_bwd_f32": [_P] * 17 + [_I] * 5 + [_P],

@@ -17,6 +17,12 @@ same facts: ``"vector"`` (float32 with ``N % 4 == 0`` and 16-byte aligned
 pointers: y's tiles move as 16-byte copies and the output rows are stored
 16 bytes at a time) and ``"scalar"`` (everything else, bf16 included).
 
+The wgmma kernel is persistent: :func:`plan` picks, on the host, its tile
+shape (128 x 256 or 128 x 128), its block count (at most what the card
+runs at once) and the raster group of its tile order for each ``(M, N)``;
+:func:`tile_coords` is the kernel's own formula for a tile's place, and
+:func:`tile_walk` lists the tiles each block computes.
+
 The sources' headers say how the TPU kernel's blocking translates and what
 bounds each kernel on the H100.
 
@@ -29,7 +35,10 @@ that its work went through the kernels.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +52,83 @@ ROUTES = ("wgmma", "simt")
 VARIANTS = ("tma", "vector", "scalar")
 _INT_MAX = 2 ** 31 - 1
 _launch_lock = threading.Lock()   # guards matmul.launches across workers
+
+
+TILE_M = 128                  # output rows of a wgmma tile
+TILE_NS = (256, 128)          # its columns, the wider first
+
+
+class Plan(NamedTuple):
+    """How the wgmma kernel covers an ``(M, N)`` output."""
+    tile_n: int        # columns of a tile (its rows: TILE_M)
+    blocks: int        # persistent blocks, at most the tiles and resident
+    group: int         # rows of tiles walked together (grouped raster)
+    tiles_m: int
+    tiles_n: int
+
+
+def tile_coords(t: int, tiles_m: int, tiles_n: int, group: int) -> tuple:
+    """Row and column of tile ``t`` in grouped raster order: ``group`` rows
+    of tiles at a time, down each column of the group before the next one
+    (``csrc/matmul_wgmma.cu::tile_coords`` is the same formula)."""
+    per_group = group * tiles_n
+    first = t // per_group * group
+    rows = min(tiles_m - first, group)
+    r = t % per_group
+    return first + r % rows, r // rows
+
+
+def tile_walk(p: Plan) -> list:
+    """The tiles, as (row, column) of tiles, that each of ``p.blocks``
+    blocks computes, in its order: block b takes tiles b, b + blocks, ...
+    (the kernel's loop)."""
+    tiles = p.tiles_m * p.tiles_n
+    return [[tile_coords(t, p.tiles_m, p.tiles_n, p.group)
+             for t in range(b, tiles, p.blocks)] for b in range(p.blocks)]
+
+
+def _first_wave_span(tiles_m: int, tiles_n: int, tile_n: int, blocks: int,
+                     group: int) -> int:
+    """Rows of x plus columns of y that the first wave of tiles reads."""
+    cells = [tile_coords(t, tiles_m, tiles_n, group) for t in range(blocks)]
+    return (len({r for r, _ in cells}) * TILE_M
+            + len({c for _, c in cells}) * tile_n)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(M: int, N: int, resident: int) -> Plan:
+    """The wgmma kernel's plan for an ``(M, N)`` output on a card that runs
+    ``resident`` of its blocks at once (:func:`resident_blocks`).  The tile
+    shape has the fewest waves times a tile's columns (the wider one on a
+    tie: fewer loads a product); the blocks are the resident ones or one a
+    tile; the group is the one whose first wave reads the fewest rows of x
+    and columns of y (the smaller on a tie), so the tiles in flight share
+    them in L2."""
+    if M < 1 or N < 1 or resident < 1:
+        raise ValueError(f"no plan for M={M}, N={N} on {resident} blocks")
+    tiles_m = -(-M // TILE_M)
+
+    def waves_work(tile_n):
+        return -(-tiles_m * -(-N // tile_n) // resident) * tile_n
+
+    tile_n = min(TILE_NS, key=waves_work)   # the first of equals: the wider
+    tiles_n = -(-N // tile_n)
+    blocks = min(tiles_m * tiles_n, resident)
+    groups = sorted({1 << i for i in range(tiles_m.bit_length())
+                     if 1 << i <= tiles_m} | {tiles_m})
+    group = min(groups, key=lambda g: (
+        _first_wave_span(tiles_m, tiles_n, tile_n, blocks, g), g))
+    return Plan(tile_n, blocks, group, tiles_m, tiles_n)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(index: int) -> int:
+    """How many blocks of the wgmma kernel CUDA device ``index`` runs at
+    once: one an SM."""
+    count = (ctypes.c_int * 1)()
+    err = _build.library().repro_matmul_bf16_wgmma_resident(index, count)
+    _build.check(err, "matmul kernel occupancy")
+    return count[0]
 
 
 def route(dtype: torch.dtype, N: int, K: int, *, aligned: bool = True) -> str:
@@ -100,8 +186,12 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    extra = ()
+    if path == "wgmma":
+        p = plan(M, N, resident_blocks(x.device.index))
+        extra = (p.tile_n, p.blocks, p.group)
     err = getattr(lib, _ENTRY[path, loads, x.dtype])(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K, *extra,
         x.device.index, stream)
     _build.check(err, f"matmul kernel launch ({path}, {loads})")
     with _launch_lock:

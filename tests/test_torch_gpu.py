@@ -83,6 +83,62 @@ def test_wgmma_kernel_is_deterministic_across_launches(cuda):
     assert mm.matmul.route_launches["wgmma"] == before + 4
 
 
+# the persistent wgmma kernel's plans and edges: each tile shape, more tiles
+# than blocks, rows and columns past M and N that TMA's store clips, and
+# K = 8 and K < 64 (one partial stage)
+@pytest.mark.parametrize("M,N,K,tile_n,more_tiles_than_blocks", [
+    (1000, 1528, 776, 128, False),     # N 120 past a tile
+    (4096 + 8, 4096, 64, 256, True),   # 8 rows past a tile: 33 rows, odd
+    (4096, 4096, 64, 256, True),       # 512 tiles of 128x256
+    (2560, 3840, 64, 128, True),       # 600 tiles of 128x128
+    (1, 8, 64, 128, False),            # one row, 8 columns of a tile
+    (129, 264, 8, 128, False),         # K = 8; one row and 8 columns past
+    (4096, 4096, 8, 256, True),        # K = 8
+    (4096, 4088, 40, 256, True),       # K < 64; N 248 past a tile
+    (8, 100000, 16, 256, True),        # one row of 391 tiles
+])
+def test_wgmma_kernel_matches_plain_version_at_every_plan(
+        cuda, M, N, K, tile_n, more_tiles_than_blocks):
+    from repro_torch.kernels import matmul as mm, ref
+    p = mm.plan(M, N, mm.resident_blocks(cuda.index or 0))
+    assert p.tile_n == tile_n
+    assert (p.tiles_m * p.tiles_n > p.blocks) == more_tiles_than_blocks
+    g = torch.Generator(device=cuda).manual_seed(M + 3 * N + 7 * K)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    y = torch.randn(K, N, generator=g, device=cuda).bfloat16()
+    assert mm.route(x.dtype, N, K) == "wgmma"
+    before = mm.matmul.route_launches["wgmma"]
+    got = mm.matmul(x, y)
+    torch.cuda.synchronize()
+    assert mm.matmul.route_launches["wgmma"] == before + 1
+    s = math.sqrt(K)
+    assert torch.allclose(got.float() / s, ref.matmul(x, y).float() / s,
+                          rtol=TOL[x.dtype], atol=TOL[x.dtype])
+
+
+def test_wgmma_bits_do_not_depend_on_the_plan(cuda):
+    # an element's sum is one fixed sequence of k16 products whatever the
+    # tile's width, the block that runs it or the tile order: the C entry
+    # given other plans writes the wrapper's bits
+    from repro_torch.kernels import _build, matmul as mm
+    g = torch.Generator(device=cuda).manual_seed(11)
+    M, N, K = 1000, 1528, 776
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    y = torch.randn(K, N, generator=g, device=cuda).bfloat16()
+    want = mm.matmul(x, y)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for tile_n, blocks, group in ((256, 48, 1), (128, 2, 1), (128, 6, 4),
+                                  (256, 10, 4)):
+        out = torch.empty_like(want)
+        err = _build.library().repro_matmul_bf16_wgmma(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K, tile_n,
+            blocks, group, cuda.index or 0, stream)
+        _build.check(err, "matmul kernel launch")
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), want.view(torch.int16)), (
+            tile_n, blocks, group)
+
+
 def test_wgmma_wrappers_reject_misaligned_pointers(cuda):
     # a contiguous bf16 tensor 2 bytes past a 16-byte boundary is no TMA
     # base: both wrappers send it to the CUDA-core (simt) kernel, which

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, none of
-``chip_smoke.py``, ``kernel_ab.py`` and ``train_check_causes.py``, and no
+``chip_smoke.py``, ``kernel_ab.py``, ``train_check_causes.py`` and the
+``*_causes.py`` kernel studies, and no
 ``examples/torch_*.py`` imports JAX or the JAX package
 ``repro`` (by an import statement or by ``importlib.import_module``), and
 neither a spawned cluster worker, a gateway client that sends it a traced
@@ -119,7 +120,10 @@ def test_port_sources_name_no_jax_or_repro_import():
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(examples) == 4
     scripts = [ROOT / name for name in ("chip_smoke.py", "kernel_ab.py",
-                                        "train_check_causes.py")]
+                                        "train_check_causes.py",
+                                        "flash_fwd_causes.py",
+                                        "scan_bwd_causes.py",
+                                        "matmul_causes.py")]
     files = sorted(PORT.rglob("*.py")) + scripts + examples
     assert len(files) >= 70          # the modules, the scripts, the examples
     offenders = {str(f.relative_to(ROOT)): _BAD_IMPORT.findall(f.read_text())
