@@ -89,7 +89,10 @@ Each phase prints one line; any failure raises and exits non-zero:
    llava-next-34b's training attention (q 2x56x2048x128 over 8 kv heads),
    and the training attention of phases 12b and 13b (q 2x32x2048x112 over
    32 kv heads; q 2x48x2048x128 over 8), and granite-20b's long prefill
-   (q 1x48x2048x128 over one kv head, MQA): float32
+   (q 1x48x2048x128 over one kv head, MQA), and phase 18's: granite-20b's
+   served prefill (q 1x48x12x128 over one kv head), yi-9b's long and served
+   prefills (q 1x32xSx128 over 4 kv heads) and llava-next-34b's (q
+   1x56xSx128 over 8): float32
    (the simt route), bf16 (wgmma) and bf16 through the simt route (q, k,
    v one element past a 16-byte boundary), each launched twice with its
    row log-sum-exp (out and lse the same bits; lse within ``LSE_TOL`` of
@@ -120,17 +123,25 @@ Each phase prints one line; any failure raises and exits non-zero:
    llava-next-34b's training attention (q 2x56x2048x128 over 8 kv heads),
    and zamba2-7b's and dbrx-132b's (q 2x32x2048x112 over 32 kv heads, the
    wgmma backward's D > 64 layout at D = 112; q 2x48x2048x128 over 8, GQA
-   6), in float32 (simt) and bf16 (wgmma): the backward kernel alone
-   (``flash_attention_backward``: the delta pre-pass, then one launch of
-   the dK/dV and dQ units, heaviest first), given the forward kernel's out
-   and row log-sum-exp, against the plain backward given the same, two
-   launches the same bits, with the kernel's registers, shared memory,
-   local (spill) bytes and resident blocks and warps an SM; then the Function (the forward kernel, then the
-   backward kernel) against autograd of the plain version: dq, dk, dv
-   within the forward's tolerance of the largest reference entry, one
-   launch of each kernel on the row's route, with CUDA-event times of the
-   backward kernel alone, the plain backward and SDPA's backward, and of
-   forward + backward for the Function, the plain version and SDPA;
+   6), and phase 18's: granite-20b's (q 2x48x2048x128 over one kv head,
+   MQA: each dK/dV unit walks all 48 query heads) and qwen3-14b's (q
+   2x40x2048x128 over 8), in float32 (simt) and bf16 (wgmma): the backward
+   kernel alone (``flash_attention_backward``: the delta pre-pass, then one
+   launch of the dK/dV and dQ units, heaviest first), given the forward
+   kernel's out and row log-sum-exp, against the plain backward given the
+   same, two launches the same bits, with the kernel's registers, shared
+   memory, local (spill) bytes and resident blocks and warps an SM, and its
+   unit list's makespan over the ideal when the card's resident blocks take
+   it greedily (``unit_list``, computed on the host by
+   ``_backward_makespan``, not measured, so kept out of the kernels line:
+   4.44 on wgmma and 2.29 on simt at granite-20b's MQA, about 1
+   elsewhere); then the Function (the forward
+   kernel, then the backward kernel) against autograd of the plain version:
+   dq, dk, dv within the forward's tolerance of the largest reference
+   entry, one launch of each kernel on the row's route, with CUDA-event
+   times of the backward kernel alone, the plain backward and SDPA's
+   backward, and of forward + backward for the Function, the plain version
+   and SDPA;
    (b) the training launcher at ``--reduced`` on the card: the
    resume check of tests/test_launchers.py (the resumed losses equal the
    uninterrupted run's at rtol 1e-4) and ``--show-graph --backend thread``
@@ -291,10 +302,31 @@ Each phase prints one line; any failure raises and exits non-zero:
    over the median step at the bf16 peak) is printed (``dryrun`` in the
    ``train_full`` lines); (d) 12b's and (e) 13b's cells the same, their
    FLOPs to the FLOP and their bound, with the peak's ratio printed (the
-   dry-run models make_optimizer's AdamW, not 13b's Adafactor).
+   dry-run models make_optimizer's AdamW, not 13b's Adafactor); (f) 18b's
+   and (g) 18c's cells as (b);
+18. the dense configurations of the pool that no earlier phase serves (run
+   after 13b, before 14; the MoE models freed): each of SERVE_CELLS drawn
+   on the card from a seed at its published width, served by the launcher
+   through phase 9's argv (``--layers`` where cut): granite-20b at 36 of
+   its 52 layers (14,251,702,272 float32 parameters; MQA, 48 heads over one
+   kv head, the 2-matrix gelu MLP), yi-9b whole (48 layers, 8,829,407,232;
+   GQA 8), qwen3-14b whole (40 layers, 14,768,307,200; per-head RMS
+   qk_norm, a vocabulary of 151,936) and llava-next-34b's text backbone at
+   23 of its 60 layers (13,748,216,832; GQA 7): 28 decode steps, the traced
+   tokens a prefix of request 0's, one wgmma flash launch a layer in each
+   of the 5 prefills (180, 240, 200 and 115) and none in a decode step;
+   then phase 7's long prefill with the kernel and with the plain
+   attention, its last-position logits within LOGIT_TOL, llava-next-34b's
+   prompt with 576 patch embeddings (seed 0) in its first positions; each
+   model freed before the next is drawn; (b) granite-20b at full width cut
+   to 6 layers (2,878,605,312 parameters) and (c) qwen3-14b cut to 4
+   (2,877,077,504), each trained as 11c at its own rate (its TRAIN_CELLS
+   entry's ``lr``): 11c's first-step limits, every gradient leaf finite, 4
+   falling losses, the plain attention's 4 steps within TRAIN_TRAJ_TOL, 12
+   and 8 wgmma flash forwards and 6 and 4 wgmma backwards a step.
 
 With ``--profile`` it also profiles one decode step and two prefills of
-each served model (zamba2-7b's and the MoE models' too) and one
+each served model (zamba2-7b's, the MoE models' and phase 18's too) and one
 full-width training step of each trained one (whisper-tiny's and
 llava-next-34b's too; device time by kernel,
 device busy share, and the device time of the port's own kernels).
@@ -304,7 +336,8 @@ too; ``flash_attention``, headed by its
 wgmma kernel (its ``design`` says how it was redesigned: persistent blocks
 over one heaviest-first unit list, FA3's in-warpgroup overlap), counts the
 wrapper's launches on both routes, serving and
-training (12b's and 13b's too), the encoder-decoder's prefill and decode
+training (12b's, 13b's, 18b's and 18c's too), phase 18's serving, the
+encoder-decoder's prefill and decode
 steps, phase 15b's pipelines (forward only and training) and phase 16a's
 world path too;
 ``flash_attention_simt`` is the CUDA-core kernel and its
@@ -313,7 +346,7 @@ launches; ``ssm_scan`` counts serving and training forwards, and
 launches in 11e and 11f; the scan's entries phase 16b's too;
 ``flash_attention_backward``, headed by the wgmma backward kernel at 11c's
 attention (its numbers the backward kernel's alone), the backward's
-launches on both routes in 11b, 11c, 12b, 13b, 14b-d and 15b, and
+launches on both routes in 11b, 11c, 12b, 13b, 14b-d, 15b, 18b and 18c, and
 ``flash_attention_backward_simt``, the CUDA-core backward kernel and its
 own launches; both backward entries say in ``design`` how they were
 redesigned: one heaviest-first launch of their units, and on the CUDA
@@ -374,6 +407,19 @@ HYBRID_ARCH, HYBRID_N_PARAMS = "zamba2-7b", 6_751_130_832
 # dense and an MoE layer (its 128 experts: 10.7 GB a weight)
 MOE_CELLS = [("dbrx-132b", 4, 14_269_470_720),
              ("llama4-maverick-400b-a17b", 2, 18_553_267_200)]
+# phase 18: the dense configurations of the pool that no earlier phase
+# serves, as (arch, layers served or 0 for all, parameters at that depth),
+# their float32 parameters at most about dbrx-132b's 57.1 GB at 4 layers
+# (served with a peak of 60.9 GB): granite-20b (MQA, 48 heads over one kv
+# head, the 2-matrix gelu MLP at d_ff 24,576) at 36 of its 52 layers, 57.0
+# GB; yi-9b (GQA 8, rope theta 5e6) whole, 35.3 GB; qwen3-14b (per-head RMS
+# qk_norm, a vocabulary of 151,936) whole, 59.1 GB; llava-next-34b's text
+# backbone (GQA 7), as the launcher serves it, at 23 of its 60 layers, 55.0
+# GB, its long prefill with 576 patch embeddings
+SERVE_CELLS = [("granite-20b", 36, 14_251_702_272),
+               ("yi-9b", 0, 8_829_407_232),
+               ("qwen3-14b", 0, 14_768_307_200),
+               ("llava-next-34b", 23, 13_748_216_832)]
 SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
               "--show-graph", "--backend", "thread"]
 SERVE_MAX_LEN = 64               # serve.py's --max-len default
@@ -401,7 +447,10 @@ SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # 1500 frames) and llava-next-34b's training attention (GQA 7), and the
 # training attention of phases 12b (zamba2-7b: 32 heads of 112) and 13b
 # (dbrx-132b: GQA 6), and granite-20b's long prefill (MQA: 48 heads over
-# one kv head, the wgmma forward's heaviest unit list of one kv head)
+# one kv head, the wgmma forward's heaviest unit list of one kv head), and
+# phase 18's: yi-9b's long and served prefills (GQA 8), llava-next-34b's
+# (GQA 7) and granite-20b's served prefill (qwen3-14b's 40 heads over 8 are
+# llama4-maverick-400b-a17b's rows)
 FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (1, 28, 4, 12, 12, 128, True),
                 (1, 32, 32, 2048, 2048, 112, True),
@@ -423,7 +472,12 @@ FLASH_SHAPES = [(1, 28, 4, 2048, 2048, 128, True),
                 (2, 56, 8, 2048, 2048, 128, True),
                 (2, 32, 32, 2048, 2048, 112, True),
                 (2, 48, 8, 2048, 2048, 128, True),
-                (1, 48, 1, 2048, 2048, 128, True)]
+                (1, 48, 1, 2048, 2048, 128, True),
+                (1, 32, 4, 2048, 2048, 128, True),
+                (1, 32, 4, 12, 12, 128, True),
+                (1, 56, 8, 2048, 2048, 128, True),
+                (1, 56, 8, 12, 12, 128, True),
+                (1, 48, 1, 12, 12, 128, True)]
 # phases 6b and 9b: the serve traffic with the traced request on cluster
 # worker processes (see phase_serve_process)
 PROCESS_SERVE_ARGS = ["--requests", "4", "--slots", "2", "--max-new", "8",
@@ -444,7 +498,9 @@ LOGIT_TOL = 0.5
 # whisper-tiny encoder (not causal), cross-attention (Sq != Sk) and decoder
 # (causal), llava-next-34b's training attention (GQA 7), and the training
 # attention of phases 12b (zamba2-7b: D = 112, the wgmma backward's D > 64
-# layout with its stores masked past D) and 13b (dbrx-132b: GQA 6)
+# layout with its stores masked past D) and 13b (dbrx-132b: GQA 6), and
+# phase 18's training attention: granite-20b's (MQA: one dK/dV unit a key
+# tile walks all 48 query heads) and qwen3-14b's (GQA 5)
 TRAIN_GRAD_SHAPES = [(2, 28, 4, 2048, 2048, 128, True),
                      (2, 8, 2, 1000, 1000, 64, True),
                      (16, 6, 6, 1500, 1500, 64, False),
@@ -452,7 +508,9 @@ TRAIN_GRAD_SHAPES = [(2, 28, 4, 2048, 2048, 128, True),
                      (16, 6, 6, 448, 448, 64, True),
                      (2, 56, 8, 2048, 2048, 128, True),
                      (2, 32, 32, 2048, 2048, 112, True),
-                     (2, 48, 8, 2048, 2048, 128, True)]
+                     (2, 48, 8, 2048, 2048, 128, True),
+                     (2, 48, 1, 2048, 2048, 128, True),
+                     (2, 40, 8, 2048, 2048, 128, True)]
 # phase 11a's times: the median of 20 calls, each between its own CUDA
 # events, after 3 warm-ups (a mean of 5 moved SDPA's backward up to 2.3x
 # between two runs)
@@ -564,7 +622,8 @@ SPMD_GRAD_NORM_TOL, SPMD_GRAD_COSINE_MIN = 1e-4, 0.99997
 # phase 15c: the leaf whose int8 codes and scales are held to the CPU's
 SPMD_BITS_LEAF = "layers/mixer/wk"
 # phase 17: the dry-runs' time limit, and the band the measured peak of a
-# DRYRUN_PEAK_HELD cell must lie in, as a share of the dry-run's prediction
+# dry-run training cell must lie in (ADAFACTOR_CELLS' excepted, see
+# TrainCell), as a share of the dry-run's prediction
 DRYRUN_TIMEOUT = 300.0
 DRYRUN_PEAK_BAND = (0.8, 1.2)
 # phase 12b: zamba2-7b at full width cut to 24 of its 81 layers, 4
@@ -604,25 +663,58 @@ ADAFACTOR_CELLS = (MOE_TRAIN_ARCH,)
 # 9.10; at 1e-3, 12.19, 27.56, 28.34, 27.04.  3e-5 is the largest of these
 # rates at which the 4 losses fall
 MOE_TRAIN_LR = 3e-5
-# the training cells: (layers, parameters at that depth, batch, sequence)
+# a training cell: its depth, its parameters at that depth, its batch and
+# sequence, its peak rate, its phase, and the phase-17 sub-phase whose
+# dry-run predicts it (None: none does).  A dry-run cell's measured peak
+# must lie in DRYRUN_PEAK_BAND, as it has in every run on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (zamba2-7b: 1.0015, 1.0023; granite-20b 1.0019,
+# qwen3-14b 1.0020), except for ADAFACTOR_CELLS: the dry-run builds
+# make_optimizer's AdamW state, two float32 moments that 13b's Adafactor
+# does not keep (predicted 80.3 GB, measured 48.7 GB, 0.607)
+TrainCell = collections.namedtuple(
+    "TrainCell", "layers n_params batch seq lr phase dryrun")
 TRAIN_CELLS = {
-    DENSE_ARCH: (TRAIN_LAYERS, TRAIN_N_PARAMS, TRAIN_BATCH, TRAIN_SEQ),
-    ARCH: (MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_N_PARAMS, TRAIN_BATCH, TRAIN_SEQ),
-    ENCDEC_ARCH: (ENCDEC_LAYERS, ENCDEC_N_PARAMS, ENCDEC_BATCH, ENCDEC_SEQ),
-    VLM_ARCH: (VLM_LAYERS, VLM_N_PARAMS, VLM_BATCH, VLM_SEQ),
-    HYBRID_ARCH: (HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_N_PARAMS, TRAIN_BATCH,
-                  TRAIN_SEQ),
-    MOE_TRAIN_ARCH: (MOE_TRAIN_LAYERS, MOE_TRAIN_N_PARAMS, TRAIN_BATCH,
-                     TRAIN_SEQ)}
-# phase 17: the training cells that the dry-run reads, by sub-phase, and
-# those whose measured peak must lie in DRYRUN_PEAK_BAND, as it has in
-# every run on an NVIDIA H100 80GB HBM3 at 700.00 W (zamba2-7b: 1.0015,
-# 1.0023).  13b's does not: the dry-run builds make_optimizer's AdamW
-# state, two float32 moments that 13b's Adafactor does not keep (predicted
-# 80.3 GB, measured 48.7 GB, 0.607)
-DRYRUN_CELLS = {DENSE_ARCH: "17b", ARCH: "17c", HYBRID_ARCH: "17d",
-                MOE_TRAIN_ARCH: "17e"}
-DRYRUN_PEAK_HELD = (DENSE_ARCH, ARCH, HYBRID_ARCH)
+    DENSE_ARCH: TrainCell(TRAIN_LAYERS, TRAIN_N_PARAMS, TRAIN_BATCH,
+                          TRAIN_SEQ, TRAIN_LR, "11c", "17b"),
+    ARCH: TrainCell(MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_N_PARAMS, TRAIN_BATCH,
+                    TRAIN_SEQ, TRAIN_LR, "11f", "17c"),
+    ENCDEC_ARCH: TrainCell(ENCDEC_LAYERS, ENCDEC_N_PARAMS, ENCDEC_BATCH,
+                           ENCDEC_SEQ, TRAIN_LR, "14c", None),
+    VLM_ARCH: TrainCell(VLM_LAYERS, VLM_N_PARAMS, VLM_BATCH, VLM_SEQ, VLM_LR,
+                        "14d", None),
+    HYBRID_ARCH: TrainCell(HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_N_PARAMS,
+                           TRAIN_BATCH, TRAIN_SEQ, HYBRID_TRAIN_LR, "12b",
+                           "17d"),
+    MOE_TRAIN_ARCH: TrainCell(MOE_TRAIN_LAYERS, MOE_TRAIN_N_PARAMS,
+                              TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_LR, "13b",
+                              "17e"),
+    # granite-20b at full width cut to 6 of its 52 layers (2,878,605,312
+    # float32 parameters: 46.1 GB with gradients and AdamW moments, beside
+    # 11c's 47.3; 52.1 GB at 7 layers).  MQA: a step launches 12 wgmma
+    # flash forwards and 6 backwards, each backward's dK/dV units walking
+    # all 48 query heads of the one kv head.  Its peak rate under AdamW:
+    # from the same draw its losses over the 4 steps read
+    # (train_check_causes.py lr --arch granite-20b on an NVIDIA H100 80GB
+    # HBM3 at its 700.00 W power limit): at 0, 11.345, 11.236, 11.372,
+    # 11.280 (the batches' own spread); at 3e-7, 11.35, 10.93, 10.85,
+    # 10.63; at 1e-6, 11.35, 10.23, 9.65, 9.19; at 2e-6, 11.35, 9.28, 8.40,
+    # 8.10; at 3e-6, 11.35, 8.50, 8.98, 8.52; at 5e-6, 11.35, 8.88, 7.58,
+    # 7.21; at 1e-5, 11.35, 12.76, 7.64, 7.20; at 3e-5, 11.35, 17.36,
+    # 10.51, 10.46; at 1e-4, 11.35, 21.32, 20.27, 16.85; at TRAIN_LR,
+    # 11.35, 25.24, 26.37, 19.91.  5e-6 is the largest of these rates at
+    # which the 4 losses fall
+    "granite-20b": TrainCell(6, 2_878_605_312, TRAIN_BATCH, TRAIN_SEQ, 5e-6,
+                             "18b", "17f"),
+    # qwen3-14b at full width cut to 4 of its 40 layers (2,877,077,504:
+    # 46.0 GB; 51.3 GB at 5 layers), per-head RMS qk_norm in the gradient:
+    # 8 wgmma flash forwards and 4 backwards a step.  Its peak rate under
+    # AdamW, read as granite-20b's: at 0, 12.260, 12.248, 12.286, 12.333; at
+    # 3e-6, 12.26, 11.01, 10.19, 9.87; at 1e-5, 12.26, 10.12, 8.58, 8.26; at
+    # 3e-5, 12.26, 16.00, 9.16, 7.83; at 1e-4, 12.26, 22.10, 15.03, 13.39;
+    # at TRAIN_LR, 12.26, 25.07, 19.41, 16.65.  1e-5 is the largest of these
+    # rates at which the 4 losses fall
+    "qwen3-14b": TrainCell(4, 2_877_077_504, TRAIN_BATCH, TRAIN_SEQ, 1e-5,
+                           "18c", "17g")}
 
 
 def _costs():
@@ -730,7 +822,9 @@ def device_busy_ms(torch, fn, reps: int = GRAD_REPS) -> float:
     """Device time of one call of ``fn``: the self device times of the
     device's entries under ``torch.profiler`` over ``reps`` calls, after a
     warm-up, divided by ``reps``; unlike CUDA events it leaves out the time
-    the device waits for the host."""
+    the device waits for the host.  Read only before phase 4b: after the
+    phases that start worker processes the profiler's kernel durations
+    shrink against CUDA events on the H100 (PERF.md §7)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1826,13 +1920,18 @@ def phase_long_prefill(torch, cfg, params) -> dict:
     compute dtype, with the path kernel and with its plain version; the
     kernel run's prefill also times the kernel's own launches (CUDA events
     around each).  An MoE model's line adds the routing of both runs
-    (:func:`_routing_summary`)."""
+    (:func:`_routing_summary`).  A VLM's prompt starts with its
+    ``n_patches`` patch embeddings (seed 0), handed to both runs' prefill
+    as ``patch_embeds``, as its training batches carry them."""
+    from repro_torch.models import frontends
     from repro_torch.models import transformer as TF
     counter = _counters()[_path_kernel(cfg)]
     module = sys.modules[counter.__module__]
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(1, cfg.vocab_size, (1, LONG_PROMPT),
                            generator=gen, device="cuda", dtype=torch.int32)
+    patches = (frontends.synth_patches(cfg, 1, 0, device="cuda")
+               if cfg.family == "vlm" else None)
 
     def run(impl, feed=None):
         """Prefill, then LONG_DECODE greedy steps fed the run's own tokens
@@ -1844,7 +1943,7 @@ def phase_long_prefill(torch, cfg, params) -> dict:
         with (timed_launches(torch, module, counter.__name__)
               if impl == "kernel" else contextlib.nullcontext([])) as events:
             t0 = time.perf_counter()
-            last, cache = prefill(params, prompt)
+            last, cache = prefill(params, prompt, patches)
             logits = [last[0].clone()]
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
@@ -1907,8 +2006,10 @@ def phase_long_prefill(torch, cfg, params) -> dict:
            "launches_by_route": routes,
            f"{counter.__name__}_prefill_ms": kernel_ms,
            f"{counter.__name__}_prefill_share": kernel_ms / 1e3 / pre_k,
-           "peak_device_bytes": peak,
-           **({"layers": cfg.n_layers, "routing": routing} if moe else {})}
+           "peak_device_bytes": peak, "layers": cfg.n_layers,
+           **({"routing": routing} if moe else {}),
+           **({"patch_positions": patches.shape[1]}
+              if patches is not None else {})}
     line("long_prefill", out)
     out["routes"] = _launch_routes(counter)
     return out
@@ -2095,17 +2196,19 @@ def phase_hybrid(torch, profile: bool) -> collections.Counter:
     return launches
 
 
-def phase_moe(torch, profile: bool) -> collections.Counter:
-    """Phase 13: each of MOE_CELLS drawn on the card at its published width
-    cut in depth, served through the launcher's ``--layers``, its long
-    prefill run with the flash kernel and with the plain attention (with
-    ``profile``, profiled), and its parameters freed; returns the flash
-    launches by route.  The process-backend and gateway phases of
-    :func:`phase_model` are left out: their workers serve the reduced
-    configs, which phase 9b already runs on the card."""
+def phase_cells(torch, cells, profile: bool) -> collections.Counter:
+    """Phases 13 (MOE_CELLS) and 18 (SERVE_CELLS): each cell (arch, layers
+    or 0 for all, parameters) drawn on the card at its published width,
+    cut in depth where given, served through the launcher (``--layers``
+    where cut), its long prefill run with the flash kernel and with the
+    plain attention (a VLM's with its patch embeddings; with ``profile``,
+    profiled), and its parameters freed before the next is drawn; returns
+    the flash launches by route.  The process-backend and gateway phases
+    of :func:`phase_model` are left out: their workers serve the reduced
+    configs, whose dense path phase 9b already runs on the card."""
     import gc
     launches = collections.Counter()
-    for arch, layers, n_params in MOE_CELLS:
+    for arch, layers, n_params in cells:
         cfg, params = phase_params(torch, arch, n_params, layers)
         served, _ = phase_serve(torch, cfg, params)
         launches += served
@@ -2135,6 +2238,28 @@ def _grad_inputs(torch, gen, B, H, KH, Sq, Sk, D, dtype):
     return [t.to(dtype) for t in (q, k, v)], dout.to(dtype)
 
 
+def _backward_makespan(torch, B, H, KH, Sq, Sk, causal, path,
+                       blocks_per_sm: int) -> dict:
+    """The backward kernel's unit list (``backward_schedule`` on the
+    route's key tiles) taken in list order by the card's resident blocks,
+    each unit to the block that frees first at its cost in products: the
+    makespan over the ideal, the products spread evenly over the blocks.
+    One kv head's dK/dV units (MQA) walk every query head, so a few heavy
+    units set the makespan there."""
+    import heapq
+    from repro_torch.kernels import flash_attention as fa
+    units = fa.backward_schedule(B, H, KH, Sq, Sk, causal,
+                                 fa.BWD_ROWS[path])
+    slots = blocks_per_sm * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    free = [0] * slots
+    for u in units:
+        heapq.heappush(free, heapq.heappop(free) + u[4])
+    ideal = sum(u[4] for u in units) / slots
+    return {"units": len(units), "blocks": slots, "heaviest": units[0][4],
+            "ideal": ideal, "makespan_over_ideal": max(free) / ideal}
+
+
 def phase_train_grads(torch) -> list:
     """Phase 11a: the flash gradient at each TRAIN_GRAD_SHAPES row in
     float32 (simt) and bf16 (wgmma).  First the backward kernel alone,
@@ -2148,11 +2273,12 @@ def phase_train_grads(torch) -> list:
     backward kernel alone, of the plain backward given the lse and of
     SDPA's backward alone (autograd of one retained SDPA output: a
     yardstick only), and of forward + backward for the Function, the plain
-    version and SDPA, beside the card's bounds; and the device times
-    (``device_busy_ms``) of the backward kernel, of SDPA's backward (the
-    backward's ``library_ms``) and of forward + backward for the Function
-    and SDPA, since an event time of autograd is its host dispatch
-    wherever the host is slower than the device."""
+    version and SDPA, beside the card's bounds.  No profiler device times
+    (``device_busy_ms``): by this point of a run the profiler's kernel
+    durations read 0.25-0.8 x the same launches' CUDA events on the H100,
+    every kernel still recorded (PERF.md §7), so SDPA's backward is timed
+    by its events too, which hold autograd's host dispatch wherever the
+    host is slower than the device."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2192,9 +2318,9 @@ def phase_train_grads(torch) -> list:
                      f"largest, tolerance {TOL[dname]}")
             del got, again, want
             res = fa.backward_resources(dtype, D)
+            schedule = _backward_makespan(torch, B, H, KH, Sq, Sk, causal,
+                                          path, res["blocks_per_sm"])
             bwd_ms = cuda_median_ms(torch, lambda: bwd(
-                q, k, v, out, dout, lse, causal=causal))
-            bwd_dev_ms = device_busy_ms(torch, lambda: bwd(
                 q, k, v, out, dout, lse, causal=causal))
             plain_bwd_ms = cuda_median_ms(torch, lambda: fa.attention_backward(
                 q, k, v, out, dout, causal=causal, lse=lse))
@@ -2236,7 +2362,6 @@ def phase_train_grads(torch) -> list:
                 return torch.autograd.grad(lib_out, (q, k, v), dout,
                                            retain_graph=True)
             sdpa_bwd_ms = cuda_median_ms(torch, sdpa_bwd)
-            sdpa_bwd_dev_ms = device_busy_ms(torch, sdpa_bwd)
             del lib_out
             b_ms, b_by = _costs().flash_bound(B, H, KH, Sq, Sk, D, causal,
                                               dname, dtype.itemsize,
@@ -2251,35 +2376,30 @@ def phase_train_grads(torch) -> list:
                 "ms": cuda_median_ms(torch, lambda: fwd_bwd(kernel)),
                 "plain_ms": cuda_median_ms(torch, lambda: fwd_bwd(plain)),
                 "library_ms": cuda_median_ms(torch, lambda: fwd_bwd(library)),
-                "device_ms": device_busy_ms(torch, lambda: fwd_bwd(kernel)),
-                "library_device_ms": device_busy_ms(
-                    torch, lambda: fwd_bwd(library)),
-                # SDPA's backward by its device time: its event time is
-                # autograd's host dispatch wherever the host is slow
                 "backward": {
                     "rel_err": kernel_errs, "max_abs_err": kernel_abs,
                     "same_bits": True, "ms": bwd_ms,
-                    "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_dev_ms,
-                    "library_event_ms": sdpa_bwd_ms,
-                    "device_ms": bwd_dev_ms,
+                    "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms,
                     "bound_ms": bb_ms, "bound_by": bb_by,
-                    "resources": res}})
+                    "resources": res},
+                # computed on the host from the unit list, not measured:
+                # kept out of the backward's numbers in the kernels line
+                "unit_list": schedule})
             c = checks[-1]
             print(f"{what}: backward kernel vs plain rel err "
-                  f"{max(kernel_errs.values()):.3g}, {bwd_ms:.4f} ms, device "
-                  f"{bwd_dev_ms:.4f} ms (plain {plain_bwd_ms:.3f} ms, sdpa "
-                  f"backward device {sdpa_bwd_dev_ms:.4f} ms, events "
-                  f"{sdpa_bwd_ms:.4f} ms, bound {bb_ms:.4f} ms, {bb_by}; "
+                  f"{max(kernel_errs.values()):.3g}, {bwd_ms:.4f} ms (plain "
+                  f"{plain_bwd_ms:.3f} ms, sdpa backward {sdpa_bwd_ms:.4f} "
+                  f"ms, bound {bb_ms:.4f} ms, {bb_by}; "
                   f"{res['registers']} registers, {res['smem_bytes']} B "
                   f"shared, {res['local_bytes']} B local, "
                   f"{res['blocks_per_sm']} block(s), {res['warps_per_sm']} "
-                  f"warps an SM) | Function vs "
+                  f"warps an SM; unit list "
+                  f"{schedule['makespan_over_ideal']:.3g} x the ideal) | "
+                  f"Function vs "
                   f"autograd rel err {max(errs.values()):.3g} (tol "
-                  f"{TOL[dname]}) | fwd+bwd {c['ms']:.3f} ms, device "
-                  f"{c['device_ms']:.3f} ms | plain {c['plain_ms']:.3f} ms | "
-                  f"sdpa {c['library_ms']:.3f} ms, device "
-                  f"{c['library_device_ms']:.3f} ms | bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
+                  f"{TOL[dname]}) | fwd+bwd {c['ms']:.3f} ms | plain "
+                  f"{c['plain_ms']:.3f} ms | sdpa {c['library_ms']:.3f} ms | "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
             del q, k, v, dout
     line("train_grads", checks)
     return checks
@@ -2582,18 +2702,18 @@ def _scan_reads_dt_in_bf16(torch):
 
 
 def _train_cell(arch: str):
-    """Phase 11c's, 11f's or 14's model: the config cut in depth, its
+    """A TRAIN_CELLS cell's model: the config cut in depth, its
     parameter count, the autograd Function of its path kernel, and the
     batch and sequence it trains on."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as scan
     from repro_torch.models.config import cut_depth
-    layers, n_params, batch, seq = TRAIN_CELLS[arch]
-    cfg = cut_depth(get_config(arch), layers)
+    cell = TRAIN_CELLS[arch]
+    cfg = cut_depth(get_config(arch), cell.layers)
     fn_cls = (fa.FlashAttention if _path_kernel(cfg) == "flash_attention"
               else scan.SSMScan)
-    return cfg, n_params, fn_cls, batch, seq
+    return cfg, cell.n_params, fn_cls, cell.batch, cell.seq
 
 
 def _routing_flips(torch, cfg, kernel_calls, plain_calls) -> dict:
@@ -2662,12 +2782,6 @@ def _loss_over_draws(torch, cfg, params, n_batch: int, seq: int) -> dict:
     return out
 
 
-def _train_lr(arch: str) -> float:
-    """A training cell's peak rate."""
-    return {VLM_ARCH: VLM_LR, HYBRID_ARCH: HYBRID_TRAIN_LR,
-            MOE_TRAIN_ARCH: MOE_TRAIN_LR}.get(arch, TRAIN_LR)
-
-
 def _train_optimizer(cfg, lr: float):
     """A training cell's optimizer at peak rate ``lr``, warmup 1, so that
     TRAIN_STEPS steps train at the peak rate and below (with the
@@ -2697,16 +2811,17 @@ def phase_dryrun_start():
     process group is one a process) beside phases 11a and 11b: 17a's
     production cell (qwen2-7b train_4k on the (16, 16) mesh of 256 fake
     ranks) with the mesh's fake tensors on the card and on the CPU, and
-    the DRYRUN_CELLS training cells (11c, 11f, 12b, 13b) on the (1, 1)
-    mesh.  Returns what :func:`phase_dryrun_join` reads."""
+    the training cells with a ``dryrun`` sub-phase (11c, 11f, 12b, 13b,
+    18b, 18c) on the (1, 1) mesh.  Returns what :func:`phase_dryrun_join` reads."""
     import tempfile
     out = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
     prod = ["--arch", DENSE_ARCH, "--shape", "train_4k", "--mesh", "single"]
     runs = {"production_cuda": prod + ["--device", "cuda"],
             "production_cpu": prod + ["--device", "cpu"]}
-    for arch in DRYRUN_CELLS:
-        layers, _, batch, seq = TRAIN_CELLS[arch]
-        runs[arch] = _dryrun_args(arch, layers, batch, seq)
+    for arch, cell in TRAIN_CELLS.items():
+        if cell.dryrun:
+            runs[arch] = _dryrun_args(arch, cell.layers, cell.batch,
+                                      cell.seq)
     env = dict(os.environ, PYTHONPATH=str(SRC))
     procs = {}
     for name, args in runs.items():
@@ -2723,7 +2838,7 @@ def phase_dryrun_join(pending) -> None:
     dry-runs (each within DRYRUN_TIMEOUT, all killed on a failure), read
     their records, fail unless the production cell's records from the
     card's and the CPU's fake tensors are equal in every key but time and
-    device, and keep each DRYRUN_CELLS cell's in RESULTS for
+    device, and keep each dry-run training cell's in RESULTS for
     phase_train_full."""
     out, procs, t0 = pending
     recs = {}
@@ -2773,7 +2888,7 @@ def phase_dryrun_join(pending) -> None:
              f"card's and the CPU's fake tensors in {diff} "
              f"(status {cuda['status']}, {cuda.get('traceback')}; "
              f"{cpu.get('traceback')})")
-    for arch in DRYRUN_CELLS:
+    for arch in (a for a, c in TRAIN_CELLS.items() if c.dryrun):
         if recs[arch]["status"] != "OK":
             fail(f"dry-run of {arch}'s training cell: {recs[arch]}")
         RESULTS[("dryrun", arch)] = recs[arch]
@@ -2791,7 +2906,7 @@ def _model_flops(cfg, tokens: int) -> int:
 
 def _against_dryrun(dry: dict, counted: dict, peak: int, median_s: float,
                     model_flops: int) -> dict:
-    """Phase 17b-17e: the dry-run's prediction for a training cell beside
+    """Phase 17b-17g: the dry-run's prediction for a training cell beside
     the cell's own run: step 0's FLOPs counted by ``launch.costs.Counter``
     on the card, the steps' peak memory and median step.  Returns the
     readings; the checks read them."""
@@ -2836,9 +2951,10 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
                      profile: bool = False) -> dict:
     """Phase 11c (qwen2-7b at TRAIN_LAYERS layers), 11f (falcon-mamba-7b
     at MAMBA_TRAIN_LAYERS), 12b (zamba2-7b at HYBRID_TRAIN_LAYERS), 13b
-    (dbrx-132b at MOE_TRAIN_LAYERS) and 14c-d (whisper-tiny whole,
-    llava-next-34b at VLM_LAYERS): the published width cut in depth (bf16
-    compute, selective remat, which the encoder-decoder does not apply),
+    (dbrx-132b at MOE_TRAIN_LAYERS), 14c-d (whisper-tiny whole,
+    llava-next-34b at VLM_LAYERS), 18b (granite-20b at 6) and 18c
+    (qwen3-14b at 4): the published width cut in depth (bf16 compute,
+    selective remat, which the encoder-decoder does not apply),
     drawn on the card from seed 0, trained on SyntheticLMDataset(seed=0)
     batches of the cell's TRAIN_CELLS size, with its frontend's stand-in
     patches or frames (seed 0, the same every step).  First
@@ -2869,7 +2985,7 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
     cfg, n_params, fn_cls, n_batch, seq = _train_cell(arch)
     M = model_module(cfg)
     dense = _path_kernel(cfg) == "flash_attention"
-    lr = _train_lr(arch)
+    lr = TRAIN_CELLS[arch].lr
     if (cfg.compute_dtype, cfg.remat) != ("bfloat16", "selective"):
         fail(f"{cfg.name}: expected bf16 compute and selective remat")
     per_step = _train_kernels(cfg)
@@ -3133,8 +3249,8 @@ def phase_train_full(torch, arch: str = DENSE_ARCH,
     line("train_full", out)
     RESULTS[("train_full", cfg.name)] = out
     if dry is not None:
-        _check_against_dryrun(f"{DRYRUN_CELLS[arch]} {cfg.name}",
-                              out["dryrun"], arch in DRYRUN_PEAK_HELD)
+        _check_against_dryrun(f"{TRAIN_CELLS[arch].dryrun} {cfg.name}",
+                              out["dryrun"], arch not in ADAFACTOR_CELLS)
     if not dense:
         f32 = (SCAN_F32_LOSS_TOL, SCAN_F32_NORM_TOL, SCAN_F32_COSINE_MIN)
         if not _within_limits(witness["float32"], *f32):
@@ -3850,11 +3966,21 @@ def main() -> int:
     # phase 13: MoE, the flash kernel at 48 and 40 heads over 8 kv heads
     gc.collect()
     torch.cuda.empty_cache()
-    flash_launches += phase_moe(torch, profile)
+    flash_launches += phase_cells(torch, MOE_CELLS, profile)
     # phase 13b: dbrx-132b trained under Adafactor
     run = phase_train_full(torch, MOE_TRAIN_ARCH, profile)
     flash_launches += run["flash_attention"]
     flash_bwd_launches += run["flash_attention_backward"]
+    # phase 18: the dense configurations no earlier phase serves (MQA, GQA
+    # 8, qk_norm, the VLM's backbone), then 18b and 18c: granite-20b (MQA)
+    # and qwen3-14b (qk_norm) trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_launches += phase_cells(torch, SERVE_CELLS, profile)
+    for arch in (a for a, c in TRAIN_CELLS.items() if c.phase[:2] == "18"):
+        run = phase_train_full(torch, arch, profile)
+        flash_launches += run["flash_attention"]
+        flash_bwd_launches += run["flash_attention_backward"]
     # phase 14: the encoder-decoder and the VLM, trained at full width
     gc.collect()
     torch.cuda.empty_cache()
@@ -3910,9 +4036,7 @@ def main() -> int:
         {**{k: c[k] for k in ("shape", "causal", "dtype", "route")},
          **c["backward"],
          **{f"function_{k}": c[k] for k in ("rel_err", "ms", "plain_ms",
-                                            "library_ms", "device_ms",
-                                            "library_device_ms",
-                                            "bound_ms")}}
+                                            "library_ms", "bound_ms")}}
         for c in grad_checks]
     train_flash = {c["route"]: c for c in flash_bwd_checks
                    if c["shape"] == [TRAIN_BATCH, 28, 4, TRAIN_SEQ,

@@ -328,7 +328,7 @@ def test_chip_smoke_phase_14_cells():
     from repro_torch.models.config import cut_depth
     counts = {chip_smoke.ENCDEC_ARCH: (12, 12), chip_smoke.VLM_ARCH: (8, 4)}
     for arch, (per_step, backward) in counts.items():
-        layers, n_params, _, _ = chip_smoke.TRAIN_CELLS[arch]
+        layers, n_params = chip_smoke.TRAIN_CELLS[arch][:2]
         cfg = cut_depth(get_config(arch), layers)
         M = ED if cfg.is_encoder_decoder else PTF
         assert M.count_params(cfg) == n_params

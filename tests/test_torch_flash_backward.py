@@ -217,12 +217,13 @@ def test_backward_bound_is_within_the_lse_of_forward_and_backward(
 
 # (B, H, KH, Sq, Sk, causal): 11c's and llava's training attention, the
 # ragged row, whisper's encoder (not causal) and cross-attention (Sq < Sk),
-# Sq > Sk both ways, keys past every query, one query
+# Sq > Sk both ways, keys past every query, one query, and granite-20b's
+# training attention (MQA: 48 query heads over one kv head)
 SCHEDULE_SHAPES = [(2, 28, 4, 2048, 2048, True), (2, 56, 8, 2048, 2048, True),
                    (2, 8, 2, 1000, 1000, True), (16, 6, 6, 1500, 1500, False),
                    (16, 6, 6, 448, 1500, False), (1, 4, 2, 300, 77, True),
                    (1, 4, 1, 65, 300, True), (2, 7, 1, 1, 129, True),
-                   (1, 2, 2, 200, 77, False)]
+                   (1, 2, 2, 200, 77, False), (2, 48, 1, 2048, 2048, True)]
 
 
 def _walked_steps(B, H, KH, Sq, Sk, causal, rows):

@@ -1215,6 +1215,73 @@ def test_flash_backward_units_with_empty_ranges(cuda, B, H, KH, Sq, Sk, D,
     assert not got[0][1][:, :, Sq:].any() and not got[0][2][:, :, Sq:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mqa_flash_backward_at_granites_training_shape(cuda, dtype):
+    """granite-20b's training attention, q 2x48x2048x128 over one kv head
+    (MQA: each dK/dV unit walks all 48 query heads): the backward kernel
+    of the route, given the forward kernel's out and lse, against the
+    plain backward given the same, each gradient within the forward's
+    tolerance of its largest plain entry; two launches the same bits, each
+    one launch on the route."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, KH, S, D = 2, 48, 1, 2048, 128
+    q, k, v = _attn_inputs(cuda, B, H, KH, S, S, D, dtype, seed=48)
+    dout = torch.randn(B, H, S, D, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    path = fa.route(dtype, D)
+    assert path == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    bwd = fa.flash_attention_backward
+    got = []
+    for _ in range(2):
+        before = dict(bwd.route_launches)
+        got.append(bwd(q, k, v, out, dout, lse, causal=True))
+        torch.cuda.synchronize()
+        assert bwd.route_launches == {
+            r: n + (r == path) for r, n in before.items()}
+    want = fa.attention_backward(q, k, v, out, dout, causal=True, lse=lse)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for name, g, a, w in zip("qkv", *got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g.view(bits), a.view(bits)), name
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= TOL[dtype], (name, err)
+
+
+def test_qwen3_qk_norm_long_prefill_matches_plain_attention(cuda):
+    """qwen3-14b at its published width (40 heads of 128 over 8, per-head
+    RMS qk_norm, a vocabulary of 151,936) cut to 2 layers, bf16 compute: a
+    2048-token prefill with the flash kernel (one wgmma launch a layer)
+    against the same with the plain attention, last-position logits within
+    chip_smoke.py's LOGIT_TOL."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import cut_depth
+    cfg = cut_depth(get_config("qwen3-14b"), 2)
+    assert cfg.qk_norm and cfg.compute_dtype == "bfloat16"
+    params = TF.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 2048), device=cuda,
+                           dtype=torch.int32, generator=gen)
+    logits = {}
+    for impl in ("kernel", "ref"):
+        before = dict(fa.flash_attention.route_launches)
+        prefill = TF.make_prefill_step(cfg, impl=impl)
+        logits[impl], _ = prefill(params, prompt)
+        torch.cuda.synchronize()
+        n = cfg.n_layers if impl == "kernel" else 0
+        assert fa.flash_attention.route_launches == {
+            r: c + (n if r == "wgmma" else 0) for r, c in before.items()}
+    got, want = logits["kernel"], logits["ref"]
+    assert got.shape == (1, cfg.vocab_size) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= chip_smoke.LOGIT_TOL
+
+
 def test_flash_backward_resources_are_what_the_kernels_get(cuda):
     """Registers, shared memory and resident blocks of each backward
     kernel, from the card: the simt kernel keeps 16 warps an SM at DP = 64

@@ -123,7 +123,8 @@ def test_port_sources_name_no_jax_or_repro_import():
                                         "train_check_causes.py",
                                         "flash_fwd_causes.py",
                                         "scan_bwd_causes.py",
-                                        "matmul_causes.py")]
+                                        "matmul_causes.py",
+                                        "profiler_causes.py")]
     files = sorted(PORT.rglob("*.py")) + scripts + examples
     assert len(files) >= 70          # the modules, the scripts, the examples
     offenders = {str(f.relative_to(ROOT)): _BAD_IMPORT.findall(f.read_text())

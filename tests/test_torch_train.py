@@ -106,7 +106,14 @@ def test_one_device_mesh_and_identity_constraint():
         make_mesh_for(4)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "falcon-mamba-7b"])
+# the Mamba1 path, and the dense path's configurations: qwen2-7b (GQA with
+# qkv biases), granite-20b (MQA, one kv head, with the 2-matrix gelu MLP),
+# qwen3-14b (per-head RMS qk_norm) and yi-9b (GQA at rope theta 5e6)
+TRAIN_ARCHS = ["qwen2-7b", "falcon-mamba-7b", "granite-20b", "qwen3-14b",
+               "yi-9b"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_loss_and_grads_match_the_references(arch):
     jcfg, cfg, jparams, params = _setup(arch)
     jb, pb = _batch(cfg)
@@ -120,12 +127,16 @@ def test_loss_and_grads_match_the_references(arch):
     _assert_grads_close(grads, jgrads)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "falcon-mamba-7b"])
-def test_three_train_steps_match_the_references(arch):
+def _three_steps(arch, move=0):
     """launch/steps.py's train step with make_optimizer's AdamW (weight
     decay 0.1, clipping, a cosine schedule) for three steps on three
-    batches: the losses at rtol 1e-4, the parameters after."""
+    batches in both packages, from the reference's draw (with ``move`` 1
+    or -1, the reference's parameters moved one ulp up or down first): the
+    reference's losses and parameters after, then the port's."""
     jcfg, cfg, jparams, params = _setup(arch, seed=2)
+    if move:
+        jparams = jax.tree.map(
+            lambda x: jnp.nextafter(x, move * jnp.inf), jparams)
     jopt = JST.make_optimizer(jcfg, lr=jax_cosine(1e-2, 1, 3))
     opt = ST.make_optimizer(cfg, lr=cosine_schedule(1e-2, 1, 3))
     jstep = jax.jit(JST.make_train_step(jcfg, jopt, None))
@@ -138,20 +149,57 @@ def test_three_train_steps_match_the_references(arch):
         params, state, m = step(params, state, pb)
         jlosses.append(float(jm["total_loss"]))
         losses.append(float(m["total_loss"]))
-    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
     assert int(state["step"]) == 3
+    return (jlosses, dict(tree_flatten_with_paths(jax.device_get(jparams))),
+            losses, tree_flatten_with_paths(params))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "falcon-mamba-7b",
+                                  "granite-20b", "yi-9b"])
+def test_three_train_steps_match_the_references(arch):
+    """Three train steps: the losses at rtol 1e-4, the parameters after."""
+    jlosses, want, losses, params = _three_steps(arch)
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
     # Adam divides by sqrt(v): where a gradient entry is near 0, a
     # rounding-level difference in it moves that entry's step by up to a
     # fraction of lr (1e-2); such entries are a few in 10^4.  The key bias
     # is all such entries: its gradient is 0 in exact arithmetic (q·bk
     # shifts every key's score alike, which the softmax ignores), so its
     # steps follow rounding noise in either package and are not compared.
-    want = dict(tree_flatten_with_paths(jax.device_get(jparams)))
-    for path, p in tree_flatten_with_paths(params):
+    for path, p in params:
         if path.endswith("/bk"):
             continue
         diff = np.abs(p.numpy() - want[path])
         assert diff.max() < 1e-3 and np.mean(diff > 1e-5) < 1e-3, path
+
+
+def test_qwen3_three_train_steps_stay_within_the_references_own_spread():
+    """qwen3-14b (per-head RMS qk_norm) through the same three steps.  Its
+    steps amplify rounding about ten times more than qwen2-7b's: the
+    reference against itself, its parameters moved one ulp up, leaves
+    mixer/wo up to 1.7e-3 apart and 0.31 % of mixer/wq more than 1e-5
+    apart, past both of the test above's limits on the parameters, which
+    no float32 implementation that rounds otherwise can meet here (the
+    port's first gradients are as close to the reference's as qwen2-7b's,
+    within 1e-6 of each leaf's largest).  So the losses are held to rtol
+    1e-4 as above, and each parameter leaf after to the reference's own
+    spread on that leaf, measured here over the pairs of its three runs
+    (its draw, and the draw moved one ulp up and one down): the port's
+    share of the leaf more than 1e-5 apart at most the largest of those
+    pairs' shares, and its largest difference at most the largest of
+    theirs or the test above's 1e-3, whichever is larger (a leaf's largest
+    difference is one entry whose gradient is near 0, where Adam's step
+    follows rounding, as the test above says)."""
+    jlosses, want, losses, params = _three_steps("qwen3-14b")
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    up, down = (_three_steps("qwen3-14b", move)[1] for move in (1, -1))
+    for path, p in params:
+        spread = [np.abs(a[path] - b[path])
+                  for a, b in ((up, want), (down, want), (up, down))]
+        diff = np.abs(p.numpy() - want[path])
+        assert diff.max() <= max(1e-3, *(d.max() for d in spread)), path
+        assert np.mean(diff > 1e-5) <= \
+            max(np.mean(d > 1e-5) for d in spread), path
 
 
 def test_remat_modes_give_the_same_gradients(monkeypatch):

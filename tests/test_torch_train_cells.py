@@ -1,9 +1,13 @@
-"""chip_smoke.py's zamba2-7b and dbrx-132b training cells (phases 12b and
-13b) on the CPU against the JAX package.
+"""chip_smoke.py's training cells of phases 12b, 13b, 18b and 18c
+(zamba2-7b, dbrx-132b, granite-20b, qwen3-14b) and its serve cells of
+phase 18 on the CPU against the JAX package.
 
 - Each cell's parameter count is both packages' ``count_params`` at its
   cut, and a step launches flash attention on the ``wgmma`` route: twice a
   site (the forward and the remat recompute) and its backward once.
+- Each serve cell (granite-20b, yi-9b, qwen3-14b, llava-next-34b) is
+  served at the depth whose parameter count both packages give, with one
+  wgmma flash launch a layer in each of its 5 prefills.
 - dbrx-132b trains with ``Adafactor``, which ``make_optimizer`` gives to
   llama4* only (as the reference's does): two steps of ``make_train_step``
   with the port's Adafactor on the reduced config meet two steps of the
@@ -50,7 +54,12 @@ import chip_smoke  # noqa: E402
 # tests/test_torch_optim.py's float32 tolerance
 TOL = dict(rtol=1e-6, atol=1e-6)
 # (arch, flash forward launches a step, backward launches a step)
-CELLS = [(chip_smoke.HYBRID_ARCH, 8, 4), (chip_smoke.MOE_TRAIN_ARCH, 2, 1)]
+CELLS = [(chip_smoke.HYBRID_ARCH, 8, 4), (chip_smoke.MOE_TRAIN_ARCH, 2, 1),
+         ("granite-20b", 12, 6), ("qwen3-14b", 8, 4)]
+# (arch, layers served, flash launches in a serve run: a layer's one in
+# each of the traced request's and the 4 requests' prefills)
+SERVE_CELLS = [("granite-20b", 36, 180), ("yi-9b", 48, 240),
+               ("qwen3-14b", 40, 200), ("llava-next-34b", 23, 115)]
 
 
 def _batch(cfg, step, seq=16, batch=2):
@@ -62,7 +71,7 @@ def _batch(cfg, step, seq=16, batch=2):
 @pytest.mark.parametrize("arch,forwards,backwards", CELLS)
 def test_cells_count_the_references_parameters_and_launch_wgmma(
         arch, forwards, backwards):
-    layers, n_params, batch, seq = chip_smoke.TRAIN_CELLS[arch]
+    layers, n_params, batch, seq = chip_smoke.TRAIN_CELLS[arch][:4]
     assert (batch, seq) == (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)
     cfg = cut_depth(get_config(arch), layers)
     jcfg = jax_config(arch)
@@ -80,6 +89,26 @@ def test_cells_count_the_references_parameters_and_launch_wgmma(
     # make_optimizer is the reference's: Adafactor for llama4* only
     assert isinstance(ST.make_optimizer(cfg), P.AdamW)
     assert isinstance(JST.make_optimizer(jcfg), J.AdamW)
+
+
+@pytest.mark.parametrize("arch,layers,launches", SERVE_CELLS)
+def test_serve_cells_count_the_references_parameters_and_launch_wgmma(
+        arch, layers, launches):
+    (cell,) = [c for c in chip_smoke.SERVE_CELLS if c[0] == arch]
+    cfg = get_config(arch)
+    assert (cell[1] or cfg.n_layers) == layers
+    cfg = cut_depth(cfg, layers)
+    jcfg = jax_config(arch)
+    jcfg = dataclasses.replace(jcfg, n_layers=layers,
+                               layer_plan=jcfg.layer_plan[:layers])
+    assert PTF.count_params(cfg) == JTF.count_params(jcfg) == cell[2]
+    assert chip_smoke._path_kernel(cfg) == "flash_attention"
+    assert chip_smoke._kernel_layers(cfg) * chip_smoke.SERVE_PREFILLS == \
+        launches
+    assert chip_smoke.expected_route(cfg) == "wgmma"
+    assert (cfg.param_dtype, cfg.compute_dtype) == ("float32", "bfloat16")
+    assert chip_smoke._depth_args(cfg) == (
+        ["--layers", str(layers)] if cell[1] else [])
 
 
 def test_reduced_dbrx_adafactor_steps_match_the_references():
