@@ -51,6 +51,30 @@ Each phase prints one line; any failure raises and exits non-zero:
    it, the gateway's submit-to-dispatch and submit-to-gather seconds, the
    result frame's bytes and seconds, the pool's start-up, and the job's own
    kernel launches and tasks run, which must agree (simt, vector loads);
+4d. the cluster runtime's fault tolerance on the card — phase 4's DAG on 4
+   spawned workers, CUDA tensors, only ``reduce`` collected, five runs:
+   (a) speculation: the ``mul`` of the last ``[gen, gen, mul]`` super-task
+   sleeps in its first execution (a sentinel file in a temporary
+   directory), ``speculate_after`` is set, that super-task must be twinned
+   and a twin must win; (b) a fault
+   plan on the tcp channel (the workers' frames delayed, duplicated and
+   reordered, each worker's first fetch failed, a ``RetryPolicy`` on
+   fetches; unix sockets carry the values, since shared memory makes no
+   fetch to fail): no death and no recompute; (c) the 16 products summed by a
+   traced ``all_reduce(..., "sum", arity=2)``, worker 1 SIGKILLed once a
+   tree hop is done and before the root: the collective graph's own
+   sequential value (its gens and muls phase 4's), one death, fewer
+   recomputed super-tasks than the lowered graph has nodes; (d) a
+   ``python -m repro_torch.launch.remote`` worker dials the tcp driver and
+   joins the live run, and keeps at least one product it computed on the
+   card (the run log's ``done`` records); (e) the driver killed after 6
+   completions (``fail_driver``), then a new driver resumed from the run
+   log in ``checkpoint_dir``, the tcp workers rejoining it.  Every run's
+   ``reduce`` is the sequential one bit for bit, its workers' matmul
+   launches equal the ``mul`` tasks it saw run (twins, losers and
+   recomputes; a frame delivered twice is not a run), all simt with vector
+   loads, and this process launches none; each prints a ``runtime_path``
+   line (wall, ``first_done_s``, ``last_done_s``, the run's counters);
 5. ssm_scan — the selective-scan kernel against its plain version at the
    long-prefill shape (1x2048x8192, N = 16), a decode step (S = 1, with
    ``h0``) and a ragged shape (3x1000x1000, with ``h0``), in float32 and
@@ -331,8 +355,8 @@ full-width training step of each trained one (whisper-tiny's and
 llava-next-34b's too; device time by kernel,
 device busy share, and the device time of the port's own kernels).
 
-Then one JSON line of the kernels (``matmul`` counts phase 15a's launches
-too; ``flash_attention``, headed by its
+Then one JSON line of the kernels (``matmul`` counts phases 4d's and 15a's
+launches too; ``flash_attention``, headed by its
 wgmma kernel (its ``design`` says how it was redesigned: persistent blocks
 over one heaviest-first unit list, FA3's in-warpgroup overlap), counts the
 wrapper's launches on both routes, serving and
@@ -1336,6 +1360,305 @@ def phase_gateway_path(torch, graph, seq) -> int:
         for c in clients.values():
             c.close()
         gw.stop()
+    torch.cuda.empty_cache()
+    return total
+
+
+# phase 4d: the cluster runtime's fault-tolerance paths.  The straggling
+# mul's first execution sleeps past the twin's finish; (e) kills its driver
+# after this many completed super-tasks
+SPECULATE_AFTER = 2.0
+STRAGGLER_SLEEP_S = 5.0
+FAULT_PLAN_SEED = 23
+DRIVER_KILL_AFTER = 6
+
+
+def _straggling(path: str, sleep_s: float, fn, *xs):
+    """Phase 4d (a)'s straggler: runs ``fn``; its first execution anywhere
+    (the creator of the sentinel file ``path``) sleeps ``sleep_s`` first.
+    Module level, so a spawned worker unpickles it from this script."""
+    try:
+        fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        return fn(*xs)
+    os.close(fd)
+    time.sleep(sleep_s)
+    return fn(*xs)
+
+
+def _held(value):
+    """A task body returning a value computed earlier (phase 4's product)."""
+    return value
+
+
+def _fig2_all_reduce(n_tasks: int, size: int, device: str):
+    """Phase 4's DAG with its products summed by a traced binary
+    ``all_reduce`` before ``reduce`` (the tree's bracketing is the value)."""
+    from repro_torch.core import all_reduce, task, trace
+    from repro_torch.workloads import COST_GEN, COST_MUL, _gen, _mul, _red
+    nbytes = size * size * 4
+    gen = task(_gen, cost=COST_GEN, name="gen", out_bytes=nbytes)
+    mul = task(_mul, cost=COST_MUL, name="mul", out_bytes=nbytes)
+    red = task(_red, cost=0.0, name="reduce")
+
+    def driver():
+        return red(all_reduce(
+            [mul(gen(2 * i, size, "float32", device),
+                 gen(2 * i + 1, size, "float32", device))
+             for i in range(n_tasks)], "sum", arity=2))
+
+    return trace(driver)[0]
+
+
+def phase_runtime_path(torch, graph, seq) -> int:
+    """Phase 4d: the cluster runtime's fault-tolerance paths on phase 4's
+    DAG, 4 spawned workers, CUDA tensors, outputs only; returns the matmul
+    launches of its runs as the workers counted them.  Runs: (a) one
+    ``mul``'s first execution asleep, ``speculate_after`` set; (b) a fault
+    plan (delay, dup, reorder, a failed fetch) on the tcp channel; (c) the
+    products summed by a traced ``all_reduce`` with worker 1 SIGKILLed once
+    a tree hop is done; (d) a ``python -m repro_torch.launch.remote``
+    worker dialing the live tcp run; (e) the driver killed, then a new one
+    resumed from the run log.  Every run fails the phase unless its
+    ``reduce`` is the sequential value bit for bit (phase 4's; in (c) the
+    collective graph's), its workers' matmul launches equal the ``mul``
+    tasks it saw run (twins, losers and recomputes, never a frame delivered
+    twice), all on the simt route with vector loads, and this process
+    launched none.  The transport follows phase 4b's ``/dev/shm`` rule but
+    in (b), whose fetch faults need unix sockets."""
+    import tempfile
+    from functools import partial
+    from repro_torch.checkpoint.runlog import load_run
+    from repro_torch.cluster import ClusterExecutor, DriverKilled, serde
+    from repro_torch.config import ClusterConfig
+    from repro_torch.core import all_reduce, execute_sequential, task, trace
+    from repro_torch.core.collectives import lower_collectives
+    from repro_torch.core.fusion import fuse
+    from repro_torch.faults import FaultPlan, RetryPolicy
+    from repro_torch.workloads import _red, matrix_driver
+    values = sum(n.out_bytes for n in graph)
+    _, shm_free = shm_bytes()
+    room = serde.shm_available() and shm_free >= 2 * values
+    transport = "auto" if room else "sock"
+    device = str(next(iter(seq.values())).device)
+    driver = _counters()["matmul"]
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_4d_")
+    total = 0
+
+    def config(**kw):
+        kw.setdefault("transport", transport)
+        return ClusterConfig(n_workers=N_WORKERS, start_method="spawn",
+                             outputs_only=True,
+                             progress_timeout=PROCESS_TIMEOUT, **kw)
+
+    def run(ex, g):
+        _reset(driver)
+        t0 = time.perf_counter()
+        try:
+            return ex.run(g), time.perf_counter() - t0
+        finally:
+            ex.close()
+
+    def check(what, ex, g, got, wall, want, extra, complete=True):
+        """Holds one run to the phase's rules and prints its line."""
+        nonlocal total
+        stats = ex.stats
+        out = g.outputs[0]
+        if got is not None and (set(got) != {out}
+                                or not _same(torch, got[out], want)):
+            fail(f"{what}: reduce {got.get(out)} is not the sequential "
+                 f"{want}")
+        ran = stats["tasks_run"].get("mul", 0)
+        n_mul = sum(1 for n in g if n.name == "mul")
+        if complete and ran < n_mul:
+            fail(f"{what}: {ran} mul tasks ran for {n_mul} mul nodes")
+        in_workers = stats["kernel_launches"]
+        if in_workers != ({"matmul": ran, "matmul/simt": ran,
+                           "matmul/vector": ran} if ran else {}):
+            fail(f"{what}: the workers launched {in_workers}, expected "
+                 f"{ran} matmuls on the simt route with vector loads")
+        if driver.launches:
+            fail(f"{what}: this process launched {driver.launches} matmuls")
+        total += ran
+        line("runtime_path", {
+            "run": what, "workers": N_WORKERS, "wall_s": wall,
+            "first_done_s": stats["first_done_s"],
+            "last_done_s": stats["last_done_s"],
+            "transport_requested": ex.transport,
+            "transport_used": ex.transport_used, "nodes": len(g),
+            **{k: stats[k] for k in (
+                "n_clusters", "dispatched", "control_msgs", "failures",
+                "recomputed", "joins", "n_speculative", "speculative_wins",
+                "speculative_wasted_s", "bytes_direct", "bytes_driver")},
+            "tasks_run": stats["tasks_run"],
+            "worker_kernel_launches": in_workers, **extra,
+            "equals_sequential": got is not None,
+            "reduce": got[g.outputs[0]] if got is not None else None})
+
+    want = seq[graph.outputs[0]]
+    # (a) speculation: the straggler is the mul of the last [gen, gen, mul]
+    # cluster (no inputs to fetch, so a twin can start on any idle worker)
+    g = trace(matrix_driver, N_TASKS, SIZE, device=device)[0]
+    plan = fuse(g, "auto", keep_parallelism=N_TASKS)
+    cid = max(c for c, ms in plan.members.items()
+              if [g.nodes[m].name for m in ms] == ["gen", "gen", "mul"])
+    node = g.nodes[plan.members[cid][-1]]
+    node.fn = partial(_straggling, os.path.join(scratch, "straggler"),
+                      STRAGGLER_SLEEP_S, node.fn)
+    ex = ClusterExecutor(config=config(
+        fuse="auto", keep_parallelism=N_TASKS,
+        speculate_after=SPECULATE_AFTER))
+    got, wall = run(ex, g)
+    twinned = {e["tid"] for e in ex.speculation_events}
+    if cid not in twinned or ex.stats["speculative_wins"] < 1:
+        fail(f"speculation: super-tasks {sorted(twinned)} twinned, the "
+             f"straggler's is {cid}; {ex.stats['speculative_wins']} wins")
+    check("speculation", ex, g, got, wall, want, {
+        "straggler": f"mul#{node.tid}", "straggler_cluster": cid,
+        "straggler_sleep_s":
+        STRAGGLER_SLEEP_S, "speculate_after": SPECULATE_AFTER,
+        "speculation_events": ex.speculation_events})
+
+    # (b) a fault plan on the tcp channel: the workers' frames to the
+    # driver delayed, duplicated and reordered (the driver's to them are
+    # left alone: a parked ``stop`` would hold each worker to its 5 s
+    # shutdown timeout), and every worker's copy of the plan fails its
+    # first fetch (a pickled plan starts its counters afresh).  Fetch
+    # faults strike peer fetches, which shared memory never makes, so this
+    # run names the unix-socket transport
+    fault_plan = (FaultPlan(seed=FAULT_PLAN_SEED)
+                  .delay(0.01, dst="driver", prob=0.3)
+                  .duplicate(dst="driver", prob=0.3)
+                  .reorder(dst="driver", prob=0.3).fail_fetch(nth=1))
+    ex = ClusterExecutor(config=config(
+        channel="tcp", transport="sock", fuse="off", fault_plan=fault_plan,
+        fetch_retry=RetryPolicy(attempts=3, base_delay=0.01, jitter=0.0)))
+    got, wall = run(ex, graph)
+    if ex.stats["failures"] or ex.stats["recomputed"]:
+        fail(f"fault plan: {ex.stats['failures']} deaths, "
+             f"{ex.stats['recomputed']} recomputed super-tasks")
+    check("fault_plan_tcp", ex, graph, got, wall, want, {
+        "channel": "tcp", "faults": [vars(r) for r in fault_plan.rules],
+        **{k: ex.stats[k] for k in ("deplosts", "relay_fallbacks")}})
+
+    # (c) collectives: the products summed by a binary tree, worker 1
+    # SIGKILLed once a hop is done; the value is the collective graph's own
+    # sequential one, its gens and muls phase 4's values
+    g = _fig2_all_reduce(N_TASKS, SIZE, device)
+    products = [seq[n.tid] for n in graph if n.name == "mul"]
+    held = task(_held, name="mul")
+    reduce_ = task(_red, name="reduce")
+    eg = trace(lambda: reduce_(all_reduce([held(p) for p in products],
+                                          "sum", arity=2)))[0]
+    want_c = execute_sequential(eg)[eg.outputs[0]]
+    low, _ = lower_collectives(g, "auto")
+    n_hops = sum(1 for n in low.nodes.values() if "@L" in n.name)
+    ex = ClusterExecutor(config=config(fuse="auto", collectives="auto"))
+    at_kill = {}
+    done = threading.Event()
+
+    def kill_mid_tree():
+        while not done.wait(0.002):
+            try:        # the driver's thread updates the live stats
+                ran = dict(getattr(ex, "stats", {}).get("tasks_run", {}))
+            except RuntimeError:
+                continue
+            hops = sum(n for k, n in ran.items() if "@L" in k)
+            if hops:
+                at_kill.update(hops_done=hops,
+                               root_done="all_reduce[sum]" in ran)
+                ex.kill_worker(1)
+                return
+
+    killer = threading.Thread(target=kill_mid_tree, daemon=True)
+    killer.start()
+    try:
+        got, wall = run(ex, g)
+    finally:
+        done.set()
+        killer.join()
+    stats = ex.stats
+    if not at_kill or at_kill["root_done"] or stats["failures"] != 1 \
+            or not 1 <= stats["recomputed"] < len(low.nodes):
+        fail(f"collectives: killed at {at_kill}, {stats['failures']} "
+             f"deaths, {stats['recomputed']} recomputed of "
+             f"{len(low.nodes)} lowered nodes")
+    check("collectives_sigkill", ex, g, got, wall, want_c, {
+        "collective_roots": stats["collective_roots"],
+        "collective_stages": stats["collective_stages"],
+        "tree_hops": n_hops, "lowered_nodes": len(low.nodes),
+        "killed_worker": 1, "at_kill": at_kill,
+        "recovery_events": len(ex.recovery_events)})
+
+    # (d) a repro-worker dials the tcp driver; its dial waits in the
+    # listener until the run is seeded and live, then joins it (an elastic
+    # join: the driver replans onto 5 workers).  The run log says which
+    # products it kept
+    log_dir = os.path.join(scratch, "remote")
+    ex = ClusterExecutor(config=config(
+        channel="tcp", fuse="auto", keep_parallelism=N_TASKS,
+        checkpoint_dir=log_dir, checkpoint_interval=0.0))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else [])))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.remote", "--connect",
+         ex.address, "--timeout", str(PROCESS_TIMEOUT)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.perf_counter() + PROCESS_TIMEOUT
+        while ex.listener._pending.qsize() < 1:
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                fail(f"remote worker never dialed: "
+                     f"{proc.communicate()[0][-2000:]!r}")
+            time.sleep(0.05)
+        got, wall = run(ex, graph)
+        out, _ = proc.communicate(timeout=PROCESS_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wid = re.search(r"worker (\d+) finished cleanly", out)
+    if proc.returncode or wid is None or ex.stats["joins"] != 1:
+        fail(f"remote worker: rc {proc.returncode}, "
+             f"{ex.stats['joins']} joins, output {out[-2000:]!r}")
+    wid = int(wid.group(1))
+    ran_remote = sum(
+        1 for w, sizes in load_run(os.path.join(
+            log_dir, f"{ex.run_id}.log")).done.values()
+        if w == wid for m in sizes if graph.nodes[m].name == "mul")
+    if not ran_remote:
+        fail(f"remote worker {wid} ran no mul task")
+    check("remote_worker", ex, graph, got, wall, want, {
+        "channel": "tcp", "remote_wid": wid, "remote_muls": ran_remote})
+
+    # (e) the driver killed after DRIVER_KILL_AFTER completions, then a new
+    # driver resumes from the run log; the tcp workers survive the outage
+    # and rejoin it
+    log_dir = os.path.join(scratch, "resume")
+    kw = dict(channel="tcp", fuse="auto", keep_parallelism=N_TASKS,
+              checkpoint_dir=log_dir, checkpoint_interval=0.0)
+    ex = ClusterExecutor(config=config(fail_driver=DRIVER_KILL_AFTER, **kw))
+    _reset(driver)
+    t0 = time.perf_counter()
+    try:
+        ex.run(graph)
+        fail("driver kill: the run finished without the kill")
+    except DriverKilled:
+        pass
+    killed_wall = time.perf_counter() - t0
+    check("driver_killed", ex, graph, None, killed_wall, want, {
+        "fail_driver": DRIVER_KILL_AFTER}, complete=False)
+    ex2 = ClusterExecutor(config=config(resume=ex.run_id,
+                                        rejoin_timeout=PROCESS_TIMEOUT, **kw))
+    got, wall = run(ex2, graph)
+    stats = ex2.stats
+    if not stats["resumed_clusters"] or stats["failures"]:
+        fail(f"resume: {stats['resumed_clusters']} clusters resumed, "
+             f"{stats['failures']} deaths")
+    check("driver_resumed", ex2, graph, got, wall, want, {
+        "resumed_clusters": stats["resumed_clusters"],
+        "killed_run_wall_s": killed_wall}, complete=False)
     torch.cuda.empty_cache()
     return total
 
@@ -3928,6 +4251,7 @@ def main() -> int:
     launches, graph, seq = phase_main_path(torch, checks)
     launches += phase_process_path(torch, graph, seq)
     launches += phase_gateway_path(torch, graph, seq)
+    launches += phase_runtime_path(torch, graph, seq)
     seq_total = seq[graph.outputs[0]]
     del seq
     torch.cuda.empty_cache()

@@ -12,7 +12,10 @@ Port of ``repro/cluster/executor.py``.  What the port adds:
   with their ``done`` messages, by kernel and by route
   (``repro_torch/cluster/worker.py``); and ``stats["tasks_run"]``: by task
   name, the members of every super-task whose ``done`` the driver read,
-  each time it ran.  So the two can be held against each other.  In the
+  each time a worker ran it (a speculation loser and a recompute count, a
+  loser stopped at a member boundary with the members it ran; a frame
+  that the channel delivered twice counts once, by its number among its
+  worker's reports).  So the two can be held against each other.  In the
   resident run (the gateway's pool) each ``done`` is also attributed to the
   job whose id range holds its super-task: a job's future carries its own
   ``kernel_launches``, ``tasks_run`` and ``recomputed`` in its ``stats``
@@ -26,6 +29,11 @@ Port of ``repro/cluster/executor.py``.  What the port adds:
   were forked (see ``repro_torch/cluster/worker.py``).
 * Values cross processes as host bytes (``repro_torch/cluster/serde.py``);
   CUDA IPC is not used.
+* A spawned pool on the tcp channel starts all its dialers, then adopts
+  them in order by pid (the reference starts each once the one before has
+  dialed, seconds apart while each imports torch).  Forked dialers still
+  start one at a time: one forked later would inherit dials the listener
+  had accepted, and a driver restart's rejoin would stall on them.
 
 This is the paper's driver/worker architecture made real: workers are OS
 processes on this host (forked or spawned, wired by duplex pipes) or on
@@ -145,6 +153,7 @@ have completed cluster-wide.
 from __future__ import annotations
 
 import bisect
+import collections
 import multiprocessing as mp
 import os
 import pickle
@@ -155,7 +164,7 @@ import time
 import uuid
 from dataclasses import dataclass, field
 from multiprocessing.connection import wait as conn_wait
-from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Set, Tuple
 
 from repro_torch.checkpoint.runlog import (RunLog, graph_fingerprint,
                                      plan_fingerprint)
@@ -232,9 +241,23 @@ class _Worker:
     assigned: Set[int] = field(default_factory=set)   # waiting on transfers
     outbox: List[tuple] = field(default_factory=list)  # coalesced sends
     n_done: int = 0
+    # the seqs of this worker's latest reports of a run (``done``, mid-run
+    # ``cancelled``), so that a frame delivered twice is counted once.  The
+    # fault layer delivers a duplicate right behind its original and swaps
+    # only adjacent frames, so a short window is exact
+    recent_reports: Deque[int] = field(
+        default_factory=lambda: collections.deque(maxlen=64))
 
     def load(self) -> int:
         return len(self.inflight) + len(self.assigned)
+
+    def first_delivery(self, seq: int) -> bool:
+        """True the first time this worker's report number ``seq`` arrives,
+        False for a second delivery of the same frame."""
+        if seq in self.recent_reports:
+            return False
+        self.recent_reports.append(seq)
+        return True
 
 
 @dataclass
@@ -822,7 +845,7 @@ class ClusterExecutor:
             "first_done_s": 0.0, "last_done_s": 0.0,
             # kernel launches the workers reported with their done messages,
             # and the member tasks of those super-tasks by name (a
-            # recomputed or duplicated super-task counts each time it ran)
+            # recomputed or speculated super-task counts each time it ran)
             "kernel_launches": {}, "tasks_run": {},
         }
         if resident:
@@ -1077,36 +1100,43 @@ class ClusterExecutor:
                     return adopt(sock, hello, proc=proc)
                 dial_stash.append((sock, hello))
 
-        def spawn() -> _Worker:
-            """Start one local worker on the configured channel family."""
+        def start_dialer():
+            """Start one local TCP dialer process (adopted by
+            :func:`adopt_dialer_for` once it dials)."""
+            # fork children must drop every inherited driver-side fd:
+            # the listener (else a SIGKILL'd driver's port stays bound
+            # by its own workers and the resumed driver can never
+            # re-bind it) AND the accepted sockets of already-adopted
+            # peers (a child holding a dup keeps that connection alive
+            # past the driver's death, so the peer never sees EOF and
+            # never starts its rejoin dial)
+            inherited = ([listener.fileno()]
+                         if listener is not None else [])
+            for ow in workers.values():
+                s = getattr(ow.chan, "sock", None)
+                if ow.alive and s is not None:
+                    try:
+                        inherited.append(s.fileno())
+                    except OSError:
+                        pass
+            proc = ctx.Process(
+                target=tcp_worker_main, args=(self.address,),
+                kwargs=({"token": self.token, "graph": graph,
+                         "inputs": inputs,
+                         "close_fds": tuple(inherited)}
+                        if self.start_method == "fork"
+                        else {"token": self.token}),
+                daemon=True, name="cluster-worker-dialer")
+            proc.start()
+            return proc
+
+        def spawn(dialer=None) -> _Worker:
+            """Start one local worker on the configured channel family
+            (on the tcp channel, adopt ``dialer`` if it was started
+            already)."""
             nonlocal next_wid
             if self.channel == "tcp":
-                # fork children must drop every inherited driver-side fd:
-                # the listener (else a SIGKILL'd driver's port stays bound
-                # by its own workers and the resumed driver can never
-                # re-bind it) AND the accepted sockets of already-adopted
-                # peers (a child holding a dup keeps that connection alive
-                # past the driver's death, so the peer never sees EOF and
-                # never starts its rejoin dial)
-                inherited = ([listener.fileno()]
-                             if listener is not None else [])
-                for ow in workers.values():
-                    s = getattr(ow.chan, "sock", None)
-                    if ow.alive and s is not None:
-                        try:
-                            inherited.append(s.fileno())
-                        except OSError:
-                            pass
-                proc = ctx.Process(
-                    target=tcp_worker_main, args=(self.address,),
-                    kwargs=({"token": self.token, "graph": graph,
-                             "inputs": inputs,
-                             "close_fds": tuple(inherited)}
-                            if self.start_method == "fork"
-                            else {"token": self.token}),
-                    daemon=True, name="cluster-worker-dialer")
-                proc.start()
-                return adopt_dialer_for(proc)
+                return adopt_dialer_for(dialer or start_dialer())
             wid = next_wid
             next_wid += 1
             parent, child = ctx.Pipe(duplex=True)
@@ -2158,22 +2188,32 @@ class ClusterExecutor:
                 launch(cid, w, extra, speculative=True)
                 idle.remove(w)
 
+        def count_run(cid: int, launches: Dict[str, int],
+                      members: Optional[Sequence[int]] = None) -> None:
+            """One run of super-task ``cid`` that a worker made (``members``:
+            the ones a run stopped at a member boundary ran): its kernel
+            launches and its member tasks, run-wide and for its job."""
+            j = job_of(cid)
+            mine = j is not None and not j.terminal
+            for k, n in launches.items():
+                launched[k] = launched.get(k, 0) + n
+                if mine:
+                    j.kernel_launches[k] = j.kernel_launches.get(k, 0) + n
+            if members is None:
+                members = plan.members.get(cid, ())
+            for m in members:
+                node = graph.nodes.get(m)
+                if node is not None:
+                    ran[node.name] = ran.get(node.name, 0) + 1
+                    if mine:
+                        j.tasks_run[node.name] = \
+                            j.tasks_run.get(node.name, 0) + 1
+
         def handle_msg(w: _Worker, msg: tuple) -> None:
             verb = msg[0]
             if verb == "done":
-                j = job_of(msg[2])
-                mine = j is not None and not j.terminal
-                for k, n in msg[6].items():
-                    launched[k] = launched.get(k, 0) + n
-                    if mine:
-                        j.kernel_launches[k] = j.kernel_launches.get(k, 0) + n
-                for m in plan.members.get(msg[2], ()):
-                    node = graph.nodes.get(m)
-                    if node is not None:
-                        ran[node.name] = ran.get(node.name, 0) + 1
-                        if mine:
-                            j.tasks_run[node.name] = \
-                                j.tasks_run.get(node.name, 0) + 1
+                if w.first_delivery(msg[7]):
+                    count_run(msg[2], msg[6])
                 on_done(w, msg[2], msg[3], msg[4], msg[5])
             elif verb == "value":
                 on_value(w, msg[2], msg[3], msg[4])
@@ -2185,8 +2225,11 @@ class ClusterExecutor:
             elif verb == "deplost":
                 on_deplost(w, msg[2], msg[3])
             elif verb == "cancelled":
-                # 3-tuple: skipped while queued; 5-tuple: aborted at a
-                # member boundary mid-run (replicated inputs + partial wall)
+                # 3-tuple: skipped while queued; 8-tuple: aborted at a
+                # member boundary mid-run (replicated inputs, partial wall,
+                # the members it ran and their launches, the report's seq)
+                if len(msg) > 3 and w.first_delivery(msg[7]):
+                    count_run(msg[2], msg[6], members=msg[5])
                 on_cancelled(w, msg[2], *(msg[3:5] if len(msg) > 3 else ()))
             elif verb == "fetch_error":
                 # a fetch reply that could not be serialized names a VALUE
@@ -2797,11 +2840,19 @@ class ClusterExecutor:
                 if not error:
                     make_plan(initial=False)
             else:
+                # spawned tcp dialers start together, then are adopted in
+                # order (each by its pid): each takes seconds to import
+                # torch before it dials.  Forked ones start one at a time,
+                # so that none inherits a dial the listener has accepted
+                dialers = [start_dialer() for spec in self.worker_specs
+                           if spec != "remote"] \
+                    if self.channel == "tcp" \
+                    and self.start_method != "fork" else []
                 for spec in self.worker_specs:
                     if spec == "remote":
                         adopt_remote()
                     else:
-                        spawn()
+                        spawn(dialers.pop(0) if dialers else None)
                 make_plan(initial=True)
             if pool_up is not None:
                 pool_up.set()           # the pool's first workers are up

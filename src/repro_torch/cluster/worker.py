@@ -15,7 +15,11 @@ Port of ``repro/cluster/worker.py``.  Two things are the port's own:
   driver sums them into ``stats["kernel_launches"]``, so a run shows which
   kernels its workers launched, by route.  Launches of a super-task that
   failed or was cancelled ride on the next ``done``; those of a worker that
-  dies before its next ``done`` are lost with it.
+  dies before its next ``done`` are lost with it.  A run stopped at a
+  member boundary (a speculation loser) reports the members it ran and
+  their launches in its ``cancelled`` ack.  Each of these reports carries
+  its number among this worker's reports, so that the driver counts a
+  frame the channel delivered twice once.
 * **No CUDA in a forked child** (Pitfall (b) of ROADMAP §1 item 3).  Once
   the driver has touched CUDA, a forked worker whose task touches it gets
   torch's "Cannot re-initialize CUDA in forked subprocess"; that is a task
@@ -77,14 +81,18 @@ id from the run's fusion plan — equal to the task id when fusion is off):
     ("stop",)               drain and exit
 
   worker -> driver
-    ("done",    wid, cid, wall, sizes, replicated, launches)
+    ("done",    wid, cid, wall, sizes, replicated, launches, seq)
                             super-task finished; kept values stay local.
                             ``sizes`` maps kept member tid -> payload
                             bytes (locality-aware placement); ``replicated``
                             lists input value tids this worker now also
                             holds; ``launches`` maps kernel (and
                             kernel/route) -> launches since this worker's
-                            previous ``done``.
+                            previous report; ``seq`` numbers this
+                            worker's reports of a run (``done`` and a
+                            mid-run ``cancelled``: 0, 1, ...), so the
+                            driver counts a frame that the channel
+                            delivered twice once.
     ("error",   wid, cid, name, repr)    a member raised — surfaced as a
                             task error, never a worker death
     ("fetch_error", wid, tid, name, repr)  a fetch reply's VALUE could not
@@ -100,6 +108,11 @@ id from the run's fusion plan — equal to the task id when fusion is off):
     ("cancelled", wid, cid)              a queued run of ``cid`` was skipped
                             because a ``cancel`` (possibly stale) covered
                             it; the driver re-queues it if still wanted
+    ("cancelled", wid, cid, replicated, wall, ran, launches, seq)
+                            a run of ``cid`` stopped at a member boundary:
+                            the inputs it materialized, the partial wall,
+                            the member tids it ran and their launches
+                            (numbered with the ``done`` frames)
     ("batch",   msgs)                    coalesced burst of the above (the
                             sender thread drains its outbox greedily)
     ("hb",)                              heartbeat (TCP channels)
@@ -118,6 +131,7 @@ messages carry only ids and handles, independent of payload size.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import pickle
 import signal
@@ -228,6 +242,8 @@ def worker_main(wid: int, chan, graph: TaskGraph,
                  if n != reported.get(k, 0)}
         reported.update(now)
         return delta
+
+    n_reports = itertools.count()   # the seq of this worker's next report
 
     if getattr(chan, "supports_rejoin", False):
         # Driver-restart re-adoption: the first frame on a rejoined socket
@@ -539,6 +555,7 @@ def worker_main(wid: int, chan, graph: TaskGraph,
             # intermediates live and die here — no store write, no
             # publish, no control message (the fusion win)
             aborted = False
+            ran: List[int] = []
             for m in members_of(cid):
                 if cid in cancelled:
                     # cooperative mid-task cancel: a speculation loser
@@ -553,11 +570,13 @@ def worker_main(wid: int, chan, graph: TaskGraph,
                     if d not in frame:
                         frame[d] = store[d]
                 frame[m] = run_node(graph, m, frame, inputs)
+                ran.append(m)
             cur = None
             if aborted:
                 cancelled.discard(cid)
                 outq.put(("cancelled", wid, cid, replicated,
-                          time.perf_counter() - t0))
+                          time.perf_counter() - t0, ran, new_launches(),
+                          next(n_reports)))
                 continue
             sizes: Dict[int, int] = {}
             for m in keep_of(cid):
@@ -568,7 +587,7 @@ def worker_main(wid: int, chan, graph: TaskGraph,
             # mark so it cannot eat a future re-dispatch of this cid
             cancelled.discard(cid)
             outq.put(("done", wid, cid, time.perf_counter() - t0,
-                      sizes, replicated, new_launches()))
+                      sizes, replicated, new_launches(), next(n_reports)))
         except BaseException as e:       # noqa: BLE001 — shipped to driver
             cancelled.discard(cid)
             detail = repr(e)
