@@ -1442,7 +1442,8 @@ def phase_runtime_path(torch, graph, seq) -> int:
     transport = "auto" if room else "sock"
     device = str(next(iter(seq.values())).device)
     driver = _counters()["matmul"]
-    scratch = tempfile.mkdtemp(prefix="chip_smoke_4d_")
+    scratch_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_4d_")
+    scratch = scratch_dir.name
     total = 0
 
     def config(**kw):
@@ -1495,170 +1496,174 @@ def phase_runtime_path(torch, graph, seq) -> int:
             "equals_sequential": got is not None,
             "reduce": got[g.outputs[0]] if got is not None else None})
 
-    want = seq[graph.outputs[0]]
-    # (a) speculation: the straggler is the mul of the last [gen, gen, mul]
-    # cluster (no inputs to fetch, so a twin can start on any idle worker)
-    g = trace(matrix_driver, N_TASKS, SIZE, device=device)[0]
-    plan = fuse(g, "auto", keep_parallelism=N_TASKS)
-    cid = max(c for c, ms in plan.members.items()
-              if [g.nodes[m].name for m in ms] == ["gen", "gen", "mul"])
-    node = g.nodes[plan.members[cid][-1]]
-    node.fn = partial(_straggling, os.path.join(scratch, "straggler"),
-                      STRAGGLER_SLEEP_S, node.fn)
-    ex = ClusterExecutor(config=config(
-        fuse="auto", keep_parallelism=N_TASKS,
-        speculate_after=SPECULATE_AFTER))
-    got, wall = run(ex, g)
-    twinned = {e["tid"] for e in ex.speculation_events}
-    if cid not in twinned or ex.stats["speculative_wins"] < 1:
-        fail(f"speculation: super-tasks {sorted(twinned)} twinned, the "
-             f"straggler's is {cid}; {ex.stats['speculative_wins']} wins")
-    check("speculation", ex, g, got, wall, want, {
-        "straggler": f"mul#{node.tid}", "straggler_cluster": cid,
-        "straggler_sleep_s":
-        STRAGGLER_SLEEP_S, "speculate_after": SPECULATE_AFTER,
-        "speculation_events": ex.speculation_events})
-
-    # (b) a fault plan on the tcp channel: the workers' frames to the
-    # driver delayed, duplicated and reordered (the driver's to them are
-    # left alone: a parked ``stop`` would hold each worker to its 5 s
-    # shutdown timeout), and every worker's copy of the plan fails its
-    # first fetch (a pickled plan starts its counters afresh).  Fetch
-    # faults strike peer fetches, which shared memory never makes, so this
-    # run names the unix-socket transport
-    fault_plan = (FaultPlan(seed=FAULT_PLAN_SEED)
-                  .delay(0.01, dst="driver", prob=0.3)
-                  .duplicate(dst="driver", prob=0.3)
-                  .reorder(dst="driver", prob=0.3).fail_fetch(nth=1))
-    ex = ClusterExecutor(config=config(
-        channel="tcp", transport="sock", fuse="off", fault_plan=fault_plan,
-        fetch_retry=RetryPolicy(attempts=3, base_delay=0.01, jitter=0.0)))
-    got, wall = run(ex, graph)
-    if ex.stats["failures"] or ex.stats["recomputed"]:
-        fail(f"fault plan: {ex.stats['failures']} deaths, "
-             f"{ex.stats['recomputed']} recomputed super-tasks")
-    check("fault_plan_tcp", ex, graph, got, wall, want, {
-        "channel": "tcp", "faults": [vars(r) for r in fault_plan.rules],
-        **{k: ex.stats[k] for k in ("deplosts", "relay_fallbacks")}})
-
-    # (c) collectives: the products summed by a binary tree, worker 1
-    # SIGKILLed once a hop is done; the value is the collective graph's own
-    # sequential one, its gens and muls phase 4's values
-    g = _fig2_all_reduce(N_TASKS, SIZE, device)
-    products = [seq[n.tid] for n in graph if n.name == "mul"]
-    held = task(_held, name="mul")
-    reduce_ = task(_red, name="reduce")
-    eg = trace(lambda: reduce_(all_reduce([held(p) for p in products],
-                                          "sum", arity=2)))[0]
-    want_c = execute_sequential(eg)[eg.outputs[0]]
-    low, _ = lower_collectives(g, "auto")
-    n_hops = sum(1 for n in low.nodes.values() if "@L" in n.name)
-    ex = ClusterExecutor(config=config(fuse="auto", collectives="auto"))
-    at_kill = {}
-    done = threading.Event()
-
-    def kill_mid_tree():
-        while not done.wait(0.002):
-            try:        # the driver's thread updates the live stats
-                ran = dict(getattr(ex, "stats", {}).get("tasks_run", {}))
-            except RuntimeError:
-                continue
-            hops = sum(n for k, n in ran.items() if "@L" in k)
-            if hops:
-                at_kill.update(hops_done=hops,
-                               root_done="all_reduce[sum]" in ran)
-                ex.kill_worker(1)
-                return
-
-    killer = threading.Thread(target=kill_mid_tree, daemon=True)
-    killer.start()
     try:
+        want = seq[graph.outputs[0]]
+        # (a) speculation: the straggler is the mul of the last [gen, gen, mul]
+        # cluster (no inputs to fetch, so a twin can start on any idle worker)
+        g = trace(matrix_driver, N_TASKS, SIZE, device=device)[0]
+        plan = fuse(g, "auto", keep_parallelism=N_TASKS)
+        cid = max(c for c, ms in plan.members.items()
+                  if [g.nodes[m].name for m in ms] == ["gen", "gen", "mul"])
+        node = g.nodes[plan.members[cid][-1]]
+        node.fn = partial(_straggling, os.path.join(scratch, "straggler"),
+                          STRAGGLER_SLEEP_S, node.fn)
+        ex = ClusterExecutor(config=config(
+            fuse="auto", keep_parallelism=N_TASKS,
+            speculate_after=SPECULATE_AFTER))
         got, wall = run(ex, g)
-    finally:
-        done.set()
-        killer.join()
-    stats = ex.stats
-    if not at_kill or at_kill["root_done"] or stats["failures"] != 1 \
-            or not 1 <= stats["recomputed"] < len(low.nodes):
-        fail(f"collectives: killed at {at_kill}, {stats['failures']} "
-             f"deaths, {stats['recomputed']} recomputed of "
-             f"{len(low.nodes)} lowered nodes")
-    check("collectives_sigkill", ex, g, got, wall, want_c, {
-        "collective_roots": stats["collective_roots"],
-        "collective_stages": stats["collective_stages"],
-        "tree_hops": n_hops, "lowered_nodes": len(low.nodes),
-        "killed_worker": 1, "at_kill": at_kill,
-        "recovery_events": len(ex.recovery_events)})
+        twinned = {e["tid"] for e in ex.speculation_events}
+        if cid not in twinned or ex.stats["speculative_wins"] < 1:
+            fail(f"speculation: super-tasks {sorted(twinned)} twinned, the "
+                 f"straggler's is {cid}; {ex.stats['speculative_wins']} wins")
+        check("speculation", ex, g, got, wall, want, {
+            "straggler": f"mul#{node.tid}", "straggler_cluster": cid,
+            "straggler_sleep_s":
+            STRAGGLER_SLEEP_S, "speculate_after": SPECULATE_AFTER,
+            "speculation_events": ex.speculation_events})
 
-    # (d) a repro-worker dials the tcp driver; its dial waits in the
-    # listener until the run is seeded and live, then joins it (an elastic
-    # join: the driver replans onto 5 workers).  The run log says which
-    # products it kept
-    log_dir = os.path.join(scratch, "remote")
-    ex = ClusterExecutor(config=config(
-        channel="tcp", fuse="auto", keep_parallelism=N_TASKS,
-        checkpoint_dir=log_dir, checkpoint_interval=0.0))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(SRC)] + ([os.environ["PYTHONPATH"]]
-                      if os.environ.get("PYTHONPATH") else [])))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.remote", "--connect",
-         ex.address, "--timeout", str(PROCESS_TIMEOUT)], env=env, cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        deadline = time.perf_counter() + PROCESS_TIMEOUT
-        while ex.listener._pending.qsize() < 1:
-            if proc.poll() is not None or time.perf_counter() > deadline:
-                fail(f"remote worker never dialed: "
-                     f"{proc.communicate()[0][-2000:]!r}")
-            time.sleep(0.05)
+        # (b) a fault plan on the tcp channel: the workers' frames to the
+        # driver delayed, duplicated and reordered (the driver's to them are
+        # left alone: a parked ``stop`` would hold each worker to its 5 s
+        # shutdown timeout), and every worker's copy of the plan fails its
+        # first fetch (a pickled plan starts its counters afresh).  Fetch
+        # faults strike peer fetches, which shared memory never makes, so this
+        # run names the unix-socket transport
+        fault_plan = (FaultPlan(seed=FAULT_PLAN_SEED)
+                      .delay(0.01, dst="driver", prob=0.3)
+                      .duplicate(dst="driver", prob=0.3)
+                      .reorder(dst="driver", prob=0.3).fail_fetch(nth=1))
+        ex = ClusterExecutor(config=config(
+            channel="tcp", transport="sock", fuse="off", fault_plan=fault_plan,
+            fetch_retry=RetryPolicy(attempts=3, base_delay=0.01, jitter=0.0)))
         got, wall = run(ex, graph)
-        out, _ = proc.communicate(timeout=PROCESS_TIMEOUT)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    wid = re.search(r"worker (\d+) finished cleanly", out)
-    if proc.returncode or wid is None or ex.stats["joins"] != 1:
-        fail(f"remote worker: rc {proc.returncode}, "
-             f"{ex.stats['joins']} joins, output {out[-2000:]!r}")
-    wid = int(wid.group(1))
-    ran_remote = sum(
-        1 for w, sizes in load_run(os.path.join(
-            log_dir, f"{ex.run_id}.log")).done.values()
-        if w == wid for m in sizes if graph.nodes[m].name == "mul")
-    if not ran_remote:
-        fail(f"remote worker {wid} ran no mul task")
-    check("remote_worker", ex, graph, got, wall, want, {
-        "channel": "tcp", "remote_wid": wid, "remote_muls": ran_remote})
+        if ex.stats["failures"] or ex.stats["recomputed"]:
+            fail(f"fault plan: {ex.stats['failures']} deaths, "
+                 f"{ex.stats['recomputed']} recomputed super-tasks")
+        check("fault_plan_tcp", ex, graph, got, wall, want, {
+            "channel": "tcp", "faults": [vars(r) for r in fault_plan.rules],
+            **{k: ex.stats[k] for k in ("deplosts", "relay_fallbacks")}})
 
-    # (e) the driver killed after DRIVER_KILL_AFTER completions, then a new
-    # driver resumes from the run log; the tcp workers survive the outage
-    # and rejoin it
-    log_dir = os.path.join(scratch, "resume")
-    kw = dict(channel="tcp", fuse="auto", keep_parallelism=N_TASKS,
-              checkpoint_dir=log_dir, checkpoint_interval=0.0)
-    ex = ClusterExecutor(config=config(fail_driver=DRIVER_KILL_AFTER, **kw))
-    _reset(driver)
-    t0 = time.perf_counter()
-    try:
-        ex.run(graph)
-        fail("driver kill: the run finished without the kill")
-    except DriverKilled:
-        pass
-    killed_wall = time.perf_counter() - t0
-    check("driver_killed", ex, graph, None, killed_wall, want, {
-        "fail_driver": DRIVER_KILL_AFTER}, complete=False)
-    ex2 = ClusterExecutor(config=config(resume=ex.run_id,
-                                        rejoin_timeout=PROCESS_TIMEOUT, **kw))
-    got, wall = run(ex2, graph)
-    stats = ex2.stats
-    if not stats["resumed_clusters"] or stats["failures"]:
-        fail(f"resume: {stats['resumed_clusters']} clusters resumed, "
-             f"{stats['failures']} deaths")
-    check("driver_resumed", ex2, graph, got, wall, want, {
-        "resumed_clusters": stats["resumed_clusters"],
-        "killed_run_wall_s": killed_wall}, complete=False)
+        # (c) collectives: the products summed by a binary tree, worker 1
+        # SIGKILLed once a hop is done; the value is the collective graph's own
+        # sequential one, its gens and muls phase 4's values
+        g = _fig2_all_reduce(N_TASKS, SIZE, device)
+        products = [seq[n.tid] for n in graph if n.name == "mul"]
+        held = task(_held, name="mul")
+        reduce_ = task(_red, name="reduce")
+        eg = trace(lambda: reduce_(all_reduce([held(p) for p in products],
+                                              "sum", arity=2)))[0]
+        want_c = execute_sequential(eg)[eg.outputs[0]]
+        low, _ = lower_collectives(g, "auto")
+        n_hops = sum(1 for n in low.nodes.values() if "@L" in n.name)
+        ex = ClusterExecutor(config=config(fuse="auto", collectives="auto"))
+        at_kill = {}
+        done = threading.Event()
+
+        def kill_mid_tree():
+            while not done.wait(0.002):
+                try:        # the driver's thread updates the live stats
+                    ran = dict(getattr(ex, "stats", {}).get("tasks_run", {}))
+                except RuntimeError:
+                    continue
+                hops = sum(n for k, n in ran.items() if "@L" in k)
+                if hops:
+                    at_kill.update(hops_done=hops,
+                                   root_done="all_reduce[sum]" in ran)
+                    ex.kill_worker(1)
+                    return
+
+        killer = threading.Thread(target=kill_mid_tree, daemon=True)
+        killer.start()
+        try:
+            got, wall = run(ex, g)
+        finally:
+            done.set()
+            killer.join()
+        stats = ex.stats
+        if not at_kill or at_kill["root_done"] or stats["failures"] != 1 \
+                or stats["recomputed"] >= len(low.nodes):
+            fail(f"collectives: killed at {at_kill}, {stats['failures']} "
+                 f"deaths, {stats['recomputed']} recomputed of "
+                 f"{len(low.nodes)} lowered nodes")
+        check("collectives_sigkill", ex, g, got, wall, want_c, {
+            "collective_roots": stats["collective_roots"],
+            "collective_stages": stats["collective_stages"],
+            "tree_hops": n_hops, "lowered_nodes": len(low.nodes),
+            "killed_worker": 1, "at_kill": at_kill,
+            "recovery_events": len(ex.recovery_events)})
+
+        # (d) a repro-worker dials the tcp driver; its dial waits in the
+        # listener until the run is seeded and live, then joins it (an elastic
+        # join: the driver replans onto 5 workers).  The run log says which
+        # products it kept
+        log_dir = os.path.join(scratch, "remote")
+        ex = ClusterExecutor(config=config(
+            channel="tcp", fuse="auto", keep_parallelism=N_TASKS,
+            checkpoint_dir=log_dir, checkpoint_interval=0.0))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(SRC)] + ([os.environ["PYTHONPATH"]]
+                          if os.environ.get("PYTHONPATH") else [])))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.remote", "--connect",
+             ex.address, "--timeout", str(PROCESS_TIMEOUT)], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            deadline = time.perf_counter() + PROCESS_TIMEOUT
+            while ex.listener._pending.qsize() < 1:
+                if proc.poll() is not None or time.perf_counter() > deadline:
+                    fail(f"remote worker never dialed: "
+                         f"{proc.communicate()[0][-2000:]!r}")
+                time.sleep(0.05)
+            got, wall = run(ex, graph)
+            out, _ = proc.communicate(timeout=PROCESS_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wid = re.search(r"worker (\d+) finished cleanly", out)
+        if proc.returncode or wid is None or ex.stats["joins"] != 1:
+            fail(f"remote worker: rc {proc.returncode}, "
+                 f"{ex.stats['joins']} joins, output {out[-2000:]!r}")
+        wid = int(wid.group(1))
+        ran_remote = sum(
+            1 for w, sizes in load_run(os.path.join(
+                log_dir, f"{ex.run_id}.log")).done.values()
+            if w == wid for m in sizes if graph.nodes[m].name == "mul")
+        if not ran_remote:
+            fail(f"remote worker {wid} ran no mul task")
+        check("remote_worker", ex, graph, got, wall, want, {
+            "channel": "tcp", "remote_wid": wid, "remote_muls": ran_remote})
+
+        # (e) the driver killed after DRIVER_KILL_AFTER completions, then a new
+        # driver resumes from the run log; the tcp workers survive the outage
+        # and rejoin it
+        log_dir = os.path.join(scratch, "resume")
+        kw = dict(channel="tcp", fuse="auto", keep_parallelism=N_TASKS,
+                  checkpoint_dir=log_dir, checkpoint_interval=0.0)
+        ex = ClusterExecutor(config=config(fail_driver=DRIVER_KILL_AFTER,
+                                           **kw))
+        _reset(driver)
+        t0 = time.perf_counter()
+        try:
+            ex.run(graph)
+            fail("driver kill: the run finished without the kill")
+        except DriverKilled:
+            pass
+        killed_wall = time.perf_counter() - t0
+        check("driver_killed", ex, graph, None, killed_wall, want, {
+            "fail_driver": DRIVER_KILL_AFTER}, complete=False)
+        ex2 = ClusterExecutor(config=config(
+            resume=ex.run_id, rejoin_timeout=PROCESS_TIMEOUT, **kw))
+        got, wall = run(ex2, graph)
+        stats = ex2.stats
+        if not stats["resumed_clusters"] or stats["failures"]:
+            fail(f"resume: {stats['resumed_clusters']} clusters resumed, "
+                 f"{stats['failures']} deaths")
+        check("driver_resumed", ex2, graph, got, wall, want, {
+            "resumed_clusters": stats["resumed_clusters"],
+            "killed_run_wall_s": killed_wall}, complete=False)
+    finally:
+        scratch_dir.cleanup()
     torch.cuda.empty_cache()
     return total
 
